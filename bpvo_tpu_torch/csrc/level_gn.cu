@@ -27,6 +27,14 @@
 // SE(3) update and the tests, and publishes the new state through shared
 // memory behind a barrier.  One block uses one of the 132 SMs; spreading the
 // finest level over a cluster is later work.
+//
+// Projection, sampling, residuals and weights round every product and sum
+// on its own (__fmul_rn / __fadd_rn are never contracted into FMAs), in the
+// plain version's order of tensor ops, so a residual equals the plain
+// version's bit for bit.  The median bisection needs that: on Bit-Planes
+// channels (smoothed census bits) many residuals tie, and with contracted
+// FMAs a 1-ulp difference moved a count across a bisection boundary and the
+// first linearization's sigma by 1e-3 at C=8.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,7 +79,7 @@ struct State {
 __device__ __forceinline__ float robust_weight(float u, int loss) {
   if (loss == kTukey) {
     const float x = u / kTukeyT;
-    const float w = 1.0f - x * x;
+    const float w = __fsub_rn(1.0f, __fmul_rn(x, x));
     return fabsf(u) < kTukeyT ? w * w : 0.0f;
   }
   if (loss == kHuber) {
@@ -79,6 +87,14 @@ __device__ __forceinline__ float robust_weight(float u, int loss) {
     return au < kHuberK ? 1.0f : kHuberK / fmaxf(au, 1e-20f);
   }
   return 1.0f;
+}
+
+// T[0..2] . (X, Y, Z) + t with the plain version's rounding.
+__device__ __forceinline__ float row_dot(const float* T, float X, float Y,
+                                         float Z, float t) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[0], X), __fmul_rn(T[1], Y)),
+                             __fmul_rn(T[2], Z)),
+                   t);
 }
 
 // Block-wide sum (or max) of N values per thread; every thread gets the
@@ -305,12 +321,12 @@ level_gn_kernel(Params p, const float* __restrict__ pts,
     float n_loc = 0.0f, amax = 0.0f;
     for (int k = tid; k < K; k += kThreads) {
       const float X = pts[3 * k], Y = pts[3 * k + 1], Z = pts[3 * k + 2];
-      const float Xc = T[0] * X + T[1] * Y + T[2] * Z + T[9];
-      const float Yc = T[3] * X + T[4] * Y + T[5] * Z + T[10];
-      const float Zc = T[6] * X + T[7] * Y + T[8] * Z + T[11];
+      const float Xc = row_dot(T, X, Y, Z, T[9]);
+      const float Yc = row_dot(T + 3, X, Y, Z, T[10]);
+      const float Zc = row_dot(T + 6, X, Y, Z, T[11]);
       const float zi = 1.0f / (fabsf(Zc) > 1e-12f ? Zc : 1e-12f);
-      const float u = p.fx * Xc * zi + p.cx;
-      const float v = p.fy * Yc * zi + p.cy;
+      const float u = __fadd_rn(__fmul_rn(__fmul_rn(p.fx, Xc), zi), p.cx);
+      const float v = __fadd_rn(__fmul_rn(__fmul_rn(p.fy, Yc), zi), p.cy);
       const float xi = floorf(u), yi = floorf(v);
       const bool ok = valid[k] && Zc > 1e-6f && xi >= 0.0f &&
                       xi < (float)(W - 1) && yi >= 0.0f && yi < (float)(H - 1);
@@ -324,13 +340,15 @@ level_gn_kernel(Params p, const float* __restrict__ pts,
         xf = (1.0f - cosf(xf * kPi)) * 0.5f;
         yf = (1.0f - cosf(yf * kPi)) * 0.5f;
       }
+      const float ox = 1.0f - xf, oy = 1.0f - yf;
       const size_t base = (size_t)(int)yi * W + (int)xi;
       for (int c = 0; c < C; ++c) {
         const float* I = img + c * HW + base;
         const float i00 = __ldg(I), i01 = __ldg(I + 1);
         const float i10 = __ldg(I + W), i11 = __ldg(I + W + 1);
-        const float I1 = (1.0f - yf) * ((1.0f - xf) * i00 + xf * i01) +
-                         yf * ((1.0f - xf) * i10 + xf * i11);
+        const float top = __fadd_rn(__fmul_rn(ox, i00), __fmul_rn(xf, i01));
+        const float bot = __fadd_rn(__fmul_rn(ox, i10), __fmul_rn(xf, i11));
+        const float I1 = __fadd_rn(__fmul_rn(oy, top), __fmul_rn(yf, bot));
         const float r = I1 - pix[(size_t)c * K + k];
         rbuf[(size_t)c * K + k] = r;
         if (c == 0) amax = fmaxf(amax, fabsf(r));

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels at first use and bind them by ctypes.
 
-``nvcc`` compiles every ``bpvo_tpu_torch/csrc/*.cu`` of this checkout into
-one shared library under ``build/bpvo_tpu_torch/`` (listed in .gitignore),
-named by a hash of the sources so a changed source is rebuilt.  The library
+``nvcc`` compiles every ``bpvo_tpu_torch/csrc/*.cu`` of this checkout, one
+process per source, all started together, and links the objects into one
+shared library under ``build/bpvo_tpu_torch/`` (listed in .gitignore), named
+by a hash of the sources so a changed source is rebuilt.  The library
 exposes plain C entry points that return ``cudaGetLastError()``.  A failed
 build raises with nvcc's stderr.
 """
@@ -18,7 +19,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "bpvo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib = None
 
@@ -42,7 +44,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libbpvo_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -54,14 +56,36 @@ def compile_library() -> str:
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:          # wait for every compile
+        stdout, stderr = proc.communicate()
+        logs.append(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{stderr}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)   # atomic: a concurrent build never sees half
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+    return "".join(logs) + proc.stdout + proc.stderr
 
 
 def library() -> ctypes.CDLL:
@@ -74,6 +98,10 @@ def library() -> ctypes.CDLL:
         lib.bpvo_level_gn.argtypes = ([p] * 14 + [i] * 4 + [f] * 6 + [i] * 3
                                       + [f] * 5 + [p])
         lib.bpvo_level_gn.restype = i
+        lib.bpvo_census_planes.argtypes = [p, p, i, i, p]
+        lib.bpvo_census_planes.restype = i
+        lib.bpvo_sgm_aggregate.argtypes = [p, p, i, i, i, f, f, i, p]
+        lib.bpvo_sgm_aggregate.restype = i
         lib.bpvo_cuda_error_string.argtypes = [i]
         lib.bpvo_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,6 +1,7 @@
 """Image-processing ops on (..., H, W) float32 tensors: saliency, strict local
-maxima, pyrDown and the level-strided disparity (counterpart of the parts of
-``bpvo_tpu/ops/imgproc.py`` that the intensity path runs)."""
+maxima, separable Gaussian smoothing, pyrDown and the level-strided disparity
+(counterpart of the parts of ``bpvo_tpu/ops/imgproc.py`` that the intensity
+and Bit-Planes paths run)."""
 from __future__ import annotations
 
 import functools
@@ -39,6 +40,55 @@ def is_local_max(S, radius: int = 1):
             nb = P[..., radius + dy:radius + dy + H, radius + dx:radius + dx + W]
             result &= S > nb
     return result
+
+
+def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
+    """OpenCV-compatible 1D Gaussian kernel (cv2.getGaussianKernel
+    semantics), float32."""
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) * 0.5
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+def _reflect_pad(I, ry: int, rx: int):
+    """reflect-101 border padding (cv2 BORDER_REFLECT_101) of the trailing
+    (H, W) axes."""
+    lead = I.shape[:-2]
+    x = I.reshape((-1, 1) + tuple(I.shape[-2:]))
+    x = F.pad(x, (rx, rx, ry, ry), mode="reflect")
+    return x.reshape(lead + tuple(x.shape[-2:]))
+
+
+def _sep_conv2d(I, ky: np.ndarray, kx: np.ndarray):
+    """Separable 2D correlation with reflect-101 borders on (..., H, W), as
+    shifted slice-and-accumulate in the JAX package's order (rows first, taps
+    summed left to right).  Elementwise ops only: no convolution routine, so
+    no TF32 path on the card."""
+    ry, rx = len(ky) // 2, len(kx) // 2
+    Ip = _reflect_pad(I, ry, rx)
+    H, W = I.shape[-2], I.shape[-1]
+    rows = Ip[..., 0:H, :] * float(ky[0])
+    for i in range(1, len(ky)):
+        rows = rows + Ip[..., i:i + H, :] * float(ky[i])
+    out = rows[..., :, 0:W] * float(kx[0])
+    for j in range(1, len(kx)):
+        out = out + rows[..., :, j:j + W] * float(kx[j])
+    return out
+
+
+def imsmooth(I, sigma: float, ksize: int = 0):
+    """Gaussian smoothing (cv::GaussianBlur).  ``ksize=0`` derives the
+    aperture from sigma like OpenCV: 2*ceil(3*sigma)+1, at least 3."""
+    if sigma <= 0:
+        return I
+    if ksize <= 0:
+        ksize = max(3, int(2 * np.ceil(3.0 * sigma) + 1))
+    if ksize % 2 == 0:
+        ksize += 1
+    k = gaussian_kernel_1d(ksize, sigma)
+    return _sep_conv2d(I, k, k)
 
 
 _PYR_KERNEL = (1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)

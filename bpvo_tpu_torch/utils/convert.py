@@ -65,7 +65,8 @@ def template_from_numpy(d: Mapping[str, Any], device="cpu") -> TemplateData:
 def state_from_numpy(d: Mapping[str, Any], device="cpu") -> VOState:
     """``VOState`` from a mapping of its fields, with ``templates`` a
     sequence of template mappings and ``prev_channels`` a sequence of
-    arrays."""
+    arrays.  ``prev_disparity`` is the candidate's disparity, or its
+    (2, H, W) stereo pair for a ``DeviceVO`` with a ``stereo_fn``."""
     f32 = torch.float32
     return VOState(
         templates=tuple(template_from_numpy(t, device)

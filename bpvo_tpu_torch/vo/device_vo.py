@@ -9,6 +9,12 @@ Keyframe semantics follow the reference's vo.cc:
     is re-estimated against it.
 The keyframe branch is a host ``if`` on the decision: one device-to-host
 sync per frame.
+
+With a ``stereo_fn`` (``(left, right) -> disparity``) the second input of a
+step is the right image and disparity is computed at keyframe rate: the
+candidate store holds the (2, H, W) image pair, and the matcher runs only in
+the keyframe branch and at ``init``, on the frame that becomes the keyframe
+(bpvo_tpu/vo/device_vo.py:257-266, :306-310, :412-432).
 """
 from __future__ import annotations
 
@@ -42,7 +48,9 @@ KF_REASON_ENUMS = {
 class VOState(NamedTuple):
     templates: Tuple[td_mod.TemplateData, ...]
     prev_channels: Tuple[torch.Tensor, ...]  # candidate descriptor pyramid
-    prev_disparity: torch.Tensor             # candidate full-res disparity
+    prev_disparity: torch.Tensor             # candidate full-res disparity,
+                                             # or its (2, H, W) image pair
+                                             # with a stereo_fn
     has_prev: bool                           # a candidate exists
     T_kf: torch.Tensor                       # (4,4) keyframe -> last frame
     pose_world: torch.Tensor                 # (4,4) camera-to-world
@@ -160,16 +168,20 @@ def _keyframe_reason(T_est, frac_good, p: AlgorithmParameters):
 
 
 def make_vo_step(p: AlgorithmParameters, cams, capacities,
-                 opts_per_level: Tuple[gn.GNOptions, ...]):
-    """Build the step function (state, image, disparity) -> (state, out)."""
+                 opts_per_level: Tuple[gn.GNOptions, ...], stereo_fn=None):
+    """Build the step function (state, image, aux) -> (state, out).  ``aux``
+    is the disparity, or the right image when ``stereo_fn`` is given."""
     n_levels = p.numPyramidLevels
     cams = tuple(cams)
     capacities = tuple(capacities)
 
-    def step(state: VOState, image, disparity):
+    def step(state: VOState, image, aux):
         dev = image.device
-        channels = _compute_channels_pyr(image.to(torch.float32), p, n_levels)
-        disparity = disparity.to(torch.float32)
+        image = image.to(torch.float32)
+        channels = _compute_channels_pyr(image, p, n_levels)
+        # the candidate store: the disparity, or the stereo pair
+        store = (aux.to(torch.float32) if stereo_fn is None
+                 else torch.stack([image, aux.to(torch.float32)]))
         T_init = (_gated_warm_start(state.templates, channels, cams,
                                     state.T_delta @ state.T_kf, state.T_kf,
                                     opts_per_level[n_levels - 1])
@@ -183,7 +195,7 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
 
         if not bool(is_kf):
             new_state = state._replace(
-                prev_channels=channels, prev_disparity=disparity,
+                prev_channels=channels, prev_disparity=store,
                 has_prev=True, T_kf=T_est, T_delta=pose_kf,
                 last_weights=w_fine)
             pose, it_out, fs_out = pose_kf, iters, fs
@@ -191,9 +203,13 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
             # keyframe source: the candidate when one exists, else the
             # current frame
             if state.has_prev:
-                src_channels, src_disp = state.prev_channels, state.prev_disparity
+                src_channels, src_store = state.prev_channels, state.prev_disparity
             else:
-                src_channels, src_disp = channels, disparity
+                src_channels, src_store = channels, store
+            # stereo in the loop: the matcher runs here, on the pair of the
+            # frame becoming the keyframe
+            src_disp = (src_store if stereo_fn is None
+                        else stereo_fn(src_store[0], src_store[1]))
             templates = _build_templates(src_channels, src_disp, cams, p,
                                          capacities)
             # re-estimate against the new keyframe.  When the keyframe IS the
@@ -225,7 +241,7 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
                 pose, T_kf_new, it_out, fs_out = pose_kf, eye, iters, fs
             new_state = VOState(
                 templates=templates, prev_channels=channels,
-                prev_disparity=disparity, has_prev=False, T_kf=T_kf_new,
+                prev_disparity=store, has_prev=False, T_kf=T_kf_new,
                 pose_world=state.pose_world, T_delta=pose,
                 last_weights=w2_fine)
 
@@ -242,10 +258,13 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
 
 class DeviceVO:
     """Host wrapper around the per-frame step; ``init`` consumes the first
-    frame (reference FirstFrameResult, vo.cc:123-139)."""
+    frame (reference FirstFrameResult, vo.cc:123-139).  ``stereo_fn``
+    (optional ``(left, right) -> disparity``): the second argument of
+    ``add_frame`` is then the right image."""
 
     def __init__(self, K, baseline: float, image_size,
-                 params: AlgorithmParameters = None, device="cpu"):
+                 params: AlgorithmParameters = None, device="cpu",
+                 stereo_fn=None):
         p = params or AlgorithmParameters()
         if p.poseEstimator != "GaussNewton":
             raise NotImplementedError(
@@ -266,33 +285,40 @@ class DeviceVO:
         coarse = gn.GNOptions.from_params(p, coarse=True)
         self._opts = tuple(fine if l == p.maxTestLevel else coarse
                            for l in range(p.numPyramidLevels))
-        self._step = make_vo_step(p, self._cams, self._capacities, self._opts)
+        self._stereo_fn = stereo_fn
+        self._step = make_vo_step(p, self._cams, self._capacities, self._opts,
+                                  stereo_fn=stereo_fn)
         self.state: VOState = None
 
     def _as_tensor(self, a):
         return torch.as_tensor(a, dtype=torch.float32).to(self.device)
 
-    def init(self, image, disparity):
+    def init(self, image, aux):
         p = self._p
-        channels = _compute_channels_pyr(self._as_tensor(image), p,
-                                         p.numPyramidLevels)
-        disparity = self._as_tensor(disparity)
+        image = self._as_tensor(image)
+        channels = _compute_channels_pyr(image, p, p.numPyramidLevels)
+        if self._stereo_fn is None:
+            store = disparity = self._as_tensor(aux)
+        else:
+            store = torch.stack([image, self._as_tensor(aux)])
+            disparity = self._stereo_fn(store[0], store[1])
         templates = _build_templates(channels, disparity, self._cams, p,
                                      self._capacities)
         eye = _eye4(self.device)
         self.state = VOState(
             templates=templates, prev_channels=channels,
-            prev_disparity=disparity, has_prev=False, T_kf=eye,
+            prev_disparity=store, has_prev=False, T_kf=eye,
             pose_world=eye, T_delta=eye,
             last_weights=torch.ones_like(templates[p.maxTestLevel].pixels))
 
-    def add_frame(self, image, disparity) -> VOStepOutput:
-        """One step; the first call initialises and returns None."""
+    def add_frame(self, image, aux) -> VOStepOutput:
+        """One step; the first call initialises and returns None.  ``aux``
+        is the disparity, or the right image with a ``stereo_fn``."""
         if self.state is None:
-            self.init(image, disparity)
+            self.init(image, aux)
             return None
         self.state, out = self._step(self.state, self._as_tensor(image),
-                                     self._as_tensor(disparity))
+                                     self._as_tensor(aux))
         return out
 
     def add_frames(self, images, disparities) -> VOStepOutput:

@@ -1,17 +1,21 @@
 """Where the time goes in the PyTorch/CUDA port's VO step, on one GPU.
 
-    python3 scripts/profile_torch_vo.py [--steps 30] [--trace out.json]
+    python3 scripts/profile_torch_vo.py [--config intensity|stereo-bitplanes]
+        [--steps 30] [--trace out.json]
 
 Runs ``DeviceVO(device="cuda")`` over 1+steps frames of the synthetic
-376x1241 sequence with bench.py's intensity settings:
+376x1241 sequence, with bench.py's intensity settings (``intensity``, the
+default) or as stereo pairs with conf/kitti_bitplanes.cfg's Bit-Planes VO and
+SGM matcher in the keyframe branch (``stereo-bitplanes``):
 
 1. two untraced passes (the first pays first-use costs), each printing
    frames/s and per-frame p50/p90 ms on the host clock, split into keyframe
    and other steps;
 2. one pass under ``torch.profiler`` (CPU + CUDA activities), printing the
    ops by device time, the device busy share (union of the device events'
-   intervals over the pass's wall time), the ``level_gn`` kernel's total
-   and launches, and the top-level host ops issued per step.
+   intervals over the pass's wall time), each hand-written kernel's
+   (``level_gn``, ``census``, ``sgm``) device total and launches, and the
+   top-level host ops issued per step.
 
 Imports no JAX.  Times are only comparable inside one run.
 """
@@ -29,9 +33,14 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bpvo_tpu_torch import AlgorithmParameters, DescriptorType  # noqa: E402
-from bpvo_tpu_torch.data import synthetic  # noqa: E402
+from bpvo_tpu_torch import (AlgorithmParameters, ConfigFile,  # noqa: E402
+                            DescriptorType)
+from bpvo_tpu_torch.data import stereo, synthetic  # noqa: E402
 from bpvo_tpu_torch.vo.device_vo import DeviceVO  # noqa: E402
+
+CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "conf", "kitti_bitplanes.cfg")
+KERNELS = ("level_gn", "census", "sgm")
 
 BENCH_PARAMS = dict(minSaliency=2.0, numPyramidLevels=4,
                     descriptor=DescriptorType.INTENSITY,
@@ -55,6 +64,8 @@ def _busy_us(intervals):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("intensity", "stereo-bitplanes"),
+                    default="intensity")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--trace", help="write a Chrome trace of the profiled pass")
     args = ap.parse_args(argv)
@@ -65,14 +76,21 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    K, b, frames = synthetic.synthesize_sequence(1 + args.steps)
-    params = AlgorithmParameters(**BENCH_PARAMS)
+    if args.config == "intensity":
+        K, b, frames = synthetic.synthesize_sequence(1 + args.steps)
+        params, stereo_fn = AlgorithmParameters(**BENCH_PARAMS), None
+    else:   # the second input is the right image
+        K, b, frames = synthetic.synthesize_stereo_sequence(1 + args.steps)
+        cf = ConfigFile(CONF)
+        params = AlgorithmParameters.from_config(cf)
+        stereo_fn = stereo.create_stereo_algorithm(cf).as_fn()
+    print(f"config {args.config}")
     images = [torch.as_tensor(f[0]).to(dev) for f in frames]
     disps = [torch.as_tensor(f[1]).to(dev) for f in frames]
 
     def fresh_vo():
         vo = DeviceVO(K, b, (synthetic.ROWS, synthetic.COLS), params,
-                      device=dev)
+                      device=dev, stereo_fn=stereo_fn)
         vo.add_frame(images[0], disps[0])
         torch.cuda.synchronize()
         return vo
@@ -123,12 +141,13 @@ def main(argv=None) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(STEP_LABEL)]
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in dev_evs])
-    gn = [e for e in dev_evs if "level_gn" in e.name]
-    gn_us = sum(e.time_range.end - e.time_range.start for e in gn)
     print(f"profiled pass: wall {wall_us / 1e3:.2f} ms for {len(kf)} steps; "
-          f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%); "
-          f"level_gn {gn_us / 1e3:.2f} ms in {len(gn)} launches "
-          f"({100 * gn_us / max(busy, 1e-9):.1f}% of busy)")
+          f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)")
+    for name in KERNELS:
+        evs = [e for e in dev_evs if f"{name}_" in e.name]
+        us = sum(e.time_range.end - e.time_range.start for e in evs)
+        print(f"  {name} kernels: {us / 1e3:.2f} ms in {len(evs)} launches "
+              f"({100 * us / max(busy, 1e-9):.1f}% of busy)")
     steps = {e.name: e for e in events if e.name.startswith(STEP_LABEL)
              and e.device_type == torch.autograd.DeviceType.CPU}
     n_ops = np.array([len(steps[f"{STEP_LABEL}{i}"].cpu_children)

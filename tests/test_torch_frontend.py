@@ -81,9 +81,15 @@ def test_disparity_at_level():
 def test_descriptor_compute_intensity_only():
     img = _t(synthetic_image())
     p = AlgorithmParameters()
+    """Intensity and Bit-Planes are ported; the rest of the zoo raises."""
     assert descriptors.compute(img, p).shape == (1, 120, 160)
+    bp = descriptors.compute(img, p.replace(
+        descriptor=DescriptorType.BITPLANES))
+    np.testing.assert_array_equal(bp.numpy(), np.asarray(jdesc.bitplanes(
+        jnp.asarray(img.numpy()), p.sigmaPriorToCensusTransform,
+        p.sigmaBitPlanes)))
     with pytest.raises(NotImplementedError):
-        descriptors.compute(img, p.replace(descriptor=DescriptorType.BITPLANES))
+        descriptors.compute(img, p.replace(descriptor=DescriptorType.LATCH))
 
 
 def _raster(rows, cols, valid, W):

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from bpvo_tpu.config import AlgorithmParameters as JParams
+from bpvo_tpu.ops import descriptors as jdesc
 from bpvo_tpu.ops.pallas import level_gn_kernel as lk
 from bpvo_tpu.solver import gauss_newton as jgn
 from bpvo_tpu.solver import mestimator as jmest
@@ -41,16 +43,28 @@ def _stack3(td, I1):
                                    td.jacobians * 2.0])), ch
 
 
+def _bitplanes(I0, I1, D, cam, K):
+    """The Bit-Planes template of I0 and channels of I1 (sigma_ct 0.5,
+    sigma_bp 0.5, as conf/kitti_bitplanes.cfg)."""
+    ch0 = jdesc.bitplanes(jnp.asarray(I0), 0.5, 0.5)
+    td = jtd.set_data(ch0, jnp.asarray(D), cam, JParams(minSaliency=0.05),
+                      K, 0)
+    return td, jdesc.bitplanes(jnp.asarray(I1), 0.5, 0.5)
+
+
 @functools.lru_cache(maxsize=None)
 def _run_both(K=1024, C=1, max_iterations=42, loss=LossFunctionType.TUKEY,
               interp=InterpolationType.LINEAR):
     """(JAX outputs, port outputs, (JAX template, channels, camera)) for one
-    level solve from the identity pose; cached per configuration."""
+    level solve from the identity pose; cached per configuration.  C=8 is
+    the Bit-Planes descriptor."""
     I0, I1, D, cam, _ = render_pair(TWIST)
     td, _ = build_template(I0, D, cam, capacity=K)
     ch = jnp.asarray(I1)[None]
     if C == 3:
         td, ch = _stack3(td, I1)
+    if C == 8:
+        td, ch = _bitplanes(I0, I1, D, cam, K)
     jopts = jgn.GNOptions(function_tolerance=1e-4, parameter_tolerance=1e-6,
                           max_iterations=max_iterations,
                           loss=JLoss(loss.value), interp=JInterp(interp.value))
@@ -82,6 +96,7 @@ CASES = {
     "c3_tukey": {"C": 3},
     "c1_huber": {"loss": LossFunctionType.HUBER},
     "c1_cosine": {"interp": InterpolationType.COSINE},
+    "c8_bitplanes_huber": {"C": 8, "loss": LossFunctionType.HUBER},
 }
 
 
