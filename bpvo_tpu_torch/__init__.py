@@ -24,9 +24,12 @@ from bpvo_tpu_torch.types import (  # noqa: E402
     InterpolationType,
     KeyFramingReason,
     LossFunctionType,
+    OptimizerStatistics,
     PoseEstimationStatus,
+    Result,
     VerbosityType,
 )
+from bpvo_tpu_torch.vo.odometry import VisualOdometry  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -38,6 +41,9 @@ __all__ = [
     "InterpolationType",
     "KeyFramingReason",
     "LossFunctionType",
+    "OptimizerStatistics",
     "PoseEstimationStatus",
+    "Result",
     "VerbosityType",
+    "VisualOdometry",
 ]

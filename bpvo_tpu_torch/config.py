@@ -183,7 +183,7 @@ class AlgorithmParameters:
     # Constant-velocity motion model: warm-start each frame's GN at
     # T_delta_prev @ T_kf instead of T_kf (and the post-keyframe re-estimate
     # at T_delta_prev instead of identity), behind the coarse-cost acceptance
-    # gate (device_vo._gated_warm_start).  Off by default: the reference's
+    # gate (pose_estimator._gated_warm_start).  Off by default: the reference's
     # zero-velocity warm start (vo.cc:144-146).
     withMotionModel: bool = False
     # Scope of the post-keyframe candidate re-estimation (vo.cc:178-188),

@@ -41,7 +41,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted((_PKG / "csrc").glob("*.cu*")):    # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
@@ -88,6 +88,20 @@ def compile_library() -> str:
     return "".join(logs) + proc.stdout + proc.stderr
 
 
+def check_tensors(op: str, device, want) -> None:
+    """Raise ValueError unless every ``name: (tensor, shape, dtype)`` of
+    ``want`` lies on ``device`` with that shape and dtype, contiguous: what
+    a kernel's raw pointer needs."""
+    for name, (t, shape, dtype) in want.items():
+        if t.device != device:
+            raise ValueError(f"{op}: {name} is on {t.device}, not {device}")
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{op}: {name} must be {dtype} {tuple(shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use in this process."""
     global _lib
@@ -102,6 +116,14 @@ def library() -> ctypes.CDLL:
         lib.bpvo_census_planes.restype = i
         lib.bpvo_sgm_aggregate.argtypes = [p, p, i, i, i, f, f, i, p]
         lib.bpvo_sgm_aggregate.restype = i
+        lib.bpvo_fused_linearize.argtypes = [p] * 7 + [i] * 6 + [p] * 5
+        lib.bpvo_fused_linearize.restype = i
+        lib.bpvo_fused_linearize_blocks.argtypes = [i]
+        lib.bpvo_fused_linearize_blocks.restype = i
+        lib.bpvo_irls_reduce.argtypes = [p] * 4 + [i] * 2 + [p] * 4
+        lib.bpvo_irls_reduce.restype = i
+        lib.bpvo_irls_reduce_blocks.argtypes = [i]
+        lib.bpvo_irls_reduce_blocks.restype = i
         lib.bpvo_cuda_error_string.argtypes = [i]
         lib.bpvo_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -27,7 +27,8 @@ STATUS_FUNCTION_TOL = 2
 STATUS_GRADIENT_TOL = 3
 STATUS_SOLVER_ERROR = 4
 
-_LOSS_CODES = {LossFunctionType.TUKEY: 0, LossFunctionType.HUBER: 1,
+# the kernels' loss codes (enum Loss in csrc/level_gn.cu, csrc/gn_reduce.cuh)
+LOSS_CODES = {LossFunctionType.TUKEY: 0, LossFunctionType.HUBER: 1,
                LossFunctionType.L2: 2}
 _INTERP = (InterpolationType.LINEAR, InterpolationType.COSINE)
 
@@ -45,7 +46,7 @@ def check_supported(opts) -> None:
     if opts.interp not in _INTERP:
         raise NotImplementedError(f"level_gn: {opts.interp.value} "
                                   f"interpolation is not ported yet")
-    if opts.loss not in _LOSS_CODES:
+    if opts.loss not in LOSS_CODES:
         raise NotImplementedError(f"level_gn: loss {opts.loss}")
     if opts.verbose:
         raise NotImplementedError("level_gn: the verbose iteration table is "
@@ -113,7 +114,7 @@ def level_gn_reference(cam, points, valid, pixels, jacobians, channels, T0,
         # sigma from channel 0, skipped once stable (:426-432)
         if bool(dscale > torch.clamp(opts.scale_tolerance_rel * sigma,
                                      min=opts.scale_tolerance)):
-            est = mestimator.estimate_scale(r[0], ok)
+            est = mestimator.estimate_scale_bisect(r[0], ok)
             dscale = torch.abs(est - sigma)
             sigma = est
         w = mestimator.compute_weights(opts.loss, r, ok[None, :], sigma)
@@ -229,7 +230,7 @@ def level_gn(cam, points, valid, pixels, jacobians, channels, T0, sigma0,
         ptr(out_g.data_ptr()), ptr(w.data_ptr()), ptr(r_scratch.data_ptr()),
         ptr(ok_scratch.data_ptr()),
         C, H, W, K, cam.fx, cam.fy, cam.cx, cam.cy, float(sigma0),
-        float(dscale0), _LOSS_CODES[opts.loss],
+        float(dscale0), LOSS_CODES[opts.loss],
         int(opts.interp == InterpolationType.COSINE), opts.max_iterations,
         opts.function_tolerance, opts.parameter_tolerance,
         opts.gradient_tolerance, opts.scale_tolerance,

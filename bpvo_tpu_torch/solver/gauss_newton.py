@@ -1,10 +1,22 @@
-"""Per-level IRLS Gauss-Newton options, state and solve (counterpart of
-``bpvo_tpu/solver/gauss_newton.py``: ``GNOptions``, ``GNState``,
-``run_level_fused`` and ``fraction_of_good_points``).
+"""Per-level IRLS Gauss-Newton (counterpart of
+``bpvo_tpu/solver/gauss_newton.py``): options, state, the per-iteration
+solver ``run``, the one-launch level solve ``run_level`` and the rule that
+picks between them (``solve_level``).
 
-Every level runs through ``ops.level_gn``: the CUDA kernel on the GPU, its
-plain version on the CPU.  The per-iteration ``gauss_newton.run`` route,
-Levenberg-Marquardt and the verbose iteration table are not ported yet.
+Flow per iteration (inverse compositional, template Jacobians fixed):
+  r, valid = photometric residuals at T
+  sigma    = robust scale (histogram median, skipped once stable)
+  w        = M-estimator weights
+  H, g, f  = J^T W J, J^T W r, sqrt(sum w r^2)
+  dp       = solve(H, g)
+  T       <- T * Tn^-1 exp(-dp) Tn
+
+``run_level`` runs a level's whole loop in the CUDA kernel ``ops.level_gn``
+(16-step bisection median).  ``run`` drives the loop from the host, with the
+linearization in the CUDA kernels ``ops.fused_linearize`` and
+``ops.irls``; it reads the device once per iteration (converged, solver ok,
+and whether sigma is still moving) and keeps everything else, sigma
+included, on the device.  Levenberg-Marquardt is not ported yet.
 """
 from __future__ import annotations
 
@@ -14,9 +26,36 @@ from typing import NamedTuple
 import torch
 
 from bpvo_tpu_torch.config import AlgorithmParameters
+from bpvo_tpu_torch.ops import fused_linearize as fused_mod
+from bpvo_tpu_torch.ops import interp as interp_mod
+from bpvo_tpu_torch.ops import irls as irls_mod
 from bpvo_tpu_torch.ops import level_gn as level_gn_mod
+from bpvo_tpu_torch.ops.level_gn import (STATUS_FUNCTION_TOL,
+                                         STATUS_GRADIENT_TOL,
+                                         STATUS_MAX_ITERATIONS,
+                                         STATUS_PARAMETER_TOL,
+                                         STATUS_SOLVER_ERROR)
+from bpvo_tpu_torch.solver import linear_system, mestimator
 from bpvo_tpu_torch.types import (InterpolationType, LossFunctionType,
-                                  VerbosityType)
+                                  PoseEstimationStatus, VerbosityType)
+from bpvo_tpu_torch.vo import template_data as td_mod
+from bpvo_tpu_torch.vo import warp as warp_mod
+
+_SQRT_EPS = 3.452669831e-4
+
+STATUS_ENUMS = {
+    STATUS_MAX_ITERATIONS: PoseEstimationStatus.MAX_ITERATIONS,
+    STATUS_PARAMETER_TOL: PoseEstimationStatus.PARAMETER_TOL_REACHED,
+    STATUS_FUNCTION_TOL: PoseEstimationStatus.FUNCTION_TOL_REACHED,
+    STATUS_GRADIENT_TOL: PoseEstimationStatus.GRADIENT_TOL_REACHED,
+    STATUS_SOLVER_ERROR: PoseEstimationStatus.SOLVER_ERROR,
+}
+
+# Levels with more points go to ``run``.  JAX's MAX_POINTS_BANDED
+# (level_gn_kernel.py:549), there a TPU VMEM envelope; here ``level_gn``
+# runs a level in one block on one SM, and ``run`` spreads larger levels
+# over the card.
+MAX_LEVEL_KERNEL_POINTS = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +72,9 @@ class GNOptions:
     # sigma step was below scale_tolerance_rel * sigma (as well as the
     # absolute scale_tolerance); 0.01 at the finest level, 0.05 coarse
     scale_tolerance_rel: float = 0.01
+    # ``run``'s median: the 1024-bin histogram (default) or the exact sort
+    use_histogram_median: bool = True
+    # ``run`` prints one line per iteration (reference kIteration verbosity)
     verbose: bool = False
     warp: str = "RigidBody"
 
@@ -61,28 +103,241 @@ class GNOptions:
 
 
 class GNState(NamedTuple):
-    """What a level solve hands on: the subset of the JAX ``GNState`` that
-    the kernel exports."""
+    """A level solve's result (device tensors)."""
     T: torch.Tensor             # (4, 4) final pose
     f_norm: torch.Tensor        # weighted residual norm at the last linearize
+    g: torch.Tensor             # (6,) gradient at the last linearize
+    scale: torch.Tensor         # robust sigma
     weights: torch.Tensor       # (C, K) last IRLS weights
     H: torch.Tensor             # (6, 6) last Hessian
     num_iters: torch.Tensor     # int32
+    status: torch.Tensor        # int32 STATUS_* code
     converged: torch.Tensor     # bool
     solver_ok: torch.Tensor     # bool
     band_overflow: torch.Tensor  # int32, always 0 (no row bands here)
 
 
+def level_kernel_supported(opts: GNOptions, C: int, rows: int, cols: int,
+                           K: int) -> bool:
+    """Whether ``run_level``'s kernel takes this level (JAX's rule,
+    gauss_newton.py:526-531 and level_gn_kernel.py:603-612, without the TPU's
+    VMEM budgets)."""
+    return (opts.loss in (LossFunctionType.TUKEY, LossFunctionType.HUBER,
+                          LossFunctionType.L2)
+            and opts.warp == "RigidBody" and not opts.verbose
+            and opts.interp in (InterpolationType.LINEAR,
+                                InterpolationType.COSINE)
+            and K <= MAX_LEVEL_KERNEL_POINTS)
+
+
 def run_level(tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
     """One level's whole IRLS GN from T_init through ``ops.level_gn``."""
-    T, stats, H, _g, w, bo = level_gn_mod.level_gn(
+    T, stats, H, g, w, bo = level_gn_mod.level_gn(
         cam, tdata.points, tdata.valid, tdata.pixels, tdata.jacobians,
         channels, T_init.to(torch.float32).contiguous(), 1.0, 1e10,
         tdata.norm_scale, tdata.norm_center, opts)
-    return GNState(T=T, f_norm=stats[1], weights=w, H=H,
+    return GNState(T=T, f_norm=stats[1], g=g, scale=stats[4], weights=w, H=H,
                    num_iters=stats[0].to(torch.int32),
+                   status=stats[3].to(torch.int32),
                    converged=stats[6] > 0.5, solver_ok=stats[7] > 0.5,
                    band_overflow=bo)
+
+
+def solve_level(tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
+    """A level solve by the route JAX takes on the TPU: ``run_level`` where
+    ``level_kernel_supported``, ``run`` elsewhere."""
+    C, rows, cols = channels.shape
+    if level_kernel_supported(opts, C, rows, cols, tdata.pixels.shape[1]):
+        return run_level(tdata, channels, cam, T_init, opts)
+    return run(tdata, channels, cam, T_init, opts)
+
+
+def _sigma_unstable(delta_scale, scale, opts: GNOptions):
+    """Sigma is re-estimated while its last step exceeds the absolute
+    (reference mestimator.cc:467-490) or the relative tolerance."""
+    return delta_scale > torch.clamp(opts.scale_tolerance_rel * scale,
+                                     min=opts.scale_tolerance)
+
+
+def _linearize(tdata, channels, cam, T, scale, delta_scale, do_est: bool,
+               opts: GNOptions):
+    """The plain linearization (JAX's jnp route): residuals by
+    ``compute_residuals``, sigma from channel 0, weights, normal equations.
+    Returns (H, g, f, sigma, delta_scale, w)."""
+    r, valid = td_mod.compute_residuals(tdata, channels, cam, T, opts.interp,
+                                        warp=opts.warp)
+    if do_est:
+        sigma = mestimator.estimate_scale(r[0], valid,
+                                          opts.use_histogram_median)
+        delta_scale = torch.abs(sigma - scale)
+    else:
+        sigma = scale
+    w = mestimator.compute_weights(opts.loss, r, valid[None, :], sigma)
+    H, g, f_sq = linear_system.build(tdata.jacobians, r, w)
+    return H, g, torch.sqrt(f_sq), sigma, delta_scale, w
+
+
+def _fused_linearize_fn(tdata, channels, cam, opts: GNOptions):
+    """The kernel route (JAX gauss_newton.py:278-373, at f32 for every C):
+
+    - C = 1: one fused pass at the incoming sigma; while sigma is still
+      moving, the new sigma is the histogram median of that pass's
+      residuals, and the weights and normal equations are rebuilt at it by
+      ``irls_reduce_w`` from those residuals and J.
+    - C > 1: while sigma is still moving, a fused pass over channel 0 alone
+      gives the residuals for sigma; then one fused pass over all channels
+      runs at the new sigma.
+    """
+    C, rows, cols = channels.shape
+    pixels, jacobians = tdata.pixels, tdata.jacobians
+    loss, interp = opts.loss, opts.interp
+
+    def project(T):
+        u, v, Z = warp_mod.project(cam, T, tdata.points)
+        ok = tdata.valid & (Z > 1e-6) & interp_mod.valid_mask(
+            u, v, rows, cols, interp)
+        return u, v, ok
+
+    def new_sigma(r0, ok, scale):
+        sigma = mestimator.estimate_scale(r0, ok, opts.use_histogram_median)
+        return sigma, torch.abs(sigma - scale)
+
+    if C == 1:
+        J = jacobians.reshape(-1, 6)
+
+        def linearize(T, scale, delta_scale, do_est):
+            u, v, ok = project(T)
+            H, g, f_sq, r0, w = fused_mod.fused_linearize(
+                u, v, ok, channels, pixels, jacobians, scale, loss, interp)
+            if not do_est:
+                return H, g, torch.sqrt(f_sq), scale, delta_scale, w
+            sigma, delta_scale = new_sigma(r0, ok, scale)
+            H, g, f_sq, w = irls_mod.irls_reduce_w(J, r0, ok, sigma, loss)
+            return H, g, torch.sqrt(f_sq), sigma, delta_scale, w[None, :]
+        return linearize
+
+    ch0, px0, J0 = channels[:1], pixels[:1], jacobians[:1]
+
+    def linearize(T, scale, delta_scale, do_est):
+        u, v, ok = project(T)
+        sigma = scale
+        if do_est:
+            r0 = fused_mod.fused_linearize(u, v, ok, ch0, px0, J0, scale, loss,
+                                           interp)[3]
+            sigma, delta_scale = new_sigma(r0, ok, scale)
+        H, g, f_sq, _, w = fused_mod.fused_linearize(
+            u, v, ok, channels, pixels, jacobians, sigma, loss, interp)
+        return H, g, torch.sqrt(f_sq), sigma, delta_scale, w
+    return linearize
+
+
+def _test_convergence(dp_norm, dp_norm_prev, g_norm, f_norm, f_norm_prev,
+                      g_tol, opts: GNOptions):
+    """The three convergence tests (reference pose_estimator_base.h:258-282),
+    with JAX's added relative decrease test.  Returns (converged, status)."""
+    p_tol = (dp_norm < opts.parameter_tolerance) | (
+        dp_norm < opts.parameter_tolerance * (_SQRT_EPS + dp_norm_prev))
+    df = torch.abs(f_norm - f_norm_prev)
+    f_tol = ((f_norm < opts.function_tolerance)
+             | (f_norm < opts.function_tolerance * (_SQRT_EPS + f_norm_prev))
+             | (df < opts.function_tolerance)
+             | (df < opts.function_tolerance
+                * torch.clamp(f_norm_prev, min=1.0)))
+    g_ok = g_norm < g_tol
+    status = torch.where(
+        p_tol, STATUS_PARAMETER_TOL,
+        torch.where(f_tol, STATUS_FUNCTION_TOL,
+                    torch.where(g_ok, STATUS_GRADIENT_TOL,
+                                STATUS_MAX_ITERATIONS)))
+    return p_tol | f_tol | g_ok, status.to(torch.int32)
+
+
+def run(tdata, channels, cam, T_init, opts: GNOptions,
+        linearize_fn=None) -> GNState:
+    """GN from T_init until a convergence test fires, the solve fails or
+    ``max_iterations`` are spent; falls back to the best evaluated pose
+    when it ends unconverged at a higher cost.
+
+    Iteration i linearizes at T_i, tests convergence against iteration
+    i-1's values (only the gradient test on the first iteration), then
+    solves and updates.  ``linearize_fn(T, scale, delta_scale, do_est) ->
+    (H, g, f, sigma, delta_scale, w)`` may replace the linearization; the
+    host bool ``do_est`` says whether sigma is still moving.  By default
+    RigidBody levels with LINEAR or COSINE sampling take the CUDA kernels
+    (their plain versions on the CPU), others the plain ``_linearize``.
+    """
+    f32 = torch.float32
+    dev = channels.device
+    C, K = tdata.pixels.shape
+    s, c = tdata.norm_scale, tdata.norm_center
+    if linearize_fn is None:
+        if opts.warp == "RigidBody" and opts.interp in (
+                InterpolationType.LINEAR, InterpolationType.COSINE):
+            linearize_fn = _fused_linearize_fn(tdata, channels.contiguous(),
+                                               cam, opts)
+        else:
+            def linearize_fn(T, scale, delta_scale, do_est):
+                return _linearize(tdata, channels, cam, T, scale, delta_scale,
+                                  do_est, opts)
+
+    def scalar(x, dtype=f32):   # filled on the device: no host copy
+        return torch.full((), x, dtype=dtype, device=dev)
+
+    T = T_init.to(device=dev, dtype=f32)
+    T_best = T
+    dp = torch.zeros(6, dtype=f32, device=dev)
+    f_norm, dp_norm_prev, g_tol = scalar(0.0), scalar(0.0), scalar(0.0)
+    f_best = scalar(float("inf"))
+    scale, delta_scale = scalar(1.0), scalar(1e10)
+    g = torch.zeros(6, dtype=f32, device=dev)
+    w = torch.zeros(C, K, dtype=f32, device=dev)
+    H = torch.eye(6, dtype=f32, device=dev)
+    status = scalar(STATUS_MAX_ITERATIONS, torch.int32)
+    conv, ok = scalar(False, torch.bool), scalar(True, torch.bool)
+    it, converged, solver_ok = 0, False, True
+    do_est = 1e10 > max(opts.scale_tolerance, opts.scale_tolerance_rel)
+    while not converged and solver_ok and it < opts.max_iterations:
+        H, g, f_new, sigma, delta_scale, w = linearize_fn(T, scale,
+                                                          delta_scale, do_est)
+        g_norm = torch.max(torch.abs(g))
+        dp_norm = torch.linalg.norm(dp)
+        if it == 0:
+            # first-order-optimality threshold fixed from the first gradient
+            # (pose_estimator_base.h:341-343); only that test applies now
+            g_tol = opts.gradient_tolerance * torch.clamp(g_norm,
+                                                          min=_SQRT_EPS)
+            conv = g_norm < g_tol
+            status = torch.where(conv, STATUS_GRADIENT_TOL,
+                                 STATUS_MAX_ITERATIONS).to(torch.int32)
+        else:
+            conv, status = _test_convergence(dp_norm, dp_norm_prev, g_norm,
+                                             f_new, f_norm, g_tol, opts)
+        dp_new, ok = linear_system.solve(H, g)
+        do_update = ~conv & ok
+        better = f_new < f_best
+        T_best = torch.where(better, T, T_best)
+        f_best = torch.where(better, f_new, f_best)
+        T = torch.where(do_update, T @ warp_mod.params_to_pose(-dp_new, s, c),
+                        T)
+        dp = torch.where(do_update, dp_new, dp)
+        status = torch.where(ok, status, STATUS_SOLVER_ERROR).to(torch.int32)
+        f_norm, dp_norm_prev, scale = f_new, dp_norm, sigma
+        # the loop's one read of the device per iteration
+        flags = torch.stack([conv, ok, _sigma_unstable(delta_scale, scale,
+                                                       opts)]).tolist()
+        converged, solver_ok, do_est = flags
+        if opts.verbose:
+            f_, g_, dp_, s_ = torch.stack([
+                f_new, g_norm, torch.linalg.norm(dp_new), sigma]).tolist()
+            print(f"  it {it}  |F|={f_:.6g}  |G|={g_:.4g}  |dp|={dp_:.4g}  "
+                  f"sigma={s_:.4g}")
+        it += 1
+    if not converged:
+        T = torch.where(f_best < f_norm, T_best, T)
+    return GNState(T=T, f_norm=f_norm, g=g, scale=scale, weights=w, H=H,
+                   num_iters=scalar(it, torch.int32), status=status,
+                   converged=conv, solver_ok=ok,
+                   band_overflow=scalar(0, torch.int32))
 
 
 def fraction_of_good_points(weights, num_channels, num_valid, threshold):

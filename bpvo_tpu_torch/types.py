@@ -1,8 +1,13 @@
-"""Core enums (counterpart of ``bpvo_tpu/types.py``; values are the same
-strings, so enums convert between the packages by ``.value``)."""
+"""Core enums and the results of ``VisualOdometry.add_frame`` (counterpart
+of ``bpvo_tpu/types.py``; enum values are the same strings, so enums
+convert between the packages by ``.value``)."""
 from __future__ import annotations
 
+import dataclasses
 import enum
+from typing import List, Optional
+
+import numpy as np
 
 
 class LossFunctionType(enum.Enum):
@@ -83,3 +88,38 @@ def interpolation_from_string(s: str) -> InterpolationType:
 
 def gradient_estimation_from_string(s: str) -> GradientEstimationType:
     return _from_string(GradientEstimationType, s)
+
+
+@dataclasses.dataclass
+class OptimizerStatistics:
+    """Per-pyramid-level optimizer stats (reference types.h:444-482)."""
+
+    num_iterations: int = 0
+    final_error: float = 0.0
+    first_order_optimality: float = 0.0
+    status: PoseEstimationStatus = PoseEstimationStatus.MAX_ITERATIONS
+
+    def __repr__(self):
+        return (f"OptimizerStatistics(iters={self.num_iterations}, "
+                f"|F|={self.final_error:.6g}, "
+                f"|G|={self.first_order_optimality:.6g}, "
+                f"status={self.status.value})")
+
+
+@dataclasses.dataclass
+class Result:
+    """Output of ``VisualOdometry.add_frame`` (reference types.h:489-569).
+
+    ``pose``: 4x4 relative motion wrt the frame at the previous time step.
+    ``covariance``: 6x6 covariance of the estimate (inverse GN Hessian).
+    ``point_cloud``: the keyframe's points, at keyframes.
+    """
+
+    pose: np.ndarray
+    covariance: np.ndarray
+    is_keyframe: bool = False
+    keyframing_reason: KeyFramingReason = KeyFramingReason.UNKNOWN
+    optimizer_statistics: List[OptimizerStatistics] = dataclasses.field(
+        default_factory=list)
+    point_cloud: Optional[object] = None
+    success: bool = True

@@ -13,24 +13,37 @@ import numpy as np
 import torch
 
 from bpvo_tpu_torch.config import AlgorithmParameters
+from bpvo_tpu_torch.solver.gauss_newton import GNOptions
 from bpvo_tpu_torch.vo.device_vo import VOState
 from bpvo_tpu_torch.vo.template_data import TemplateData
 from bpvo_tpu_torch.vo.warp import CameraModel
 
-_FIELD_TYPES = typing.get_type_hints(AlgorithmParameters)
+
+def _dataclass_from(cls, get):
+    """``cls(**{field: get(field)})`` with enum members converted by
+    value."""
+    types = typing.get_type_hints(cls)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = get(f.name)
+        t = types[f.name]
+        if isinstance(t, type) and issubclass(t, enum.Enum):
+            v = t(getattr(v, "value", v))
+        kw[f.name] = v
+    return cls(**kw)
 
 
 def params_from_jax(d: Mapping[str, Any]) -> AlgorithmParameters:
     """``AlgorithmParameters`` from ``dataclasses.asdict`` of the JAX
     package's parameters (enum members are converted by value)."""
-    kw = {}
-    for f in dataclasses.fields(AlgorithmParameters):
-        v = d[f.name]
-        t = _FIELD_TYPES[f.name]
-        if isinstance(t, type) and issubclass(t, enum.Enum):
-            v = t(getattr(v, "value", v))
-        kw[f.name] = v
-    return AlgorithmParameters(**kw)
+    return _dataclass_from(AlgorithmParameters, d.__getitem__)
+
+
+def gn_options_from_jax(opts) -> GNOptions:
+    """The port's ``GNOptions`` from the JAX package's (its TPU backend
+    choices, such as ``linearize`` and ``fused_bf16``, have no counterpart
+    and are dropped)."""
+    return _dataclass_from(GNOptions, lambda name: getattr(opts, name))
 
 
 def camera_from_numpy(cam) -> CameraModel:

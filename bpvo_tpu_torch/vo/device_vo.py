@@ -28,6 +28,7 @@ from bpvo_tpu_torch.core import se3
 from bpvo_tpu_torch.ops import descriptors, imgproc, pyramid, selection
 from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.types import KeyFramingReason
+from bpvo_tpu_torch.vo import pose_estimator as pe
 from bpvo_tpu_torch.vo import template_data as td_mod
 from bpvo_tpu_torch.vo import warp as warp_mod
 
@@ -99,52 +100,15 @@ def _build_templates(channels_pyr, disparity, cams, p, capacities):
 
 def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
               max_test_level, good_threshold, min_points: int,
-              start_level=None):
+              start_level=-1):
     """Coarse-to-fine GN from ``start_level`` (default: coarsest) down to
-    ``max_test_level``.  Returns (T, iters (L,), f_norm (L,), frac_good,
-    H, finest weights, band_overflow)."""
-    n_levels = len(channels_pyr)
-    if start_level is None:
-        start_level = n_levels - 1
-    dev = T_init.device
-    T = T_init
-    iters = [torch.zeros((), dtype=torch.int32, device=dev)] * n_levels
-    fs = [torch.zeros((), dtype=torch.float32, device=dev)] * n_levels
-    finest = None
-    for level in range(start_level, max_test_level - 1, -1):
-        st = gn.run_level(templates[level], channels_pyr[level], cams[level],
-                          T, opts_per_level[level])
-        # minNumPixelsToWork guard (reference types.h:352-357)
-        enough = templates[level].num_valid >= min_points
-        T = torch.where(enough, st.T, T)
-        iters[level] = torch.where(enough, st.num_iters, 0).to(torch.int32)
-        fs[level] = st.f_norm
-        finest = st
-    td = templates[max_test_level]
-    frac = gn.fraction_of_good_points(finest.weights, td.num_channels,
-                                      td.num_valid, good_threshold)
-    return (T, torch.stack(iters), torch.stack(fs), frac, finest.H,
-            finest.weights, finest.band_overflow)
-
-
-def _coarse_cost(templates, channels_pyr, cams, T, opts, level=None):
-    """Mean squared residual over valid points at a coarse level (default:
-    the coarsest): the probe of the warm-start acceptance gate."""
-    lvl = len(channels_pyr) - 1 if level is None else level
-    r, valid = td_mod.compute_residuals(templates[lvl], channels_pyr[lvl],
-                                        cams[lvl], T, opts.interp,
-                                        warp=opts.warp)
-    n = torch.clamp(torch.sum(valid), min=1).to(torch.float32)
-    return torch.sum(torch.where(valid[None, :], r, 0.0) ** 2) / n
-
-
-def _gated_warm_start(templates, channels_pyr, cams, T_warm, T_cold, opts,
-                      level=None):
-    """Take the warm prediction only when its photometric cost at the probe
-    level does not exceed the cold start's."""
-    c_warm = _coarse_cost(templates, channels_pyr, cams, T_warm, opts, level)
-    c_cold = _coarse_cost(templates, channels_pyr, cams, T_cold, opts, level)
-    return torch.where(c_warm <= c_cold, T_warm, T_cold)
+    ``max_test_level`` (``pose_estimator._estimate_all``).  Returns (T,
+    iters (L,), f_norm (L,), frac_good, H, finest weights,
+    band_overflow)."""
+    T, iters, fs, _, _, frac, H, w, bo = pe._estimate_all(
+        templates, channels_pyr, cams, T_init, opts_per_level,
+        max_test_level, good_threshold, min_points, start_level=start_level)
+    return T, iters, fs, frac, H, w, bo
 
 
 def _keyframe_reason(T_est, frac_good, p: AlgorithmParameters):
@@ -182,9 +146,9 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
         # the candidate store: the disparity, or the stereo pair
         store = (aux.to(torch.float32) if stereo_fn is None
                  else torch.stack([image, aux.to(torch.float32)]))
-        T_init = (_gated_warm_start(state.templates, channels, cams,
-                                    state.T_delta @ state.T_kf, state.T_kf,
-                                    opts_per_level[n_levels - 1])
+        T_init = (pe._gated_warm_start(state.templates, channels, cams,
+                                       state.T_delta @ state.T_kf, state.T_kf,
+                                       opts_per_level[n_levels - 1])
                   if p.withMotionModel else state.T_kf)
         T_est, iters, fs, frac, H, w_fine, boverflow = _estimate(
             state.templates, channels, cams, T_init, opts_per_level,
@@ -222,14 +186,15 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
             if p.keyframeReestimateStartLevel >= 0:
                 start2 = min(max(p.keyframeReestimateStartLevel,
                                  p.maxTestLevel), n_levels - 1)
-                T2_init = _gated_warm_start(templates, channels, cams, pose_kf,
-                                            eye, opts_per_level[start2],
-                                            level=start2)
+                T2_init = pe._gated_warm_start(templates, channels, cams,
+                                               pose_kf, eye,
+                                               opts_per_level[start2],
+                                               level=start2)
             else:
                 start2 = n_levels - 1
-                T2_init = (_gated_warm_start(templates, channels, cams,
-                                             state.T_delta, eye,
-                                             opts_per_level[n_levels - 1])
+                T2_init = (pe._gated_warm_start(templates, channels, cams,
+                                                state.T_delta, eye,
+                                                opts_per_level[n_levels - 1])
                            if p.withMotionModel else eye)
             T2, it2, fs2, _frac2, _H2, w2_fine, _bo2 = _estimate(
                 templates, channels, cams, T2_init, opts_per_level,

@@ -1,0 +1,162 @@
+"""Coarse-to-fine pose estimation over the pyramid (counterpart of
+``bpvo_tpu/vo/pose_estimator.py``; reference vo_pose_estimator.cc:63-107).
+
+Each level is solved by ``gauss_newton.solve_level``: the one-launch level
+kernel on levels it takes, ``gauss_newton.run`` on the others.  The level
+chain stays on the device; ``PoseEstimator.estimate`` reads its results back
+in one copy.  Levenberg-Marquardt and the ``coarseInitOffsetPx``
+multi-start are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from bpvo_tpu_torch.config import AlgorithmParameters
+from bpvo_tpu_torch.solver import gauss_newton as gn
+from bpvo_tpu_torch.types import OptimizerStatistics
+from bpvo_tpu_torch.vo import template_data as td_mod
+
+# fewer valid points than this cannot constrain the 6-DoF solve; such levels
+# leave the pose untouched.  Not minNumPixelsToWork: the reference parses
+# that key but runs every level (vo_pose_estimator.cc:76-90).
+_MIN_POINTS_PER_LEVEL = 8
+
+
+def _coarse_cost(templates, channels_pyr, cams, T, opts, level=None):
+    """Mean squared residual over valid points at a coarse level (default:
+    the coarsest): the probe of the warm-start acceptance gate."""
+    lvl = len(channels_pyr) - 1 if level is None else level
+    r, valid = td_mod.compute_residuals(templates[lvl], channels_pyr[lvl],
+                                        cams[lvl], T, opts.interp,
+                                        warp=opts.warp)
+    n = torch.clamp(torch.sum(valid), min=1).to(torch.float32)
+    return torch.sum(torch.where(valid[None, :], r, 0.0) ** 2) / n
+
+
+def _gated_warm_start(templates, channels_pyr, cams, T_warm, T_cold, opts,
+                      level=None):
+    """Take the warm prediction only when its photometric cost at the probe
+    level does not exceed the cold start's."""
+    c_warm = _coarse_cost(templates, channels_pyr, cams, T_warm, opts, level)
+    c_cold = _coarse_cost(templates, channels_pyr, cams, T_cold, opts, level)
+    return torch.where(c_warm <= c_cold, T_warm, T_cold)
+
+
+def _estimate_all(templates, channels, cams, T_init, opts_per_level,
+                  max_test_level: int, good_threshold: float,
+                  min_points: int = 0, solver: str = "GaussNewton",
+                  start_level: int = -1, alt_init=None,
+                  multistart_px: float = 0.0):
+    """Coarse-to-fine estimation from ``start_level`` (default: coarsest)
+    down to ``max_test_level``.  ``alt_init`` is taken instead of ``T_init``
+    when its photometric cost at the start level is not higher.
+
+    Returns (T, iters (L,), f_norm (L,), g (L, 6), status (L,), frac_good,
+    H (6,6), finest weights, band_overflow ()), all on the device; levels
+    not solved keep zeros and STATUS_MAX_ITERATIONS."""
+    if solver != "GaussNewton":
+        raise NotImplementedError(f"poseEstimator {solver} is not ported yet")
+    if multistart_px > 0:
+        raise NotImplementedError("coarseInitOffsetPx > 0 (the multi-start "
+                                  "probe) is not ported yet")
+    n_levels = len(channels)
+    if start_level < 0:
+        start_level = n_levels - 1
+    dev = T_init.device
+    T = T_init.to(torch.float32)
+    if alt_init is not None:
+        T = _gated_warm_start(templates, channels, cams,
+                              alt_init.to(torch.float32), T,
+                              opts_per_level[start_level], level=start_level)
+    iters = [torch.zeros((), dtype=torch.int32, device=dev)] * n_levels
+    fs = [torch.zeros((), dtype=torch.float32, device=dev)] * n_levels
+    gs = [torch.zeros(6, dtype=torch.float32, device=dev)] * n_levels
+    status = [torch.full((), gn.STATUS_MAX_ITERATIONS, dtype=torch.int32,
+                         device=dev)] * n_levels
+    finest = None
+    for level in range(start_level, max_test_level - 1, -1):
+        st = gn.solve_level(templates[level], channels[level], cams[level], T,
+                            opts_per_level[level])
+        enough = templates[level].num_valid >= min_points
+        T = torch.where(enough, st.T, T)
+        iters[level] = torch.where(enough, st.num_iters, 0).to(torch.int32)
+        fs[level], gs[level], status[level] = st.f_norm, st.g, st.status
+        finest = st
+    td = templates[max_test_level]
+    frac = gn.fraction_of_good_points(finest.weights, td.num_channels,
+                                      td.num_valid, good_threshold)
+    return (T, torch.stack(iters), torch.stack(fs), torch.stack(gs),
+            torch.stack(status), frac, finest.H, finest.weights,
+            finest.band_overflow)
+
+
+class PoseEstimator:
+    def __init__(self, p: AlgorithmParameters):
+        self._p = p
+        self._fine_opts = gn.GNOptions.from_params(p, coarse=False)
+        self._coarse_opts = gn.GNOptions.from_params(p, coarse=True)
+        self._last_weights = None
+        self._last_H = None
+        self._last_frac = 1.0
+
+    def _opts_for(self, n_levels: int):
+        return tuple(self._fine_opts if lvl == self._p.maxTestLevel
+                     else self._coarse_opts for lvl in range(n_levels))
+
+    def estimate(self, templates: Sequence, channels_pyr: Sequence, cams,
+                 T_init, start_level: int = -1, alt_init=None,
+                 multistart_px: float = 0.0):
+        """Coarse-to-fine estimate from the (4,4) tensor ``T_init``;
+        ``start_level`` >= 0 starts below the coarsest level, ``alt_init``
+        is a cost-gated alternative start.
+
+        Returns (T_est (4,4) np.float32, per-level OptimizerStatistics from
+        maxTestLevel up)."""
+        p = self._p
+        n_levels = len(channels_pyr)
+        T, iters, fs, g, status, frac, H, w, _ = _estimate_all(
+            tuple(templates), tuple(channels_pyr), tuple(cams), T_init,
+            self._opts_for(n_levels), p.maxTestLevel, p.goodPointThreshold,
+            _MIN_POINTS_PER_LEVEL, p.poseEstimator, start_level, alt_init,
+            multistart_px)
+        self._last_weights = w
+        # one device -> host copy of everything the host reads
+        host = torch.cat([T.reshape(-1), H.reshape(-1), g.reshape(-1),
+                          iters.to(torch.float32), fs,
+                          status.to(torch.float32),
+                          frac.reshape(1)]).cpu().numpy()
+        T_np = host[:16].reshape(4, 4).copy()
+        self._last_H = host[16:52].reshape(6, 6).astype(np.float64)
+        end = 52 + 6 * n_levels
+        gs_np = np.abs(host[52:end].reshape(n_levels, 6)).max(1)
+        iters_np, fs_np, st_np = host[end:end + 3 * n_levels].reshape(
+            3, n_levels)
+        self._last_frac = float(host[-1])
+        stats: List[OptimizerStatistics] = [
+            OptimizerStatistics(num_iterations=int(iters_np[level]),
+                                final_error=float(fs_np[level]),
+                                first_order_optimality=float(gs_np[level]),
+                                status=gn.STATUS_ENUMS[int(st_np[level])])
+            for level in range(p.maxTestLevel, n_levels)]
+        return T_np, stats
+
+    def fraction_of_good_points(self, threshold: float) -> float:
+        """(reference vo_pose_estimator.cc:101-107), computed during
+        ``estimate`` with the threshold of the AlgorithmParameters."""
+        return self._last_frac
+
+    def last_weights(self):
+        return self._last_weights
+
+    def last_covariance(self) -> np.ndarray:
+        """6x6 covariance = inverse of the last finest-level GN Hessian
+        (reference Result.covariance, types.h:503)."""
+        if self._last_H is None:
+            return np.eye(6)
+        try:
+            return np.linalg.inv(self._last_H)
+        except np.linalg.LinAlgError:
+            return np.linalg.pinv(self._last_H)

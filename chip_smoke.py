@@ -35,14 +35,33 @@
    (tests/data/torch_port_bitplanes_sgm_ref.npz), the same keyframe frames;
    launches: census = levels x frames + 2 per matcher call, sgm = one per
    matcher call, level_gn = the level solves.
+7. GN-kernel phase, on frame 0 -> 1 of dense VO at KITTI shape (bench.py's
+   settings, NMS off, pointCapacity 131072): at the L0 (K = 131072) and L1
+   (K = 32768) shapes, intensity (C=1) and Bit-Planes (C=8, and its
+   channel-0 sigma pass), ``fused_linearize`` against its plain version
+   (channel 0's residuals and the histogram sigma from them bit for bit,
+   weights at GN_W_ATOL, H, g, f^2 within GN_RTOL of their largest entry),
+   and ``irls_reduce_w`` / ``irls_reduce`` at M = K and 8K the same way.
+   Phases 2 and 5 add one line each: ``gauss_newton.run`` against
+   ``level_gn`` at the bench L0 (K = 16384): both times and the pose
+   difference.
+8. Dense VO phases: ``VisualOdometry(device="cuda")`` over 1+30 frames of
+   the sequence (given disparity) in that configuration, intensity and
+   Bit-Planes: poses finite, within the JAX run's own ground-truth error
+   plus the margin, within T_ATOL_JAX_DENSE of the JAX reference
+   (tests/data/torch_port_dense_ref.npz) with the same keyframe frames;
+   launches: fused_linearize = gauss_newton.run iterations (+ one sigma pass
+   per sigma re-estimate at C=8), irls_reduce = sigma re-estimates at C=1,
+   level_gn = the L2 and L3 solves, each > 0.
 
 Any failure exits non-zero.  The line before the last is a JSON object with
 the kernels' launches (summed over the VO phases that run each), errors and
 CUDA-event times (mean ms per call through the wrapper; for census, whose
 wrapper costs more host time than the kernel device time, back-to-back
-launches of its C entry point); the last line is {"ok": true, "device": {...}}.  Without a CUDA
-device, or without the package beside this script, it exits non-zero and
-prints no result.
+launches of its C entry point; for fused_linearize and irls_reduce also the
+device time of the call replayed from a CUDA graph, per shape); the last
+line is {"ok": true, "device": {...}}.  Without a CUDA device, or without
+the package beside this script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -57,6 +76,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REF_NPZ = os.path.join(HERE, "tests", "data", "torch_port_bench_ref.npz")
 REF_STEREO_NPZ = os.path.join(HERE, "tests", "data",
                               "torch_port_bitplanes_sgm_ref.npz")
+REF_DENSE_NPZ = os.path.join(HERE, "tests", "data",
+                             "torch_port_dense_ref.npz")
 CONF = os.path.join(HERE, "conf", "kitti_bitplanes.cfg")
 N_STEPS = 30
 T_ATOL_KERNEL = 1e-4     # kernel vs plain version, same inputs, same device
@@ -79,6 +100,22 @@ DISP_VALID_RTOL = 1e-4
 DISP_ERR_RTOL = 1e-3
 FLIP_BOUND = 2e-3        # census bits flipped, card vs CPU Bit-Planes pyramid
 KERNEL_REPS, PLAIN_REPS = 50, 3
+# per-iteration GN kernels vs their plain versions, same inputs and device:
+# the sums run in another order (H, g, f^2), the weights divide the same
+# residuals by the same sigma
+GN_RTOL, GN_W_ATOL = 1e-4, 1e-6
+# dense VO: bench.py's settings, NMS off (as conf/tunnel.cfg), and a point
+# capacity every level fills: 131072/32768/8192/2048 points
+BENCH = dict(minSaliency=2.0, numPyramidLevels=4, functionTolerance=1e-4,
+             parameterTolerance=1e-6, maxIterations=50)
+DENSE = dict(minNumPixelsForNonMaximaSuppression=20000000,
+             pointCapacity=131072)
+# port vs the JAX CPU route: L0 and L1 take the same route (histogram
+# median), L2 and L3 the level kernel (bisection median) against JAX's
+# gn.run.  The port's plain versions on the CPU over the same 30 steps:
+# 3.4e-5 (intensity) and 2.5e-4 (Bit-Planes), the same keyframes
+T_ATOL_JAX_DENSE = {"intensity": 5e-4, "bitplanes": 2e-3}
+GT_MARGIN_DENSE = {"intensity": GT_MARGIN, "bitplanes": GT_MARGIN_STEREO}
 SGM_REPS, SGM_PLAIN_REPS = 10, 1
 
 
@@ -102,21 +139,36 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, reps):
+    """Mean device ms per call of fn() replayed from a CUDA graph: the
+    launches without the host work of the Python wrapper around them."""
+    import torch
+    fn()                                  # first-use costs outside capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return _cuda_ms(g.replay, reps)
+
+
 def _rel(a, b):
     """max |a - b| / max |b|."""
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
 def _reset_counts():
-    from bpvo_tpu_torch.ops import census, level_gn, sgm
-    level_gn.launch_count = census.launch_count = sgm.launch_count = 0
+    from bpvo_tpu_torch.ops import census, fused_linearize, irls, level_gn, sgm
+    for mod in (census, fused_linearize, irls, level_gn, sgm):
+        mod.launch_count = 0
 
 
 def _counts():
-    from bpvo_tpu_torch.ops import census, level_gn, sgm
+    from bpvo_tpu_torch.ops import census, fused_linearize, irls, level_gn, sgm
     return {"level_gn": level_gn.launch_count,
             "census_planes": census.launch_count,
-            "sgm_aggregate": sgm.launch_count}
+            "sgm_aggregate": sgm.launch_count,
+            "fused_linearize": fused_linearize.launch_count,
+            "irls_reduce": irls.launch_count}
 
 
 def _first_linearization(args, level):
@@ -185,7 +237,36 @@ def kernel_phase(vo, init_pair, target, dev):
         max_err = max(max_err, err)
         ms += t_k
         plain_ms += t_p
+        if level == 0:
+            _route_line(vo, td, ch, T0)
     return max_err, ms, plain_ms
+
+
+def _host_ms(fn, reps=3):
+    """Mean host ms per call of fn() ending in a sync, after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _route_line(vo, td, ch, T0):
+    """gauss_newton.run against level_gn on one bench level: both times
+    (host clock, each call ends in a sync) and the pose difference.  It
+    informs where the routing bound should sit; it checks nothing."""
+    from bpvo_tpu_torch.solver import gauss_newton as gn
+    args = (td, ch, vo._cams[0], T0, vo._opts[0])
+    st_r, st_l = gn.run(*args), gn.run_level(*args)
+    t_r = _host_ms(lambda: gn.run(*args))
+    t_l = _host_ms(lambda: gn.run_level(*args))
+    print(f"bench L0 C={ch.shape[0]} K={td.points.shape[0]}: "
+          f"gauss_newton.run {t_r:.3f} ms ({int(st_r.num_iters)} iterations)"
+          f" vs level_gn {t_l:.3f} ms ({int(st_l.num_iters)} iterations), "
+          f"max |dT| {float((st_r.T - st_l.T).abs().max()):.3e}")
 
 
 def _run_vo(vo, images, auxs):
@@ -269,6 +350,220 @@ def vo_phase(vo, frames, dev, ref, name, t_atol, gt_margin, check_iters):
              f"{name}: level_gn launched {counts['level_gn']} times for "
              f"{solves} level solves")
     return counts, kf, fps, p50
+
+
+def _dense_params(descriptor):
+    from bpvo_tpu_torch import AlgorithmParameters
+    return AlgorithmParameters(**BENCH, **DENSE, descriptor=descriptor)
+
+
+def _gn_check(label, got, want):
+    """Kernel vs plain outputs (H, g, f_sq, [r0,] w): the weights at
+    GN_W_ATOL, the sums within GN_RTOL of their largest entry.  Returns the
+    largest absolute weight difference."""
+    dw = float((got[-1] - want[-1]).abs().max())
+    rel = [_rel(a, b) for a, b in zip(got[:3], want[:3])]
+    print(f"  {label}: max|dw| {dw:.3e}, rel|dH| {rel[0]:.3e} "
+          f"rel|dg| {rel[1]:.3e} rel|df2| {rel[2]:.3e}")
+    _require(dw <= GN_W_ATOL and max(rel) <= GN_RTOL,
+             f"{label}: kernel differs from its plain version (w {dw}, "
+             f"H/g/f2 {rel})")
+    return dw
+
+
+def gn_kernel_phase(K, baseline, frames, dev):
+    """fused_linearize and irls_reduce(_w) against their plain versions
+    at the dense L0 and L1 shapes, C=1 and C=8.  Returns {kernel: (max
+    error, {shape: (ms, plain ms)})}."""
+    import torch
+    from bpvo_tpu_torch import DescriptorType
+    from bpvo_tpu_torch.ops import fused_linearize as fl
+    from bpvo_tpu_torch.ops import interp, irls
+    from bpvo_tpu_torch.solver import mestimator
+    from bpvo_tpu_torch.vo import device_vo, template_data, warp
+    err = {"fused_linearize": 0.0, "irls_reduce": 0.0}
+    ms = {"fused_linearize": {}, "irls_reduce": {}}
+    for name, desc in (("intensity", DescriptorType.INTENSITY),
+                       ("bitplanes", DescriptorType.BITPLANES)):
+        vo = device_vo.DeviceVO(K, baseline, (frames[0][0].shape),
+                                _dense_params(desc), device=dev)
+        vo.init(*(torch.as_tensor(a).to(dev) for a in frames[0]))
+        pyr = device_vo._compute_channels_pyr(
+            torch.as_tensor(frames[1][0]).to(dev), vo._p, 4)
+        T0 = torch.eye(4, dtype=torch.float32, device=dev)
+        for level in (0, 1):
+            td, ch = vo.state.templates[level], pyr[level]
+            cam, opts = vo._cams[level], vo._opts[level]
+            C, Kl = td.pixels.shape
+            u, v, Z = warp.project(cam, T0, td.points)
+            ok = td.valid & (Z > 1e-6) & interp.valid_mask(
+                u, v, ch.shape[1], ch.shape[2], opts.interp)
+            r, _ = template_data.compute_residuals(td, ch, cam, T0,
+                                                   opts.interp)
+            sigma = mestimator.estimate_scale(r[0], ok)
+            print(f"L{level} C={C} {tuple(ch.shape[1:])} K={Kl}: "
+                  f"{int(ok.sum())} points in view, sigma {float(sigma):.6g}")
+            for n in sorted({1, C}):
+                a = (u, v, ok, ch[:n], td.pixels[:n], td.jacobians[:n],
+                     sigma, opts.loss, opts.interp)
+                got = fl.fused_linearize(*a)
+                want = fl.fused_linearize_reference(*a)
+                torch.cuda.synchronize()
+                r0_same = torch.equal(got[3].view(torch.int32),
+                                      want[3].view(torch.int32))
+                s_same = torch.equal(mestimator.estimate_scale(got[3], ok),
+                                     mestimator.estimate_scale(want[3], ok))
+                t_k = _cuda_ms(lambda: fl.fused_linearize(*a), KERNEL_REPS)
+                t_p = _cuda_ms(lambda: fl.fused_linearize_reference(*a),
+                               PLAIN_REPS)
+                d_k = _graph_ms(lambda: fl.fused_linearize(*a), KERNEL_REPS)
+                d_p = _graph_ms(lambda: fl.fused_linearize_reference(*a),
+                                KERNEL_REPS)
+                shape = (f"{name} L{level} C={n}"
+                         + (" sigma pass" if n < C else ""))
+                label = f"fused_linearize {shape}"
+                print(f"  {label}: r0 bitwise {r0_same}, sigma bitwise "
+                      f"{s_same}; kernel {t_k:.4f} ms through the wrapper, "
+                      f"{d_k:.4f} ms replayed; plain {t_p:.4f} ms, "
+                      f"{d_p:.4f} ms replayed")
+                _require(r0_same and s_same, f"{label}: r0 or its sigma "
+                                             f"differs from the plain version")
+                dw = _gn_check(label, got, want)
+                err["fused_linearize"] = max(err["fused_linearize"], dw)
+                ms["fused_linearize"][shape] = (t_k, t_p, d_k, d_p)
+                for m in sorted({1, C}) if n == C else ():
+                    J = td.jacobians[:m].reshape(-1, 6)
+                    b = (J, r[:m].reshape(-1), ok.expand(m, -1).reshape(-1),
+                         sigma, opts.loss)
+                    got = irls.irls_reduce_w(*b)
+                    got3 = irls.irls_reduce(*b)
+                    want = irls.irls_reduce_reference(*b)
+                    torch.cuda.synchronize()
+                    shape = f"{name} L{level} M={m}K"
+                    label = f"irls_reduce {shape}"
+                    _require(all(torch.equal(x, y)
+                                 for x, y in zip(got3, got[:3])),
+                             f"{label}: irls_reduce and irls_reduce_w differ")
+                    t_k = _cuda_ms(lambda: irls.irls_reduce_w(*b),
+                                   KERNEL_REPS)
+                    t_p = _cuda_ms(lambda: irls.irls_reduce_reference(*b),
+                                   PLAIN_REPS)
+                    d_k = _graph_ms(lambda: irls.irls_reduce_w(*b),
+                                    KERNEL_REPS)
+                    d_p = _graph_ms(lambda: irls.irls_reduce_reference(*b),
+                                    KERNEL_REPS)
+                    print(f"  {label}: kernel {t_k:.4f} ms through the "
+                          f"wrapper, {d_k:.4f} ms replayed; plain "
+                          f"{t_p:.4f} ms, {d_p:.4f} ms replayed")
+                    err["irls_reduce"] = max(err["irls_reduce"],
+                                             _gn_check(label, got, want))
+                    ms["irls_reduce"][shape] = (t_k, t_p, d_k, d_p)
+        del vo, pyr
+    return {k: (err[k], ms[k]) for k in err}
+
+
+def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
+    """VisualOdometry over 1+N_STEPS frames of dense VO, once to warm up,
+    then the counted and timed run that is checked against the JAX
+    reference.  Returns the launch counts of the counted run."""
+    import numpy as np
+    import torch
+    from bpvo_tpu_torch import VisualOdometry
+    from bpvo_tpu_torch.core import se3
+    from bpvo_tpu_torch.data import synthetic
+    from bpvo_tpu_torch.solver import gauss_newton as gn
+    from bpvo_tpu_torch.solver import mestimator
+
+    images = [torch.as_tensor(f[0]).to(dev) for f in frames]
+    disps = [torch.as_tensor(f[1]).to(dev) for f in frames]
+    params = _dense_params(descriptor)
+
+    def one_pass():
+        vo = VisualOdometry(K, baseline, tuple(images[0].shape), params,
+                            device=dev)
+        vo.add_frame(images[0], disps[0])
+        res, t_ms = [], []
+        for image, disp in zip(images[1:], disps[1:]):
+            t0 = time.perf_counter()
+            res.append(vo.add_frame(image, disp))
+            torch.cuda.synchronize()
+            t_ms.append((time.perf_counter() - t0) * 1e3)
+        return vo, res, np.array(t_ms)
+
+    torch.cuda.synchronize()
+    one_pass()                          # warm-up: first-use costs of each op
+    # what the launch counts must equal: gauss_newton.run's iterations and
+    # its sigma re-estimates (device scalars, summed after the run)
+    run_iters, n_est = [], [0]
+    run, estimate_scale = gn.run, mestimator.estimate_scale
+
+    def counted_run(*a, **k):
+        st = run(*a, **k)
+        run_iters.append(st.num_iters)
+        return st
+
+    def counted_estimate_scale(*a, **k):
+        n_est[0] += 1
+        return estimate_scale(*a, **k)
+
+    gn.run, mestimator.estimate_scale = counted_run, counted_estimate_scale
+    try:
+        _reset_counts()
+        vo, res, t_ms = one_pass()
+        counts = _counts()
+    finally:
+        gn.run, mestimator.estimate_scale = run, estimate_scale
+    iters_run = int(torch.stack(run_iters).sum())
+
+    poses = np.stack([r.pose for r in res]).astype(np.float32)
+    kf = np.array([r.is_keyframe for r in res])
+    iters = np.array([[s.num_iterations for s in r.optimizer_statistics]
+                      for r in res])
+    step_inv = torch.as_tensor(np.linalg.inv(synthetic.step_pose()),
+                               dtype=torch.float32)
+    gt_err = np.array([float(se3.log(torch.as_tensor(P) @ step_inv)
+                             .abs().max()) for P in poses])
+    d_pose = np.abs(poses - ref[f"{name}_poses"]).max((1, 2))
+    ref_kf = ref[f"{name}_is_keyframe"]
+    bound = float(ref[f"{name}_gt_err"].max()) + GT_MARGIN_DENSE[name]
+    C = vo._ref.templates[0].pixels.shape[0]
+    want = {"fused_linearize": iters_run + (n_est[0] if C > 1 else 0),
+            "irls_reduce": n_est[0] if C == 1 else 0,
+            "level_gn": 2 * len(res)}      # L3 and L2 of each first estimate
+    label = f"VO dense {name}"
+    print(f"{label}: points per level "
+          f"{[vo.num_points_at_level(l) for l in range(4)]}, {len(res)} "
+          f"steps, {int(kf.sum())} keyframes (JAX {int(ref_kf.sum())}, same "
+          f"frames: {np.array_equal(kf, ref_kf)}), iters/frame "
+          f"{iters.sum(1).mean():.2f} (JAX "
+          f"{ref[f'{name}_iters'].sum(1).mean():.2f})")
+    print(f"{label}: max GT error {gt_err.max():.3e} (bound {bound:.3e}), "
+          f"max |pose - JAX pose| {d_pose.max():.3e} (atol "
+          f"{T_ATOL_JAX_DENSE[name]})")
+    print(f"{label}: per step |pose - JAX pose| "
+          + " ".join(f"{e:.1e}" for e in d_pose))
+    print(f"{label}: launches {counts}; gauss_newton.run {iters_run} "
+          f"iterations, {n_est[0]} sigma re-estimates; expected {want}")
+    split = "".join(f"; {lab} p50 {np.percentile(t_ms[sel], 50):.3f}"
+                    for lab, sel in (("keyframe steps", kf), ("others", ~kf))
+                    if sel.any())
+    print(f"{label}: {len(res) / (t_ms.sum() / 1e3):.2f} frames/s, per-frame "
+          f"ms p50 {np.percentile(t_ms, 50):.3f} p90 "
+          f"{np.percentile(t_ms, 90):.3f} max {t_ms.max():.3f}{split}")
+    _require(np.all(np.isfinite(poses)), f"{label}: non-finite pose")
+    _require(gt_err.max() <= bound, f"{label}: GT error {gt_err.max()} > "
+                                    f"{bound}")
+    _require(d_pose.max() <= T_ATOL_JAX_DENSE[name],
+             f"{label}: poses differ from JAX by {d_pose.max()}")
+    _require(np.array_equal(kf, ref_kf),
+             f"{label}: keyframes {np.flatnonzero(kf)} vs JAX "
+             f"{np.flatnonzero(ref_kf)}")
+    for kernel, n in want.items():
+        _require(counts[kernel] == n and (n > 0 or kernel == "irls_reduce"),
+                 f"{label}: {kernel} launched {counts[kernel]} times, "
+                 f"expected {n}")
+    return counts, len(res) / (t_ms.sum() / 1e3), float(
+        np.percentile(t_ms, 50)), float(np.percentile(t_ms, 90))
 
 
 def census_phase(left, dev):
@@ -433,14 +728,50 @@ def main() -> int:
         _require(counts_s[name] == n,
                  f"{name} launched {counts_s[name]} times, expected {n}")
 
+    del vo_bp
+
+    # dense VO at KITTI shape: L0 and L1 through gauss_newton.run
+    ref_d = dict(np.load(REF_DENSE_NPZ))
+    gnk = gn_kernel_phase(K, baseline, [f[0::2] for f in sframes[:2]], dev)
+    dense = {}
+    for name, desc in (("intensity", DescriptorType.INTENSITY),
+                       ("bitplanes", DescriptorType.BITPLANES)):
+        counts, fps_d, p50_d, p90_d = dense_vo_phase(
+            K, baseline, [f[0::2] for f in sframes], dev, ref_d, name, desc)
+        dense[name] = counts
+        print(f"VO dense {name}: {fps_d:.2f} frames/s, per-frame p50 "
+              f"{p50_d:.3f} ms p90 {p90_d:.3f} ms on {smi}")
+    _require(dense["intensity"]["irls_reduce"] > 0,
+             "irls_reduce never launched on the dense intensity path")
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+
+    def by_path(kernel):
+        return {"intensity": counts_i[kernel],
+                "stereo_bitplanes": counts_s[kernel],
+                "dense_intensity": dense["intensity"][kernel],
+                "dense_bitplanes": dense["bitplanes"][kernel]}
+
+    def gn_entry(kernel, source, replaces, shape):
+        err, times = gnk[kernel]
+        return {"name": kernel, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(by_path(kernel).values()),
+                "launches_by_path": by_path(kernel), "max_abs_err": err,
+                "ms": times[shape][0], "plain_ms": times[shape][1],
+                "shape": shape,
+                "ms_by_shape": {k: v[0] for k, v in times.items()},
+                "plain_ms_by_shape": {k: v[1] for k, v in times.items()},
+                "replayed_ms_by_shape": {k: v[2] for k, v in times.items()},
+                "plain_replayed_ms_by_shape": {k: v[3]
+                                               for k, v in times.items()}}
+
     print(json.dumps({"kernels": [
         {"name": "level_gn", "route": "cuda",
          "source": "bpvo_tpu_torch/csrc/level_gn.cu",
          "replaces": "bpvo_tpu/ops/pallas/level_gn_kernel.py:615",
-         "launches": counts_i["level_gn"] + counts_s["level_gn"],
-         "launches_by_path": {"intensity": counts_i["level_gn"],
-                              "stereo_bitplanes": counts_s["level_gn"]},
+         "launches": sum(by_path("level_gn").values()),
+         "launches_by_path": by_path("level_gn"),
          "max_abs_err": max(err_i, err_b), "ms": ms_i + ms_b,
          "plain_ms": plain_i + plain_b,
          "ms_by_path": {"intensity": ms_i, "stereo_bitplanes": ms_b}},
@@ -453,7 +784,13 @@ def main() -> int:
          "source": "bpvo_tpu_torch/csrc/sgm.cu",
          "replaces": "bpvo_tpu/ops/pallas/sgm_kernel.py:51",
          "launches": counts_s["sgm_aggregate"], "max_abs_err": err_s,
-         "ms": ms_s, "plain_ms": plain_s}]}))
+         "ms": ms_s, "plain_ms": plain_s},
+        gn_entry("fused_linearize", "bpvo_tpu_torch/csrc/fused_linearize.cu",
+                 "bpvo_tpu/ops/pallas/gn_kernel.py:181 and :433",
+                 "intensity L0 C=1"),
+        gn_entry("irls_reduce", "bpvo_tpu_torch/csrc/irls_reduce.cu",
+                 "bpvo_tpu/ops/pallas/irls_kernel.py:119 and :163",
+                 "intensity L0 M=1K")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

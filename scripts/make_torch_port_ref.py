@@ -11,20 +11,28 @@ tests hold the PyTorch port to:
   conf/kitti_bitplanes.cfg's VO and matcher settings (Bit-Planes, Huber,
   100 iterations, SGM with 128 disparities).
 
-Each stores per frame the relative pose, the world pose, the keyframe flag,
-the per-level GN iterations and the ground-truth error
-max|se3.log(pose @ step^-1)|; the stereo file also stores the frame-0
-disparity's valid count and mean |d - GT| over the valid pixels (not the
-map).
+- ``tests/data/torch_port_dense_ref.npz``: JAX ``VisualOdometry`` on the
+  CPU over 1+30 frames of the port's synthetic sequence (given disparity)
+  with bench.py's settings, non-maxima suppression off and
+  ``pointCapacity=131072`` (dense VO: 131072/32768/8192/2048 points per
+  level), for the intensity descriptor (``intensity_*`` keys) and for
+  Bit-Planes (``bitplanes_*`` keys).
+
+Each stores per frame the relative pose, the keyframe flag, the per-level
+GN iterations and the ground-truth error max|se3.log(pose @ step^-1)| (the
+``DeviceVO`` files also the world pose); the stereo file also stores the
+frame-0 disparity's valid count and mean |d - GT| over the valid pixels
+(not the map).
 
 Route note: on the CPU the JAX package takes ``gauss_newton.run`` with the
 1024-bin histogram median at every level, while the port runs the level
-kernel's 16-step bisection median.  The two routes walk slightly different
-iterate paths to the same optimum (for Bit-Planes also with other
-per-level iteration counts), so the port is held to these poses by a
-cross-route tolerance, not by bitwise equality.
+kernel's 16-step bisection median on levels of at most 16384 points.  The
+two routes walk slightly different iterate paths to the same optimum (for
+Bit-Planes also with other per-level iteration counts), so the port is held
+to these poses by a cross-route tolerance, not by bitwise equality.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py [bench|stereo]
+    JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py \
+        [bench|stereo|dense]
 """
 from __future__ import annotations
 
@@ -38,7 +46,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "data", "torch_port_bench_ref.npz")
 OUT_STEREO = os.path.join(ROOT, "tests", "data",
                           "torch_port_bitplanes_sgm_ref.npz")
+OUT_DENSE = os.path.join(ROOT, "tests", "data", "torch_port_dense_ref.npz")
 CONF = os.path.join(ROOT, "conf", "kitti_bitplanes.cfg")
+# dense VO at KITTI shape: NMS off as conf/tunnel.cfg sets it, and a point
+# capacity that every level fills
+DENSE = dict(minNumPixelsForNonMaximaSuppression=20000000,
+             pointCapacity=131072)
 
 
 def _run(vo, pairs, step):
@@ -115,16 +128,103 @@ def stereo_ref():
           f"{float(np.abs(d0 - gt0)[valid].mean()):.6f}")
 
 
+def _run_odometry(vo, frames, step):
+    """``VisualOdometry.add_frame`` over the frames; per-step arrays."""
+    import jax.numpy as jnp
+    from bpvo_tpu.core import se3
+    vo.add_frame(*frames[0])
+    poses, kfs, iters, errs = [], [], [], []
+    for image, disp in frames[1:]:
+        res = vo.add_frame(image, disp)
+        pose = np.asarray(res.pose, np.float32)
+        poses.append(pose)
+        kfs.append(bool(res.is_keyframe))
+        iters.append([s.num_iterations for s in res.optimizer_statistics])
+        errs.append(float(np.abs(np.asarray(se3.log(jnp.asarray(
+            pose @ np.linalg.inv(step), jnp.float32)))).max()))
+    return dict(poses=np.stack(poses), is_keyframe=np.asarray(kfs),
+                iters=np.asarray(iters, np.int32),
+                gt_err=np.asarray(errs, np.float32))
+
+
+def _wide_select_pixels(orig):
+    """JAX's ``selection.select_pixels`` refuses capacities above 46340: its
+    closed-form block balance, a layout step for the TPU kernels' row bands,
+    would overflow int32.  Above that bound this takes the same gated exact
+    top-K and keeps the valid points compacted to the front in raster order,
+    as the port's selection does; the solver's reductions do not depend on
+    the point order."""
+    import jax
+    import jax.numpy as jnp
+    from bpvo_tpu.ops import imgproc
+    from bpvo_tpu.ops.selection import Selection
+
+    def select_pixels(saliency, disparity, capacity, *, min_saliency,
+                      nms_radius, use_nms, min_disparity, max_disparity,
+                      border):
+        if capacity <= 46340:
+            return orig(saliency, disparity, capacity,
+                        min_saliency=min_saliency, nms_radius=nms_radius,
+                        use_nms=use_nms, min_disparity=min_disparity,
+                        max_disparity=max_disparity, border=border)
+        H, W = saliency.shape
+        ok = saliency >= min_saliency
+        if use_nms and nms_radius > 0:
+            ok &= imgproc.is_local_max(saliency, nms_radius)
+        ok &= (disparity >= min_disparity) & (disparity <= max_disparity)
+        bm = jnp.zeros((H, W), bool)
+        if H - 2 * border - 1 > 0 and W - 2 * border - 1 > 0:
+            bm = bm.at[border:H - border - 1, border:W - border - 1].set(True)
+        ok &= bm
+        vals, idx = jax.lax.top_k(jnp.where(ok, saliency, -jnp.inf)
+                                  .reshape(-1), capacity)
+        valid = vals > -jnp.inf
+        order = jnp.argsort(jnp.where(valid, idx, jnp.iinfo(jnp.int32).max))
+        idx, valid = idx[order], valid[order]
+        return Selection(rows=(idx // W).astype(jnp.int32),
+                         cols=(idx % W).astype(jnp.int32),
+                         disparity=disparity.reshape(-1)[idx], valid=valid,
+                         num_valid=jnp.sum(valid).astype(jnp.int32))
+
+    return select_pixels
+
+
+def dense_ref():
+    import time
+
+    import bench
+    from bpvo_tpu import VisualOdometry
+    from bpvo_tpu.ops import selection
+    from bpvo_tpu_torch.data import synthetic
+
+    selection.select_pixels = _wide_select_pixels(selection.select_pixels)
+    K, baseline, frames = synthetic.synthesize_sequence(1 + N_STEPS)
+    out = {}
+    for name, desc in (("intensity", "Intensity"), ("bitplanes", "BitPlanes")):
+        t0 = time.perf_counter()
+        vo = VisualOdometry(K, baseline, (synthetic.ROWS, synthetic.COLS),
+                            bench._make_params(desc).replace(**DENSE))
+        ref = _run_odometry(vo, frames, _step_pose())
+        print(f"{name}: {time.perf_counter() - t0:.1f} s, levels "
+              f"{[int(vo.num_points_at_level(l)) for l in range(4)]} points")
+        _report(f"{OUT_DENSE} [{name}]", ref)
+        out.update({f"{name}_{k}": v for k, v in ref.items()})
+    np.savez_compressed(OUT_DENSE, rows=synthetic.ROWS, cols=synthetic.COLS,
+                        **out)
+
+
 def main():
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, ROOT)
     import jax
     jax.config.update("jax_platforms", "cpu")
-    which = sys.argv[1:] or ["bench", "stereo"]
+    which = sys.argv[1:] or ["bench", "stereo", "dense"]
     if "bench" in which:
         bench_ref()
     if "stereo" in which:
         stereo_ref()
+    if "dense" in which:
+        dense_ref()
 
 
 if __name__ == "__main__":

@@ -1,12 +1,16 @@
 """Where the time goes in the PyTorch/CUDA port's VO step, on one GPU.
 
-    python3 scripts/profile_torch_vo.py [--config intensity|stereo-bitplanes]
-        [--steps 30] [--trace out.json]
+    python3 scripts/profile_torch_vo.py [--config intensity|stereo-bitplanes|
+        dense-intensity|dense-bitplanes] [--steps 30] [--trace out.json]
 
-Runs ``DeviceVO(device="cuda")`` over 1+steps frames of the synthetic
-376x1241 sequence, with bench.py's intensity settings (``intensity``, the
-default) or as stereo pairs with conf/kitti_bitplanes.cfg's Bit-Planes VO and
-SGM matcher in the keyframe branch (``stereo-bitplanes``):
+Runs VO on the card over 1+steps frames of the synthetic 376x1241 sequence:
+``DeviceVO(device="cuda")`` with bench.py's intensity settings
+(``intensity``, the default) or as stereo pairs with
+conf/kitti_bitplanes.cfg's Bit-Planes VO and SGM matcher in the keyframe
+branch (``stereo-bitplanes``); or ``VisualOdometry(device="cuda")`` with
+bench.py's settings, non-maxima suppression off and pointCapacity 131072
+(dense VO: L0 and L1 through ``gauss_newton.run``), intensity or Bit-Planes
+(``dense-intensity``, ``dense-bitplanes``):
 
 1. two untraced passes (the first pays first-use costs), each printing
    frames/s and per-frame p50/p90 ms on the host clock, split into keyframe
@@ -14,7 +18,9 @@ SGM matcher in the keyframe branch (``stereo-bitplanes``):
 2. one pass under ``torch.profiler`` (CPU + CUDA activities), printing the
    ops by device time, the device busy share (union of the device events'
    intervals over the pass's wall time), each hand-written kernel's
-   (``level_gn``, ``census``, ``sgm``) device total and launches, and the
+   (``level_gn``, ``census``, ``sgm``, ``fused_linearize``, ``irls_reduce``
+   and their shared ``reduce_partials`` pass) device total and launches,
+   and the
    top-level host ops issued per step.
 
 Imports no JAX.  Times are only comparable inside one run.
@@ -34,18 +40,21 @@ from torch.profiler import ProfilerActivity, profile, record_function
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bpvo_tpu_torch import (AlgorithmParameters, ConfigFile,  # noqa: E402
-                            DescriptorType)
+                            DescriptorType, VisualOdometry)
 from bpvo_tpu_torch.data import stereo, synthetic  # noqa: E402
 from bpvo_tpu_torch.vo.device_vo import DeviceVO  # noqa: E402
 
 CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "conf", "kitti_bitplanes.cfg")
-KERNELS = ("level_gn", "census", "sgm")
+KERNELS = ("level_gn", "census", "sgm", "fused_linearize", "irls_reduce",
+           "reduce_partials")
 
 BENCH_PARAMS = dict(minSaliency=2.0, numPyramidLevels=4,
                     descriptor=DescriptorType.INTENSITY,
                     functionTolerance=1e-4, parameterTolerance=1e-6,
                     maxIterations=50)
+DENSE = dict(minNumPixelsForNonMaximaSuppression=20000000,
+             pointCapacity=131072)
 STEP_LABEL = "vo_step_"
 
 
@@ -64,7 +73,8 @@ def _busy_us(intervals):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("intensity", "stereo-bitplanes"),
+    ap.add_argument("--config", choices=("intensity", "stereo-bitplanes",
+                                         "dense-intensity", "dense-bitplanes"),
                     default="intensity")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--trace", help="write a Chrome trace of the profiled pass")
@@ -79,6 +89,12 @@ def main(argv=None) -> int:
     if args.config == "intensity":
         K, b, frames = synthetic.synthesize_sequence(1 + args.steps)
         params, stereo_fn = AlgorithmParameters(**BENCH_PARAMS), None
+    elif args.config.startswith("dense"):
+        K, b, frames = synthetic.synthesize_sequence(1 + args.steps)
+        params, stereo_fn = AlgorithmParameters(**dict(
+            BENCH_PARAMS, **DENSE, descriptor=(
+                DescriptorType.BITPLANES if args.config == "dense-bitplanes"
+                else DescriptorType.INTENSITY))), None
     else:   # the second input is the right image
         K, b, frames = synthetic.synthesize_stereo_sequence(1 + args.steps)
         cf = ConfigFile(CONF)
@@ -89,8 +105,12 @@ def main(argv=None) -> int:
     disps = [torch.as_tensor(f[1]).to(dev) for f in frames]
 
     def fresh_vo():
-        vo = DeviceVO(K, b, (synthetic.ROWS, synthetic.COLS), params,
-                      device=dev, stereo_fn=stereo_fn)
+        if args.config.startswith("dense"):
+            vo = VisualOdometry(K, b, (synthetic.ROWS, synthetic.COLS),
+                                params, device=dev)
+        else:
+            vo = DeviceVO(K, b, (synthetic.ROWS, synthetic.COLS), params,
+                          device=dev, stereo_fn=stereo_fn)
         vo.add_frame(images[0], disps[0])
         torch.cuda.synchronize()
         return vo

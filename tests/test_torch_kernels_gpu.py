@@ -311,3 +311,228 @@ def test_stereo_bitplanes_vo_on_cuda_counts_launches(cuda):
                                dtype=torch.float32)
     err = se3.log(outs.pose.cpu() @ step_inv).abs().max()
     assert torch.isfinite(outs.pose).all() and float(err) < 2e-2
+
+
+# ---------------------------------------------------------------------------
+# the per-iteration route: fused_linearize, irls_reduce, gauss_newton.run
+# ---------------------------------------------------------------------------
+
+DENSE = dict(BENCH_PARAMS, minNumPixelsForNonMaximaSuppression=20000000,
+             pointCapacity=131072)
+
+
+def _dense_level(cuda, descriptor, level):
+    """Dense VO (NMS off, 131072 points at L0) on the 376x1241 sequence:
+    the template of frame 0 at ``level``, frame 1's channels there, the
+    warp's sample points at the identity pose and a sigma from them."""
+    from bpvo_tpu_torch.ops import interp
+    from bpvo_tpu_torch.solver import mestimator
+    from bpvo_tpu_torch.vo import template_data, warp
+    K, b, frames = synthetic.synthesize_sequence(2)
+    vo = device_vo.DeviceVO(K, b, (synthetic.ROWS, synthetic.COLS),
+                            AlgorithmParameters(**dict(
+                                DENSE, descriptor=descriptor)), device=cuda)
+    vo.init(*frames[0])
+    ch = device_vo._compute_channels_pyr(
+        torch.as_tensor(frames[1][0]).to(cuda), vo._p, 4)[level]
+    td, cam, opts = vo.state.templates[level], vo._cams[level], vo._opts[level]
+    u, v, Z = warp.project(cam, torch.eye(4, device=cuda), td.points)
+    ok = td.valid & (Z > 1e-6) & interp.valid_mask(u, v, ch.shape[1],
+                                                   ch.shape[2], opts.interp)
+    r, _ = template_data.compute_residuals(td, ch, cam,
+                                           torch.eye(4, device=cuda),
+                                           opts.interp)
+    sigma = mestimator.estimate_scale(r[0], ok)
+    return td, ch, opts, u, v, ok, r, sigma
+
+
+@pytest.fixture(scope="module")
+def dense_intensity(cuda):
+    return {lvl: _dense_level(cuda, DescriptorType.INTENSITY, lvl)
+            for lvl in (0, 1)}
+
+
+@pytest.fixture(scope="module")
+def dense_bitplanes(cuda):
+    return {lvl: _dense_level(cuda, DescriptorType.BITPLANES, lvl)
+            for lvl in (0, 1)}
+
+
+def _close(a, b, rel):
+    """|a - b| <= rel * max|b|, elementwise."""
+    a, b = a.cpu(), b.cpu()
+    assert float((a - b).abs().max()) <= rel * float(b.abs().max()) + 1e-30
+
+
+def _check_fused(td, ch, opts, u, v, ok, sigma, channels=None):
+    from bpvo_tpu_torch.ops import fused_linearize as fl
+    from bpvo_tpu_torch.solver import mestimator
+    n = ch.shape[0] if channels is None else channels
+    args = (u, v, ok, ch[:n], td.pixels[:n], td.jacobians[:n], sigma,
+            opts.loss, opts.interp)
+    before = fl.launch_count
+    H, g, f, r0, w = fl.fused_linearize(*args)
+    torch.cuda.synchronize()
+    assert fl.launch_count == before + 1
+    Hp, gp, fp, r0p, wp = fl.fused_linearize_reference(*args)
+    # r0 bit for bit, so the histogram median gives the same sigma
+    assert torch.equal(r0.view(torch.int32), r0p.view(torch.int32))
+    assert torch.equal(mestimator.estimate_scale(r0, ok),
+                       mestimator.estimate_scale(r0p, ok))
+    assert float((w - wp).abs().max()) <= 1e-6
+    for a, b in ((H, Hp), (g, gp), (f, fp)):
+        _close(a, b, 1e-4)
+    return H, g, f, r0, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", (0, 1))
+def test_fused_linearize_kernel_matches_plain_c1(dense_intensity, level):
+    td, ch, opts, u, v, ok, _, sigma = dense_intensity[level]
+    assert td.pixels.shape == (1, 131072 >> (2 * level))
+    _check_fused(td, ch, opts, u, v, ok, sigma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", (0, 1))
+def test_fused_linearize_kernel_matches_plain_c8(dense_bitplanes, level):
+    """All 8 Bit-Planes channels, and the channel-0 pass gauss_newton.run
+    makes for sigma."""
+    td, ch, opts, u, v, ok, _, sigma = dense_bitplanes[level]
+    assert td.pixels.shape[0] == 8
+    _check_fused(td, ch, opts, u, v, ok, sigma)
+    _check_fused(td, ch, opts, u, v, ok, sigma, channels=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("change", [
+    {"loss": LossFunctionType.HUBER, "interp": InterpolationType.COSINE},
+    {"loss": LossFunctionType.L2}])
+def test_fused_linearize_kernel_options_match_plain(dense_intensity, change):
+    import dataclasses
+    td, ch, opts, u, v, ok, _, sigma = dense_intensity[1]
+    opts = dataclasses.replace(opts, **change)
+    from bpvo_tpu_torch.ops import fused_linearize as fl
+    args = (u, v, ok, ch, td.pixels, td.jacobians, sigma, opts.loss,
+            opts.interp)
+    H, g, f, r0, w = fl.fused_linearize(*args)
+    Hp, gp, fp, r0p, wp = fl.fused_linearize_reference(*args)
+    # cosf on the card and torch.cos may differ in the last bit
+    np.testing.assert_allclose(r0.cpu(), r0p.cpu(), rtol=1e-5, atol=1e-4)
+    assert float((w - wp).abs().max()) <= 1e-5
+    for a, b in ((H, Hp), (g, gp), (f, fp)):
+        _close(a, b, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", [LossFunctionType.TUKEY,
+                                  LossFunctionType.HUBER,
+                                  LossFunctionType.L2])
+@pytest.mark.parametrize("channels", (1, 8))
+def test_irls_reduce_kernel_matches_plain(dense_bitplanes, loss, channels):
+    """M = K (channel 0) and M = 8K (all channels) at L0."""
+    from bpvo_tpu_torch.ops import irls
+    td, ch, opts, u, v, ok, r, sigma = dense_bitplanes[0]
+    J = td.jacobians[:channels].reshape(-1, 6)
+    rr = r[:channels].reshape(-1)
+    valid = ok.expand(channels, -1).reshape(-1)
+    before = irls.launch_count
+    H, g, f, w = irls.irls_reduce_w(J, rr, valid, sigma, loss)
+    H2, g2, f2 = irls.irls_reduce(J, rr, valid, sigma, loss)
+    torch.cuda.synchronize()
+    assert irls.launch_count == before + 2
+    Hp, gp, fp, wp = irls.irls_reduce_reference(J, rr, valid, sigma, loss)
+    assert float((w - wp).abs().max()) <= 1e-6
+    for a, b in ((H, Hp), (g, gp), (f, fp)):
+        _close(a, b, 1e-4)
+    for a, b in ((H2, H), (g2, g), (f2, f)):     # the same sums, bit for bit
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gn_kernels_bitwise_repeatable(dense_bitplanes):
+    from bpvo_tpu_torch.ops import fused_linearize as fl
+    from bpvo_tpu_torch.ops import irls
+    td, ch, opts, u, v, ok, r, sigma = dense_bitplanes[0]
+    args = (u, v, ok, ch, td.pixels, td.jacobians, sigma, opts.loss,
+            opts.interp)
+    for x, y in zip(fl.fused_linearize(*args), fl.fused_linearize(*args)):
+        assert torch.equal(x, y)
+    a = (td.jacobians.reshape(-1, 6), r.reshape(-1),
+         ok.expand(8, -1).reshape(-1), sigma, opts.loss)
+    for x, y in zip(irls.irls_reduce_w(*a), irls.irls_reduce_w(*a)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_gn_kernels_reject_what_they_cannot_take(dense_intensity):
+    from bpvo_tpu_torch.ops import fused_linearize as fl
+    from bpvo_tpu_torch.ops import irls
+    td, ch, opts, u, v, ok, r, sigma = dense_intensity[1]
+    args = [u, v, ok, ch, td.pixels, td.jacobians, sigma, opts.loss,
+            opts.interp]
+    for i, bad in ((0, u.double()), (2, ok.to(torch.uint8)),
+                   (3, ch.transpose(1, 2)), (5, td.jacobians.cpu()),
+                   (6, torch.ones(2, device=u.device))):
+        b = list(args)
+        b[i] = bad
+        with pytest.raises(ValueError):
+            fl.fused_linearize(*b)
+    b = list(args)
+    b[-1] = InterpolationType.CUBIC
+    with pytest.raises(NotImplementedError):
+        fl.fused_linearize(*b)
+    J = td.jacobians.reshape(-1, 6)
+    for bad in ((J.T, r[0], ok), (J, r[0].double(), ok), (J, r[0], ok[:-1])):
+        with pytest.raises(ValueError):
+            irls.irls_reduce_w(*bad, sigma, opts.loss)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("descriptor", [DescriptorType.INTENSITY,
+                                        DescriptorType.BITPLANES])
+def test_run_on_cuda_matches_plain(dense_intensity, dense_bitplanes,
+                                   descriptor):
+    """gauss_newton.run at the dense L1 (K=32768) through the kernels and,
+    on the CPU copies of the same tensors, through the plain versions."""
+    from bpvo_tpu_torch.solver import gauss_newton as gn
+    from bpvo_tpu_torch.vo import template_data
+    levels = (dense_intensity if descriptor == DescriptorType.INTENSITY
+              else dense_bitplanes)
+    td, ch, opts = levels[1][:3]
+    K, b, _ = synthetic.synthesize_sequence(1)
+    cam = device_vo.DeviceVO(K, b, (synthetic.ROWS, synthetic.COLS),
+                             AlgorithmParameters(**DENSE))._cams[1]
+    st = gn.run(td, ch, cam, torch.eye(4, device=ch.device), opts)
+    td_cpu = template_data.TemplateData(*(x.cpu() for x in td))
+    sp = gn.run(td_cpu, ch.cpu(), cam, torch.eye(4), opts)
+    np.testing.assert_allclose(st.T.cpu(), sp.T, atol=1e-4)
+    assert abs(int(st.num_iters) - int(sp.num_iters)) <= 1
+    assert bool(st.converged) and bool(sp.converged)
+    np.testing.assert_allclose(float(st.scale), float(sp.scale), rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_visual_odometry_on_cuda_counts_launches(cuda):
+    """Dense intensity VisualOdometry over 1+3 frames on the card: L0 and
+    L1 through gauss_newton.run (one fused_linearize per iteration, one
+    irls_reduce per sigma re-estimate), L2 and L3 through level_gn."""
+    from bpvo_tpu_torch import VisualOdometry
+    from bpvo_tpu_torch.ops import fused_linearize as fl
+    from bpvo_tpu_torch.ops import irls
+    K, b, frames = synthetic.synthesize_sequence(4)
+    vo = VisualOdometry(K, b, (synthetic.ROWS, synthetic.COLS),
+                        AlgorithmParameters(**DENSE), device=cuda)
+    before = (fl.launch_count, irls.launch_count, lg.launch_count)
+    res = [vo.add_frame(*f) for f in frames][1:]
+    d_fl, d_irls, d_lg = (fl.launch_count - before[0],
+                          irls.launch_count - before[1],
+                          lg.launch_count - before[2])
+    n_kf = sum(r.is_keyframe for r in res)
+    assert d_lg == 2 * len(res)            # L2, L3 of each first estimate
+    assert d_fl > 0 and 0 < d_irls <= d_fl
+    step_inv = np.linalg.inv(synthetic.step_pose())
+    for r in res:
+        err = se3.log(torch.as_tensor(r.pose @ step_inv, dtype=torch.float32))
+        assert float(err.abs().max()) < 1e-3
+    assert vo.num_points_at_level(0) == 131072 and n_kf >= 0
