@@ -102,6 +102,13 @@ def check_tensors(op: str, device, want) -> None:
             raise ValueError(f"{op}: {name} must be contiguous")
 
 
+def launch(lib: ctypes.CDLL, op: str, rc: int) -> None:
+    """Raise RuntimeError if a C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: "
+                           + lib.bpvo_cuda_error_string(rc).decode())
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use in this process."""
     global _lib
@@ -126,5 +133,25 @@ def library() -> ctypes.CDLL:
         lib.bpvo_irls_reduce_blocks.restype = i
         lib.bpvo_cuda_error_string.argtypes = [i]
         lib.bpvo_cuda_error_string.restype = ctypes.c_char_p
+        # the microbenchmarks of bpvo_tpu_torch/probes
+        for name, args in (
+                ("while_cta", [p, p, i, i, p]),
+                ("while_cluster", [p, p, i, i, i, p]),
+                ("while_grid_ctas", []),
+                ("while_grid", [p, p, i, i, p, p]),
+                ("scalar_chain", [p, p, p]),
+                ("matmul_chain", [p, p, p, i, f, p]),
+                ("take_global", [p, p, p, i, i, i, p]),
+                ("take_smem", [p, p, p, i, i, i, p]),
+                ("take_dsmem", [p, p, p, i, i, i, p]),
+                ("take_dsmem_clusters", [i, p]),
+                ("band_bilinear", [p, p, p, p, i, i, i, i, i, p]),
+                ("band_static_slice", [p, i, i, i, p, p]),
+                ("band_dyn_slice", [p, i, p, i, i, i, p, p]),
+                ("band_onehot", [p, i, p, p]),
+                ("band_onehot_matmul", [p, p, i, p, p]),
+                ("band_rowweight", [p, p, i, i, p, p])):
+            fn = getattr(lib, "bpvo_probe_" + name)
+            fn.argtypes, fn.restype = args, i
         _lib = lib
     return _lib

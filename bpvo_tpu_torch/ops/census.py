@@ -66,9 +66,7 @@ def census_planes(I):
     for n in range(src.shape[0]):
         rc = lib.bpvo_census_planes(ptr(src[n].data_ptr()),
                                     ptr(out[n].data_ptr()), H, W, ptr(stream))
-        if rc != 0:
-            raise RuntimeError("census kernel launch failed: "
-                               + lib.bpvo_cuda_error_string(rc).decode())
+        _build.launch(lib, "census", rc)
         launch_count += 1
     return out.reshape(lead + (8, H, W))
 

@@ -94,8 +94,6 @@ def fused_linearize(u, v, ok, channels, pixels, jacobians, sigma, loss,
         LOSS_CODES[loss], int(interp == InterpolationType.COSINE),
         ptr(r0.data_ptr()), ptr(w.data_ptr()), ptr(partials.data_ptr()),
         ptr(out.data_ptr()), ptr(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError("fused_linearize kernel launch failed: "
-                           + lib.bpvo_cuda_error_string(rc).decode())
+    _build.launch(lib, "fused_linearize", rc)
     launch_count += 1
     return out[:36].view(6, 6), out[36:42], out[42], r0, w

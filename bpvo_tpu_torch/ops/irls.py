@@ -59,9 +59,7 @@ def _launch(J, r, valid, sigma, loss, with_w: bool):
         ptr(sigma.data_ptr()), M, LOSS_CODES[loss],
         ptr(w.data_ptr() if with_w else None), ptr(partials.data_ptr()),
         ptr(out.data_ptr()), ptr(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError("irls_reduce kernel launch failed: "
-                           + lib.bpvo_cuda_error_string(rc).decode())
+    _build.launch(lib, "irls_reduce", rc)
     launch_count += 1
     return out[:36].view(6, 6), out[36:42], out[42], w
 

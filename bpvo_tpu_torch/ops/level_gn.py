@@ -235,9 +235,7 @@ def level_gn(cam, points, valid, pixels, jacobians, channels, T0, sigma0,
         opts.function_tolerance, opts.parameter_tolerance,
         opts.gradient_tolerance, opts.scale_tolerance,
         opts.scale_tolerance_rel, ptr(stream))
-    if rc != 0:
-        raise RuntimeError("level_gn kernel launch failed: "
-                           + lib.bpvo_cuda_error_string(rc).decode())
+    _build.launch(lib, "level_gn", rc)
     launch_count += 1
     return (out_T, stats, out_H, out_g, w,
             torch.zeros((), dtype=torch.int32, device=dev))

@@ -69,9 +69,7 @@ def _launch(cost, p1: float, p2: float, n_dirs: int):
     rc = lib.bpvo_sgm_aggregate(ptr(cost.data_ptr()), ptr(out.data_ptr()),
                                 H, W, D, float(p1), float(p2), n_dirs,
                                 ptr(stream))
-    if rc != 0:
-        raise RuntimeError("sgm kernel launch failed: "
-                           + lib.bpvo_cuda_error_string(rc).decode())
+    _build.launch(lib, "sgm", rc)
     launch_count += 1
     return out
 

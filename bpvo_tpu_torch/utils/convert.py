@@ -59,7 +59,7 @@ def _tensor(a, device, dtype=None):
     return t.to(device=device, dtype=dtype) if dtype else t.to(device)
 
 
-def template_from_numpy(d: Mapping[str, Any], device="cpu") -> TemplateData:
+def template_from_numpy(d: Mapping[str, Any], device="cuda") -> TemplateData:
     """``TemplateData`` from a mapping of its fields (e.g. ``_asdict()`` of
     the JAX template, as numpy arrays)."""
     f32, i64 = torch.float32, torch.int64
@@ -75,7 +75,7 @@ def template_from_numpy(d: Mapping[str, Any], device="cpu") -> TemplateData:
         cols=_tensor(d["cols"], device, i64))
 
 
-def state_from_numpy(d: Mapping[str, Any], device="cpu") -> VOState:
+def state_from_numpy(d: Mapping[str, Any], device="cuda") -> VOState:
     """``VOState`` from a mapping of its fields, with ``templates`` a
     sequence of template mappings and ``prev_channels`` a sequence of
     arrays.  ``prev_disparity`` is the candidate's disparity, or its

@@ -71,6 +71,17 @@ class VOStepOutput(NamedTuple):
     band_overflow: torch.Tensor  # () int32, always 0 here
 
 
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; raises when it names CUDA and there is no
+    CUDA device, so an entry point never runs on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available; pass device=\"cpu\" to run the plain "
+                           "versions on the CPU")
+    return device
+
+
 def _eye4(device):
     return torch.eye(4, dtype=torch.float32, device=device)
 
@@ -228,7 +239,7 @@ class DeviceVO:
     ``add_frame`` is then the right image."""
 
     def __init__(self, K, baseline: float, image_size,
-                 params: AlgorithmParameters = None, device="cpu",
+                 params: AlgorithmParameters = None, device="cuda",
                  stereo_fn=None):
         p = params or AlgorithmParameters()
         if p.poseEstimator != "GaussNewton":
@@ -238,7 +249,7 @@ class DeviceVO:
         if p.numPyramidLevels <= 0:
             p = p.replace(numPyramidLevels=p.num_pyramid_levels_for(rows, cols))
         self._p = p
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         base_cam = warp_mod.CameraModel.from_K(K, baseline)
         self._cams = tuple(base_cam.at_level(l)
                            for l in range(p.numPyramidLevels))

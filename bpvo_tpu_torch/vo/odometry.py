@@ -65,7 +65,7 @@ class VisualOdometry:
     ``add_frame(image, disparity) -> Result`` (reference vo.h:31-105)."""
 
     def __init__(self, K, baseline: float, image_size,
-                 params: Optional[AlgorithmParameters] = None, device="cpu"):
+                 params: Optional[AlgorithmParameters] = None, device="cuda"):
         p = params or AlgorithmParameters()
         rows, cols = image_size
         if p.numPyramidLevels <= 0:
@@ -73,7 +73,7 @@ class VisualOdometry:
                 numPyramidLevels=p.num_pyramid_levels_for(rows, cols))
         self._p = p
         self._rows, self._cols = rows, cols
-        self.device = torch.device(device)
+        self.device = device_vo.resolve_device(device)
         base_cam = warp_mod.CameraModel.from_K(K, baseline)
         self._cams = tuple(base_cam.at_level(l)
                            for l in range(p.numPyramidLevels))

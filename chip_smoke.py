@@ -54,13 +54,31 @@
    per sigma re-estimate at C=8), irls_reduce = sigma re-estimates at C=1,
    level_gn = the L2 and L3 solves, each > 0.
 
+9. Probe phase (``bpvo_tpu_torch.probes``, the GPU counterparts of the JAX
+   package's Mosaic probe scripts): with its launch counts set to 0, the
+   probe runner's four groups run once (its main path).  Its steps hold
+   every probe kernel and variant against its plain version on the card
+   (bitwise, or rtol 1e-5 for matmul_chain, atol 1e-6 for band_bilinear,
+   v4 and v5; band_bilinear also on points over the whole image, which
+   leave their band) and time each as a CUDA-graph replay and through its
+   wrapper, beside its plain version and, where one PyTorch call computes
+   the same function, that call.  No step or variant may fail or disagree,
+   every probe kernel must launch, and the wide points must differ from
+   unbanded sampling.
+
 Any failure exits non-zero.  The line before the last is a JSON object with
-the kernels' launches (summed over the VO phases that run each), errors and
-CUDA-event times (mean ms per call through the wrapper; for census, whose
-wrapper costs more host time than the kernel device time, back-to-back
-launches of its C entry point; for fused_linearize and irls_reduce also the
-device time of the call replayed from a CUDA graph, per shape); the last
-line is {"ok": true, "device": {...}}.  Without a CUDA device, or without
+the kernels' launches (summed over the VO phases that run each; for the
+probes, the probe groups' run), errors, CUDA-event times (mean ms per call
+through the wrapper; for census, whose wrapper costs more host time than
+the kernel device time, back-to-back launches of its C entry point; for
+fused_linearize and irls_reduce also the device time of the call replayed
+from a CUDA graph, per shape; for the probes "ms" is the replayed device
+time), the least time the card could take for the same work (``bound_ms``:
+the larger of the bytes moved over 3.35 TB/s and the f32 operations over
+67 TFLOP/s, H100 SXM; an image that a kernel gathers from counts only the
+distinct pixels this run's points read) and the library call's time where
+there is one; the
+last line is {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -117,6 +135,51 @@ DENSE = dict(minNumPixelsForNonMaximaSuppression=20000000,
 T_ATOL_JAX_DENSE = {"intensity": 5e-4, "bitplanes": 2e-3}
 GT_MARGIN_DENSE = {"intensity": GT_MARGIN, "bitplanes": GT_MARGIN_STEREO}
 SGM_REPS, SGM_PLAIN_REPS = 10, 1
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bandwidth and the f32
+# rate outside the tensor cores; bound_ms is the larger of bytes / the one
+# and operations / the other
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# f32 operations per element, counted from each kernel's arithmetic: a
+# level_gn iteration projects each point (~20) and runs the 16-step median
+# bisection (~32), then per point and channel samples, weighs and adds to H,
+# g, f (~71); fused_linearize the same without the bisection; irls_reduce
+# per term weighs and adds (~64); census compares 8 neighbours; SGM ~8 per
+# cost per direction
+OPS_LEVEL_POINT, OPS_LEVEL_CHANNEL = 52, 71
+OPS_LIN_POINT, OPS_LIN_CHANNEL = 20, 71
+OPS_IRLS_TERM, OPS_CENSUS_PIXEL, OPS_SGM_COST = 64, 8, 32
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if hasattr(t, "element_size"))
+
+
+def _bound(nbytes, ops):
+    """(least ms the card could take for ``nbytes`` moved and ``ops`` f32
+    operations, "bytes" or "operations": whichever sets it)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _taps(u, v, ok, rows, cols):
+    """Flat indices of the pixels that bilinear sampling at the points
+    (u, v) where ``ok`` reads: each point's 2x2 footprint, clipped to the
+    image."""
+    import torch
+    xi = torch.floor(u[ok]).long().clamp(0, cols - 2)
+    yi = torch.floor(v[ok]).long().clamp(0, rows - 2)
+    return torch.cat([(yi + dy) * cols + xi + dx
+                      for dy in (0, 1) for dx in (0, 1)])
+
+
+def _tap_bytes(ch, taps):
+    """Bytes of the distinct pixels ``taps`` of every channel of ``ch``: what
+    a gather from the (C, H, W) stack must read, each value once."""
+    import torch
+    return torch.unique(taps).numel() * ch.shape[0] * ch.element_size()
 
 
 def _require(cond, msg):
@@ -197,15 +260,16 @@ def kernel_phase(vo, init_pair, target, dev):
     templates of ``init_pair`` (image, disparity or right image), channels
     of the ``target`` image."""
     import torch
+    from bpvo_tpu_torch.ops import interp
     from bpvo_tpu_torch.ops import level_gn as lg
-    from bpvo_tpu_torch.vo import device_vo
+    from bpvo_tpu_torch.vo import device_vo, warp
 
     vo.init(*init_pair)
     templates = vo.state.templates
     channels = device_vo._compute_channels_pyr(
         torch.as_tensor(target).to(dev), vo._p, vo._p.numPyramidLevels)
     T0 = torch.eye(4, dtype=torch.float32, device=dev)
-    max_err, ms, plain_ms = 0.0, 0.0, 0.0
+    max_err, ms, plain_ms, bound_ms, by = 0.0, 0.0, 0.0, 0.0, set()
     for level, (td, ch) in enumerate(zip(templates, channels)):
         args = (vo._cams[level], td.points, td.valid, td.pixels,
                 td.jacobians, ch, T0, 1.0, 1e10, td.norm_scale,
@@ -214,6 +278,22 @@ def kernel_phase(vo, init_pair, target, dev):
         Tk, sk, Hk, gk, wk, _ = lg.level_gn(*args)
         Tp, sp, Hp, gp, wp, _ = lg.level_gn_reference(*args)
         torch.cuda.synchronize()
+        C, K = td.pixels.shape
+        # the image stack counts only the pixels that the projections at the
+        # first and the converged pose read (the kernel gathers taps)
+        cam, opts = vo._cams[level], vo._opts[level]
+        taps = []
+        for T in (T0, Tk):
+            u, v, Z = warp.project(cam, T, td.points)
+            ok = td.valid & (Z > 1e-6) & interp.valid_mask(
+                u, v, ch.shape[1], ch.shape[2], opts.interp)
+            taps.append(_taps(u, v, ok, ch.shape[1], ch.shape[2]))
+        nbytes = (_nbytes(*(a for a in args if a is not ch), Tk, sk, Hk, gk,
+                          wk) + _tap_bytes(ch, torch.cat(taps)))
+        b_ms, b_by = _bound(nbytes, float(sk[0]) * K
+                            * (OPS_LEVEL_POINT + C * OPS_LEVEL_CHANNEL))
+        bound_ms += b_ms
+        by.add(b_by)
         err = float((Tk - Tp).abs().max())
         dH = _rel(Hk, Hp)
         t_k = _cuda_ms(lambda: lg.level_gn(*args), KERNEL_REPS)
@@ -225,7 +305,8 @@ def kernel_phase(vo, init_pair, target, dev):
               f"max|dT|={err:.3e} iters {sk[0]:.0f}/{sp[0]:.0f} "
               f"status {sk[3]:.0f}/{sp[3]:.0f} sigma {sk[4]:.6g}/{sp[4]:.6g} "
               f"rel|dH|={dH:.3e} max|dw|={float((wk - wp).abs().max()):.3e} "
-              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.5f} ms "
+              f"({b_by})")
         _require(not any(map(math.isnan, sk)), f"level {level}: NaN stats")
         _require(err <= T_ATOL_KERNEL,
                  f"level {level}: kernel vs plain pose differs by {err}")
@@ -239,7 +320,7 @@ def kernel_phase(vo, init_pair, target, dev):
         plain_ms += t_p
         if level == 0:
             _route_line(vo, td, ch, T0)
-    return max_err, ms, plain_ms
+    return max_err, ms, plain_ms, (bound_ms, "/".join(sorted(by)))
 
 
 def _host_ms(fn, reps=3):
@@ -383,6 +464,7 @@ def gn_kernel_phase(K, baseline, frames, dev):
     from bpvo_tpu_torch.vo import device_vo, template_data, warp
     err = {"fused_linearize": 0.0, "irls_reduce": 0.0}
     ms = {"fused_linearize": {}, "irls_reduce": {}}
+    bounds = {"fused_linearize": {}, "irls_reduce": {}}
     for name, desc in (("intensity", DescriptorType.INTENSITY),
                        ("bitplanes", DescriptorType.BITPLANES)):
         vo = device_vo.DeviceVO(K, baseline, (frames[0][0].shape),
@@ -431,6 +513,10 @@ def gn_kernel_phase(K, baseline, frames, dev):
                 dw = _gn_check(label, got, want)
                 err["fused_linearize"] = max(err["fused_linearize"], dw)
                 ms["fused_linearize"][shape] = (t_k, t_p, d_k, d_p)
+                bounds["fused_linearize"][shape] = _bound(
+                    _nbytes(*a[:3], *a[4:7], *got) + _tap_bytes(
+                        ch[:n], _taps(u, v, ok, ch.shape[1], ch.shape[2])),
+                    Kl * (OPS_LIN_POINT + n * OPS_LIN_CHANNEL))
                 for m in sorted({1, C}) if n == C else ():
                     J = td.jacobians[:m].reshape(-1, 6)
                     b = (J, r[:m].reshape(-1), ok.expand(m, -1).reshape(-1),
@@ -458,8 +544,10 @@ def gn_kernel_phase(K, baseline, frames, dev):
                     err["irls_reduce"] = max(err["irls_reduce"],
                                              _gn_check(label, got, want))
                     ms["irls_reduce"][shape] = (t_k, t_p, d_k, d_p)
+                    bounds["irls_reduce"][shape] = _bound(
+                        _nbytes(*b[:4], *got), m * Kl * OPS_IRLS_TERM)
         del vo, pyr
-    return {k: (err[k], ms[k]) for k in err}
+    return {k: (err[k], ms[k], bounds[k]) for k in err}
 
 
 def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
@@ -593,7 +681,8 @@ def census_phase(left, dev):
           f"ms) plain {t_p:.4f} ms")
     _require(n_diff == 0 and got.shape == (8,) + tuple(x.shape),
              f"census kernel differs from its plain version in {n_diff} bits")
-    return float((got - want).abs().max()), t_raw, t_p
+    bound = _bound(_nbytes(x, got), OPS_CENSUS_PIXEL * x.numel())
+    return float((got - want).abs().max()), t_raw, t_p, bound
 
 
 def sgm_phase(pair, matcher, dev, ref):
@@ -621,6 +710,7 @@ def sgm_phase(pair, matcher, dev, ref):
           f"(max |d| {err:.3e}), kernel {t_k:.4f} ms plain {t_p:.4f} ms")
     _require(n_diff == 0, f"sgm kernel differs from its plain version in "
                           f"{n_diff} values (max {err})")
+    bound = _bound(_nbytes(cost, got), OPS_SGM_COST * cost.numel())
     t_m = _cuda_ms(lambda: matcher.as_fn()(left, right), SGM_REPS)
     disp = matcher.as_fn()(left, right)
     valid = disp > 0
@@ -634,7 +724,7 @@ def sgm_phase(pair, matcher, dev, ref):
     _require(abs(mae - want_mae) <= DISP_ERR_RTOL * want_mae,
              f"disparity mean |d - GT| {mae} vs JAX {want_mae}")
     del cost, got, want, one, one_want
-    return err, t_k, t_p
+    return err, t_k, t_p, bound
 
 
 def flip_phase(vo, image, dev):
@@ -656,6 +746,159 @@ def flip_phase(vo, image, dev):
     print(f"census bits flipped, card vs CPU pyramid: {flips} of {total} "
           f"({flips / total:.3e}, bound {FLIP_BOUND})")
     _require(flips / total <= FLIP_BOUND, f"census flips {flips}/{total}")
+
+
+def _probe_entry(smi, name, source, replaces, launches, step, var, shape):
+    """One probe kernel's entry of the kernels line, from the probe runner's
+    result: ``var`` holds the kernel's check against its plain version and
+    its times (CUDA-graph replay, through the wrapper), ``step`` the plain
+    version's and the library call's times and the work the bound counts."""
+    bound, by = _bound(step["bytes"], step["ops"])
+    lib = step.get("library_ms")
+    lib_text = (f"; library {lib * 1e3:.3f} us replayed, "
+                f"{step['library_wrapper_ms'] * 1e3:.3f} us" if lib is not None
+                else "; no library call")
+    print(f"probe {name} {shape}: max|d| {var['max_abs_err']:.3e} "
+          f"({'agrees' if var['ok'] else 'DIFFERS'}); kernel "
+          f"{var['ms'] * 1e3:.3f} us replayed, {var['wrapper_ms'] * 1e3:.3f} "
+          f"us through the wrapper; plain {step['plain_ms'] * 1e3:.3f} us "
+          f"replayed, {step['plain_wrapper_ms'] * 1e3:.3f} us{lib_text}; "
+          f"bound {bound * 1e3:.4f} us ({by}); {launches} launches on the "
+          f"runner run; on {smi}")
+    _require(var["ok"], f"probe {name} {shape}: kernel differs from its "
+                        f"plain version (max |d| {var['max_abs_err']})")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": var["max_abs_err"], "ms": var["ms"],
+            "wrapper_ms": var["wrapper_ms"], "plain_ms": step["plain_ms"],
+            "plain_wrapper_ms": step["plain_wrapper_ms"], "bound_ms": bound,
+            "bound_by": by, "library_ms": lib,
+            "library_wrapper_ms": step.get("library_wrapper_ms"),
+            "shape": shape}
+
+
+def probe_phase(dev, smi):
+    """The probe microbenchmarks: the runner's four groups once with the
+    launch counts at 0 (the probes' main path).  Its steps hold every probe
+    kernel and variant against its plain version and time it, the plain
+    version and the library call; this phase requires every check to hold
+    and every probe kernel to have launched, and turns the results into
+    entries of the kernels line."""
+    from bpvo_tpu_torch import probes
+    from bpvo_tpu_torch.probes import band, gather
+    from bpvo_tpu_torch.probes import kernel_features as kf
+
+    t0 = time.perf_counter()
+    probes.reset_launch_counts()
+    report = probes.run(tuple(probes.GROUPS), dev)
+    counts = probes.launch_counts()
+    res = report["results"]
+    print(f"probe runner ({time.perf_counter() - t0:.1f} s): launches "
+          f"{counts}")
+    print(f"probe runner results: {json.dumps(res)}")
+    fails = [f"{g}.{k}" for g, steps in res.items()
+             for k, v in steps.items() if "FAIL" in json.dumps(v)]
+    _require(not fails, f"probe runner steps failed: {fails}")
+    _require(all(n > 0 for n in counts.values()),
+             f"probe kernels not launched by the runner: {counts}")
+    feat, gat = res["features"], res["gather"]
+
+    loop = feat["while_loop"]
+    variants = [kf.variant_name(b, c) for b, c in kf.WHILE_VARIANTS]
+    print("per-iteration barrier cost, us (1024 - 7 iterations): " + ", ".join(
+        f"{n} {loop[n]['us_per_iter']:.4f}" for n in variants)
+        + f"; grid of {loop.get('grid_ctas')} CTAs; on {smi}")
+    entries = []
+    src = "bpvo_tpu_torch/csrc/probe_features.cu"
+    fscript = "scripts/probe_kernel_features.py"
+    for barrier in kf.BARRIERS:
+        names = [kf.variant_name(b, c) for b, c in kf.WHILE_VARIANTS
+                 if b == barrier]
+        by_variant = {n: _probe_entry(
+            smi, n, src, fscript + ":37 (pallas_call :76)",
+            counts[f"while_loop_{barrier}"], loop, loop[n],
+            "(8, 128), 7 iterations") for n in names}
+        # the entry: the last variant (a cluster of 16 for "cluster")
+        entries.append(dict(
+            by_variant[names[-1]], name=f"while_loop_{barrier}",
+            max_abs_err=max(v["max_abs_err"] for v in by_variant.values()),
+            ms_by_variant={k: v["ms"] for k, v in by_variant.items()},
+            us_per_iter_by_variant={k: loop[k]["us_per_iter"]
+                                    for k in names}))
+    for name, line, shape in (
+            ("scalar_chain", ":52 (pallas_call :82)", "(3,)"),
+            ("matmul_chain", ":63 (pallas_call :89)",
+             "(8, 128) @ (128, 128) x 5")):
+        entries.append(_probe_entry(smi, name, src, fscript + line,
+                                    counts[name], feat[name], feat[name],
+                                    shape))
+
+    # the lane gather: the script's three row lengths, and tpu_kernel_probe's
+    # L0 image; the entry of each placement is the L0 image where it fits,
+    # else its largest row
+    gsrc = "bpvo_tpu_torch/csrc/probe_gather.cu"
+    grep = ("scripts/probe_gather_variants.py:99 (pallas_call :110), "
+            "scripts/tpu_kernel_probe.py:76 (pallas_call :88)")
+    lane_steps = dict(zip(gather.LANES, (gat["taa_1k"], gat["taa_16k"],
+                                         gat["taa_flat"])))
+    lane_steps[gather.KITTI_H * gather.KITTI_W] = (
+        res["kernel"]["pallas_gather"])
+    for lanes, r in lane_steps.items():
+        print(f"gather (8, {lanes}), us: " + ", ".join(
+            f"{p} {r[p]['ms'] * 1e3:.3f}" if isinstance(r[p], dict)
+            else f"{p} n/a" for p in gather.PLACEMENTS)
+            + f", plain {r['plain_ms'] * 1e3:.3f}, take_along_dim "
+              f"{r['library_ms'] * 1e3:.3f}; resident dsmem clusters "
+              f"{r.get('dsmem_max_active_clusters')}; on {smi}")
+    for placement in gather.PLACEMENTS:
+        by_lanes = {lanes: _probe_entry(
+            smi, f"take_along_lanes_{placement}", gsrc, grep,
+            counts[f"take_along_lanes_{placement}"], r, r[placement],
+            f"(8, {lanes}) lanes, {gather.N} indices")
+            for lanes, r in lane_steps.items()
+            if gather.fits(lanes, placement)}
+        kitti = gather.KITTI_H * gather.KITTI_W
+        e = dict(by_lanes[kitti if kitti in by_lanes else max(by_lanes)])
+        e["max_abs_err"] = max(v["max_abs_err"] for v in by_lanes.values())
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            e[f"{key}_by_lanes"] = {k: v[key] for k, v in by_lanes.items()}
+        entries.append(e)
+
+    # band bilinear, staged and straight from device memory, on the script's
+    # points and on points that leave their band (the clipping)
+    bsrc = "bpvo_tpu_torch/csrc/probe_band.cu"
+    wide = gat["band_wide"]
+    _require(wide["maxerr_vs_unbanded"] > 0,
+             "band_bilinear: no point of the wide run left its band")
+    for variant in ("staged", "global"):
+        name = "band_bilinear" + ("" if variant == "staged" else "_global")
+        replaces = "scripts/probe_gather_variants.py:133 (pallas_call :171)"
+        shape = (f"N={gather.N} points, {band.H}x{band.W}, band {band.BAND}")
+        e = _probe_entry(smi, name, bsrc, replaces, counts[name], gat["band"],
+                         gat["band"][variant], shape + ", the script's points")
+        w = _probe_entry(smi, name, bsrc, replaces, counts[name], wide,
+                         wide[variant], shape + ", points over the whole "
+                                                "image")
+        e["max_abs_err"] = max(e["max_abs_err"], w["max_abs_err"])
+        e["wide_points"] = {k: w[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                              "library_ms", "bound_ms")}
+        entries.append(e)
+    print(f"band_bilinear: max |banded - unbanded| "
+          f"{gat['band']['maxerr_vs_unbanded']:.3e} on the script's points, "
+          f"{wide['maxerr_vs_unbanded']:.3e} on points over the whole image")
+
+    # v1-v5
+    bis = "scripts/probe_band_bisect.py"
+    lines = {"v1_static_slice": ":50", "v2_dyn_slice": ":56",
+             "v3_onehot": ":64", "v4_onehot_matmul": ":75",
+             "v5_rowweight": ":88"}
+    for name, *_ in band.PARTS:
+        r = res["band"][name]
+        entries.append(_probe_entry(
+            smi, f"band_{name}", bsrc, f"{bis}{lines[name]} (pallas_call :30)",
+            counts[f"band_{name}"], r, r, "(8, 128) out"))
+    print(f"probe phase: {time.perf_counter() - t0:.1f} s")
+    return entries
 
 
 def main() -> int:
@@ -696,7 +939,8 @@ def main() -> int:
         descriptor=DescriptorType.INTENSITY, functionTolerance=1e-4,
         parameterTolerance=1e-6, maxIterations=50)
     vo = DeviceVO(K, baseline, shape, params, device=dev)
-    err_i, ms_i, plain_i = kernel_phase(vo, frames[0], frames[1][0], dev)
+    err_i, ms_i, plain_i, bound_i = kernel_phase(vo, frames[0], frames[1][0],
+                                                 dev)
     counts_i, _, fps, p50 = vo_phase(vo, frames, dev, ref, "VO intensity",
                                      T_ATOL_JAX, GT_MARGIN, True)
     print(f"VO intensity: {fps:.2f} frames/s, per-frame p50 {p50:.3f} ms "
@@ -708,13 +952,13 @@ def main() -> int:
     cf = ConfigFile(CONF)
     params_bp = AlgorithmParameters.from_config(cf)
     matcher = stereo.create_stereo_algorithm(cf)
-    err_c, ms_c, plain_c = census_phase(sframes[0][0], dev)
-    err_s, ms_s, plain_s = sgm_phase(sframes[0], matcher, dev, ref_s)
+    err_c, ms_c, plain_c, bound_c = census_phase(sframes[0][0], dev)
+    err_s, ms_s, plain_s, bound_s = sgm_phase(sframes[0], matcher, dev, ref_s)
     vo_bp = DeviceVO(K, baseline, shape, params_bp, device=dev,
                      stereo_fn=matcher.as_fn())
     flip_phase(vo_bp, sframes[0][0], dev)
-    err_b, ms_b, plain_b = kernel_phase(vo_bp, sframes[0][:2],
-                                        sframes[1][0], dev)
+    err_b, ms_b, plain_b, bound_b = kernel_phase(vo_bp, sframes[0][:2],
+                                                 sframes[1][0], dev)
     counts_s, kf, fps_s, p50_s = vo_phase(
         vo_bp, [f[:2] for f in sframes], dev, ref_s, "VO stereo Bit-Planes",
         T_ATOL_JAX_STEREO, GT_MARGIN_STEREO, False)
@@ -744,6 +988,8 @@ def main() -> int:
     _require(dense["intensity"]["irls_reduce"] > 0,
              "irls_reduce never launched on the dense intensity path")
 
+    probe_entries = probe_phase(dev, smi)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     def by_path(kernel):
@@ -753,13 +999,15 @@ def main() -> int:
                 "dense_bitplanes": dense["bitplanes"][kernel]}
 
     def gn_entry(kernel, source, replaces, shape):
-        err, times = gnk[kernel]
+        err, times, bounds = gnk[kernel]
         return {"name": kernel, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(by_path(kernel).values()),
                 "launches_by_path": by_path(kernel), "max_abs_err": err,
                 "ms": times[shape][0], "plain_ms": times[shape][1],
-                "shape": shape,
+                "bound_ms": bounds[shape][0], "bound_by": bounds[shape][1],
+                "library_ms": None, "shape": shape,
+                "bound_ms_by_shape": {k: v[0] for k, v in bounds.items()},
                 "ms_by_shape": {k: v[0] for k, v in times.items()},
                 "plain_ms_by_shape": {k: v[1] for k, v in times.items()},
                 "replayed_ms_by_shape": {k: v[2] for k, v in times.items()},
@@ -774,23 +1022,30 @@ def main() -> int:
          "launches_by_path": by_path("level_gn"),
          "max_abs_err": max(err_i, err_b), "ms": ms_i + ms_b,
          "plain_ms": plain_i + plain_b,
-         "ms_by_path": {"intensity": ms_i, "stereo_bitplanes": ms_b}},
+         "bound_ms": bound_i[0] + bound_b[0],
+         "bound_by": "/".join(sorted({bound_i[1], bound_b[1]})),
+         "library_ms": None,
+         "ms_by_path": {"intensity": ms_i, "stereo_bitplanes": ms_b},
+         "bound_ms_by_path": {"intensity": bound_i[0],
+                              "stereo_bitplanes": bound_b[0]}},
         {"name": "census_planes", "route": "cuda",
          "source": "bpvo_tpu_torch/csrc/census.cu",
          "replaces": "bpvo_tpu/ops/pallas/census_kernel.py:46",
          "launches": counts_s["census_planes"], "max_abs_err": err_c,
-         "ms": ms_c, "plain_ms": plain_c},
+         "ms": ms_c, "plain_ms": plain_c, "bound_ms": bound_c[0],
+         "bound_by": bound_c[1], "library_ms": None},
         {"name": "sgm_aggregate", "route": "cuda",
          "source": "bpvo_tpu_torch/csrc/sgm.cu",
          "replaces": "bpvo_tpu/ops/pallas/sgm_kernel.py:51",
          "launches": counts_s["sgm_aggregate"], "max_abs_err": err_s,
-         "ms": ms_s, "plain_ms": plain_s},
+         "ms": ms_s, "plain_ms": plain_s, "bound_ms": bound_s[0],
+         "bound_by": bound_s[1], "library_ms": None},
         gn_entry("fused_linearize", "bpvo_tpu_torch/csrc/fused_linearize.cu",
                  "bpvo_tpu/ops/pallas/gn_kernel.py:181 and :433",
                  "intensity L0 C=1"),
         gn_entry("irls_reduce", "bpvo_tpu_torch/csrc/irls_reduce.cu",
                  "bpvo_tpu/ops/pallas/irls_kernel.py:119 and :163",
-                 "intensity L0 M=1K")]}))
+                 "intensity L0 M=1K")] + probe_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -87,8 +87,9 @@ def test_state_carried_from_jax(frames):
     jvo = JDeviceVO(K, b, (H_IMG, W_IMG), JParams(**KW))
     for I, D in frames[:3]:
         jvo.add_frame(I, D)
-    tvo = DeviceVO(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW))
-    tvo.state = state_from_numpy(_jax_state_to_numpy(jvo.state))
+    tvo = DeviceVO(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW),
+                   device="cpu")
+    tvo.state = state_from_numpy(_jax_state_to_numpy(jvo.state), "cpu")
     assert tvo.state.has_prev == bool(jvo.state.has_prev)
     oj, ot = jvo.add_frame(*frames[3]), tvo.add_frame(*frames[3])
     np.testing.assert_allclose(ot.pose.numpy(), _np(oj.pose), atol=1e-4)
@@ -98,7 +99,7 @@ def test_state_carried_from_jax(frames):
 def test_add_frames_recovers_motion(frames):
     cam = make_cam()
     vo = DeviceVO(np.asarray(cam.K()), float(cam.baseline), (H_IMG, W_IMG),
-                  AlgorithmParameters(**KW))
+                  AlgorithmParameters(**KW), device="cpu")
     outs = vo.add_frames(np.stack([f[0] for f in frames]),
                          np.stack([f[1] for f in frames]))
     assert outs.pose.shape == (5, 4, 4) and outs.iters.shape == (5, 3)
@@ -110,7 +111,8 @@ def test_add_frames_recovers_motion(frames):
 def test_unported_solver_raises():
     with pytest.raises(NotImplementedError):
         DeviceVO(np.eye(3), 0.1, (64, 96),
-                 AlgorithmParameters(poseEstimator="LevenbergMarquardt"))
+                 AlgorithmParameters(poseEstimator="LevenbergMarquardt"),
+                 device="cpu")
 
 
 def test_synthetic_sequence_matches_bench():
@@ -140,7 +142,7 @@ def test_bench_reference_poses():
     vo = DeviceVO(K, b, (synthetic.ROWS, synthetic.COLS), AlgorithmParameters(
         minSaliency=2.0, numPyramidLevels=4,
         descriptor=DescriptorType.INTENSITY, functionTolerance=1e-4,
-        parameterTolerance=1e-6, maxIterations=50))
+        parameterTolerance=1e-6, maxIterations=50), device="cpu")
     outs = vo.add_frames(np.stack([f[0] for f in fr]),
                          np.stack([f[1] for f in fr]))
     np.testing.assert_allclose(outs.pose.numpy(), ref["poses"][:n], atol=5e-4)

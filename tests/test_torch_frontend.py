@@ -175,7 +175,7 @@ def test_sample_and_residuals(method):
     I0, I1, D, cam_j, _ = render_pair(TWIST)
     tj, _ = build_template(I0, D, cam_j, capacity=2048)
     tt = template_from_numpy({k: np.asarray(v)
-                              for k, v in tj._asdict().items()})
+                              for k, v in tj._asdict().items()}, "cpu")
     jm = JInterp(method.value)
     T = np.asarray(jse3.exp(jnp.asarray([0.001, -0.001, 0.0005, 0.01, 0.0,
                                          -0.02], jnp.float32)))

@@ -136,7 +136,7 @@ def test_fused_linearize_plain_matches_pallas(desc, interp_name, loss):
         td, ch1, cam, T, jnp.asarray(sigma, jnp.float32), loss=JLoss(loss),
         interp=ji, interpret=True, stacked=C > 1)
 
-    ttd = template_from_numpy(_np_template(td))
+    ttd = template_from_numpy(_np_template(td), "cpu")
     tcam = camera_from_numpy(cam)
     ti = InterpolationType(interp_name)
     channels = torch.as_tensor(np.array(ch1))
@@ -216,7 +216,7 @@ def _run_both(route, C, loss, monkeypatch, verbose=False):
     monkeypatch.setenv("BPVO_IRLS_KERNEL", "force" if route == "irls" else "0")
     st_j = jgn.run(td, ch, cam, jnp.eye(4), jopts)
     st_j.T.block_until_ready()
-    ttd = template_from_numpy(_np_template(td))
+    ttd = template_from_numpy(_np_template(td), "cpu")
     st_t = gn.run(ttd, torch.as_tensor(np.array(ch)),
                   camera_from_numpy(cam), torch.eye(4),
                   gn_options_from_jax(jopts))
@@ -289,7 +289,7 @@ def test_run_verbose_table_matches_jax(monkeypatch, capfd):
 
 def test_run_max_iterations_zero_returns_initial_state():
     td, ch, cam, _ = _gn_problem(1)
-    ttd = template_from_numpy(_np_template(td))
+    ttd = template_from_numpy(_np_template(td), "cpu")
     opts = gn.GNOptions(max_iterations=0)
     st = gn.run(ttd, torch.as_tensor(np.array(ch)), camera_from_numpy(cam),
                 torch.eye(4), opts)
@@ -302,7 +302,7 @@ def test_linearize_fn_override():
     """A custom linearization (the hook the sharded path uses) replaces the
     default one and sees the host flag ``do_est``."""
     td, ch, cam, _ = _gn_problem(1)
-    ttd = template_from_numpy(_np_template(td))
+    ttd = template_from_numpy(_np_template(td), "cpu")
     channels = torch.as_tensor(np.array(ch))
     tcam = camera_from_numpy(cam)
     opts = gn.GNOptions(function_tolerance=1e-4, parameter_tolerance=1e-6)
@@ -323,7 +323,7 @@ def test_linearize_fn_override():
     {"interp": InterpolationType.CUBIC}, {"warp": "DisparitySpace"}])
 def test_run_unported_options_raise(change):
     td, ch, cam, _ = _gn_problem(1)
-    ttd = template_from_numpy(_np_template(td))
+    ttd = template_from_numpy(_np_template(td), "cpu")
     opts = dataclasses.replace(gn.GNOptions(), **change)
     with pytest.raises(NotImplementedError):
         gn.run(ttd, torch.as_tensor(np.array(ch)), camera_from_numpy(cam),

@@ -7,6 +7,7 @@ needed):
     python -m pytest --noconftest -o "markers=gpu: needs a CUDA device" \\
         -m gpu tests/test_torch_kernels_gpu.py
 """
+import json
 import os
 
 import numpy as np
@@ -536,3 +537,146 @@ def test_visual_odometry_on_cuda_counts_launches(cuda):
         err = se3.log(torch.as_tensor(r.pose @ step_inv, dtype=torch.float32))
         assert float(err.abs().max()) < 1e-3
     assert vo.num_points_at_level(0) == 131072 and n_kf >= 0
+
+
+# ---------------------------------------------------------------------------
+# the probe microbenchmarks (bpvo_tpu_torch/probes): every kernel and
+# variant against its plain version at the JAX scripts' shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [
+    ("cta", None), ("cluster", 2), ("cluster", 4), ("cluster", 8),
+    ("cluster", 16), ("grid", None)])
+@pytest.mark.parametrize("iters", [0, 7, 1024])
+def test_probe_while_loop_bitwise(cuda, variant, iters):
+    """Each barrier's loop rounds every step as the plain version does."""
+    from bpvo_tpu_torch.probes import kernel_features as kf
+    barrier, cluster = variant
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (8, 128)).astype(np.float32), device=cuda)
+    before = kf.launch_count[f"while_loop_{barrier}"]
+    got = kf.while_loop(x, iters, barrier, cluster or 8)
+    torch.cuda.synchronize()
+    assert kf.launch_count[f"while_loop_{barrier}"] == before + 1
+    assert torch.equal(got, kf.while_loop_reference(x, iters))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [(4.0, 2.0, 5.0), (2.5, 7.0, 1.0),
+                               (0.0, 1.0, 3.0)])
+def test_probe_scalar_chain_bitwise(cuda, h):
+    from bpvo_tpu_torch.probes import kernel_features as kf
+    h = torch.tensor(h, device=cuda)
+    assert torch.equal(kf.scalar_chain(h), kf.scalar_chain_reference(h))
+
+
+@pytest.mark.gpu
+def test_probe_matmul_chain(cuda):
+    from bpvo_tpu_torch.probes import kernel_features as kf
+    r = np.random.default_rng(1)
+    a = torch.as_tensor(r.uniform(0, 1, (8, 128)).astype(np.float32),
+                        device=cuda)
+    b = torch.as_tensor(r.uniform(0, 1, (128, 128)).astype(np.float32),
+                        device=cuda)
+    np.testing.assert_allclose(kf.matmul_chain(a, b).cpu(),
+                               kf.matmul_chain_reference(a, b).cpu(),
+                               rtol=kf.MATMUL_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1024, 16384, 384 * 1280, 376 * 1241])
+@pytest.mark.parametrize("placement", ["global", "smem", "dsmem"])
+def test_probe_take_along_lanes_bitwise(cuda, lanes, placement):
+    from bpvo_tpu_torch.probes import gather
+    idx, data = (torch.as_tensor(a, device=cuda) for a in gather.lane_inputs(
+        np.random.default_rng(lanes), lanes))
+    if not gather.fits(lanes, placement):
+        with pytest.raises(ValueError):
+            gather.take_along_lanes(idx, data, placement)
+        return
+    before = gather.launch_count[f"take_along_lanes_{placement}"]
+    got = gather.take_along_lanes(idx, data, placement)
+    torch.cuda.synchronize()
+    assert gather.launch_count[f"take_along_lanes_{placement}"] == before + 1
+    assert torch.equal(got, gather.take_along_lanes_reference(idx, data))
+    bad = idx.clone()
+    bad[0, :3] = torch.tensor([-1, lanes, 2 ** 30], dtype=torch.int32)
+    got = gather.take_along_lanes(bad, data, placement)
+    assert torch.isnan(got[0, :3]).all()
+    assert torch.equal(got[:, 3:], gather.take_along_lanes_reference(
+        bad, data)[:, 3:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points", ["script", "wide"])
+@pytest.mark.parametrize("staged", [True, False])
+def test_probe_band_bilinear(cuda, staged, points):
+    """The script's points, and points over the whole image, most of which
+    leave their block's band and sample its clipped rows."""
+    from bpvo_tpu_torch.probes import band, gather
+    _, U, V, IMG = gather.sampling_inputs(0)
+    if points == "wide":
+        U, V = band.wide_points(len(U))
+    u, v, img = (torch.as_tensor(a, device=cuda) for a in (U, V, IMG))
+    got = band.band_bilinear(u, v, img, staged=staged)
+    want = band.band_bilinear_reference(u, v, img)
+    assert float((got - want).abs().max()) <= band.BAND_ATOL
+    if points == "wide":
+        moved = (want - band.bilinear_reference(u, v, img)).abs() > 1e-3
+        assert float(moved.float().mean()) > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", range(5))
+def test_probe_band_parts(cuda, part):
+    from bpvo_tpu_torch.probes import band
+    name, kernel, plain, keys, exact = band.PARTS[part]
+    data = band.part_inputs(cuda)
+    args = tuple(data[k] for k in keys)
+    before = band.launch_count[f"band_{name}"]
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert band.launch_count[f"band_{name}"] == before + 1
+    diff = float((got - plain(*args)).abs().max())
+    assert diff == 0.0 if exact else diff <= band.BAND_ATOL
+
+
+@pytest.mark.gpu
+def test_probe_kernels_reject_what_they_cannot_take(cuda):
+    from bpvo_tpu_torch.probes import band, gather
+    from bpvo_tpu_torch.probes import kernel_features as kf
+    x = torch.ones(8, 128, device=cuda)
+    for call in (lambda: kf.while_loop(x.double()),
+                 lambda: kf.while_loop(torch.ones(5000, device=cuda)),
+                 lambda: kf.while_loop(x, barrier="cluster", cluster=3),
+                 lambda: kf.matmul_chain(x, x),
+                 lambda: kf.scalar_chain(torch.ones(4, device=cuda)),
+                 lambda: gather.take_along_lanes(
+                     torch.zeros(8, 4, dtype=torch.int64, device=cuda), x),
+                 lambda: gather.take_along_lanes(
+                     torch.zeros(8, 4, dtype=torch.int32, device=cuda),
+                     x.t()),
+                 lambda: band.band_bilinear(x[0], x[0].cpu(), x),
+                 lambda: band.band_bilinear(
+                     torch.zeros(1024, device=cuda),
+                     torch.zeros(1024, device=cuda),
+                     torch.zeros(64, 4000, device=cuda))):
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.gpu
+def test_probe_runner_on_cuda(cuda):
+    """The four groups on the card: no step or variant fails, and every
+    probe kernel launches."""
+    from bpvo_tpu_torch import probes
+    probes.reset_launch_counts()
+    report = probes.run(device=cuda)
+    assert "FAIL" not in json.dumps(report)
+    assert all(n > 0 for n in probes.launch_counts().values())
+    oks = [v["ok"] for group in report["results"].values()
+           for step in group.values() if isinstance(step, dict)
+           for v in [step, *step.values()]
+           if isinstance(v, dict) and "ok" in v]
+    assert len(oks) == 27 and all(oks)

@@ -77,7 +77,7 @@ def _run_both(K=1024, C=1, max_iterations=42, loss=LossFunctionType.TUKEY,
                          td.norm_center)
     out_j = [np.asarray(a) for a in out_j]
 
-    ttd = template_from_numpy(_np_template(td))
+    ttd = template_from_numpy(_np_template(td), "cpu")
     topts = gn.GNOptions(function_tolerance=1e-4, parameter_tolerance=1e-6,
                          max_iterations=max_iterations, loss=loss,
                          interp=interp,
@@ -169,7 +169,7 @@ def test_run_level_state():
     """gauss_newton.run_level returns the kernel's result as a GNState."""
     I0, I1, D, cam, _ = render_pair(TWIST)
     td, _ = build_template(I0, D, cam, capacity=1024)
-    ttd = template_from_numpy(_np_template(td))
+    ttd = template_from_numpy(_np_template(td), "cpu")
     opts = gn.GNOptions(function_tolerance=1e-4, parameter_tolerance=1e-6,
                         max_iterations=42)
     st = gn.run_level(ttd, torch.as_tensor(I1)[None], camera_from_numpy(cam),
@@ -188,7 +188,7 @@ def test_run_level_state():
 def test_unported_options_raise(change):
     I0, I1, D, cam, _ = render_pair(TWIST)
     td, _ = build_template(I0, D, cam, capacity=1024)
-    ttd = template_from_numpy(_np_template(td))
+    ttd = template_from_numpy(_np_template(td), "cpu")
     opts = dataclasses.replace(gn.GNOptions(), **change)
     with pytest.raises(NotImplementedError):
         gn.run_level(ttd, torch.as_tensor(I1)[None], camera_from_numpy(cam),

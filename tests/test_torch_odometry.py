@@ -40,7 +40,8 @@ def _both(frames, jkw=None, tkw=None):
     K, b = np.asarray(cam.K()), float(cam.baseline)
     jvo = JVisualOdometry(K, b, (H_IMG, W_IMG), JParams(**KW, **(jkw or {})))
     tvo = VisualOdometry(K, b, (H_IMG, W_IMG),
-                         AlgorithmParameters(**KW, **(tkw or {})))
+                         AlgorithmParameters(**KW, **(tkw or {})),
+                         device="cpu")
     return jvo, tvo, [(jvo.add_frame(I, D), tvo.add_frame(I, D))
                       for I, D in frames]
 
@@ -126,11 +127,13 @@ def test_device_vo_routes_levels_beyond_the_bound_to_run(monkeypatch,
     ``run_level``; the poses stay with the unpatched run's."""
     cam = make_cam()
     K, b = np.asarray(cam.K()), float(cam.baseline)
-    ref = DeviceVO(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW))
+    ref = DeviceVO(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW),
+                   device="cpu")
     want = [ref.add_frame(I, D) for I, D in frames[:4]][1:]
     monkeypatch.setattr(gn, "MAX_LEVEL_KERNEL_POINTS", 1024)
     calls = _count_routes(monkeypatch)
-    vo = DeviceVO(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW))
+    vo = DeviceVO(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW),
+                  device="cpu")
     assert vo._capacities == (2048, 512, 512)
     outs = [vo.add_frame(I, D) for I, D in frames[:4]][1:]
     n_kf = sum(int(o.is_keyframe) for o in outs)
@@ -148,7 +151,8 @@ def test_visual_odometry_routes_levels_beyond_the_bound_to_run(monkeypatch,
     calls = _count_routes(monkeypatch)
     cam = make_cam()
     vo = VisualOdometry(np.asarray(cam.K()), float(cam.baseline),
-                        (H_IMG, W_IMG), AlgorithmParameters(**KW))
+                        (H_IMG, W_IMG), AlgorithmParameters(**KW),
+                        device="cpu")
     res = [vo.add_frame(I, D) for I, D in frames[:3]][1:]
     n_kf = sum(r.is_keyframe for r in res)
     assert calls["run"] == len(res) + n_kf
@@ -167,7 +171,8 @@ def test_device_vo_verbose_runs_and_matches_jax(frames, capfd):
                     JParams(**KW, verbosity=JVerbosity.ITERATION))
     tvo = DeviceVO(K, b, (H_IMG, W_IMG),
                    AlgorithmParameters(**KW,
-                                       verbosity=VerbosityType.ITERATION))
+                                       verbosity=VerbosityType.ITERATION),
+                   device="cpu")
     capfd.readouterr()
     outs_j = [jvo.add_frame(I, D) for I, D in frames[:4]]
     np.asarray(outs_j[-1].pose)
@@ -186,7 +191,8 @@ def test_device_vo_verbose_runs_and_matches_jax(frames, capfd):
 def test_unported_paths_raise(frames):
     cam = make_cam()
     K, b = np.asarray(cam.K()), float(cam.baseline)
-    vo = VisualOdometry(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW))
+    vo = VisualOdometry(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW),
+                        device="cpu")
     for call in (lambda: vo.save("x.npz"), lambda: vo.load("x.npz"),
                  vo.enable_bundle_adjustment):
         with pytest.raises(NotImplementedError):
@@ -197,7 +203,8 @@ def test_unported_paths_raise(frames):
     for change in ({"poseEstimator": "LevenbergMarquardt"},
                    {"coarseInitOffsetPx": 2.0}):
         vo = VisualOdometry(K, b, (H_IMG, W_IMG),
-                            AlgorithmParameters(**KW, **change))
+                            AlgorithmParameters(**KW, **change),
+                            device="cpu")
         vo.add_frame(*frames[0])
         with pytest.raises(NotImplementedError):
             vo.add_frame(*frames[1])
@@ -206,7 +213,8 @@ def test_unported_paths_raise(frames):
 def test_point_cloud_ply_round_trip(frames, tmp_path):
     cam = make_cam()
     vo = VisualOdometry(np.asarray(cam.K()), float(cam.baseline),
-                        (H_IMG, W_IMG), AlgorithmParameters(**KW))
+                        (H_IMG, W_IMG), AlgorithmParameters(**KW),
+                        device="cpu")
     cloud = next(r.point_cloud for r in (vo.add_frame(I, D) for I, D in frames)
                  if r.point_cloud is not None)
     assert len(cloud) == vo.num_points_at_level(0) or len(cloud) > 100
@@ -247,7 +255,8 @@ def test_dense_reference():
                             functionTolerance=1e-4, parameterTolerance=1e-6,
                             maxIterations=50,
                             minNumPixelsForNonMaximaSuppression=20000000,
-                            pointCapacity=131072))
+                            pointCapacity=131072),
+                        device="cpu")
     res = [vo.add_frame(I, D) for I, D in fr][1:]
     assert [vo.num_points_at_level(l) for l in range(4)] == [
         131072, 32768, 8192, 2048]

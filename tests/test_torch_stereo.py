@@ -235,7 +235,8 @@ def test_stereo_bitplanes_device_vo_matches_jax(stereo_frames,
     tvo = DeviceVO(ds.calibration.K, ds.calibration.baseline, ds.image_size,
                    _params(AlgorithmParameters, DescriptorType,
                            LossFunctionType),
-                   stereo_fn=stereo.TpuSGM(num_disparities=48).as_fn())
+                   stereo_fn=stereo.TpuSGM(num_disparities=48).as_fn(),
+                   device="cpu")
     n_kf_with_candidate = 0
     for (L, R), oj, sj in zip(frames, outs_j, states_j[1:]):
         has_prev = tvo.state is not None and tvo.state.has_prev
@@ -274,8 +275,9 @@ def test_stereo_state_carried_from_jax(stereo_frames, jax_stereo_run):
     tvo = DeviceVO(ds.calibration.K, ds.calibration.baseline, ds.image_size,
                    _params(AlgorithmParameters, DescriptorType,
                            LossFunctionType),
-                   stereo_fn=stereo.TpuSGM(num_disparities=48).as_fn())
-    tvo.state = state_from_numpy(sj)
+                   stereo_fn=stereo.TpuSGM(num_disparities=48).as_fn(),
+                   device="cpu")
+    tvo.state = state_from_numpy(sj, "cpu")
     assert tvo.state.prev_disparity.shape == (2, 120, 160)
     ot = tvo.add_frame(*frames[last])
     assert bool(ot.is_keyframe) and int(ot.reason) == int(oj["reason"])
@@ -291,8 +293,9 @@ def test_stereo_fn_matches_precomputed_disparity(stereo_frames):
     K, b = ds.calibration.K, ds.calibration.baseline
     matcher = stereo.TpuSGM(num_disparities=48)
     p = _params(AlgorithmParameters, DescriptorType, LossFunctionType)
-    vo_a = DeviceVO(K, b, ds.image_size, p, stereo_fn=matcher.as_fn())
-    vo_b = DeviceVO(K, b, ds.image_size, p)
+    vo_a = DeviceVO(K, b, ds.image_size, p, stereo_fn=matcher.as_fn(),
+                    device="cpu")
+    vo_b = DeviceVO(K, b, ds.image_size, p, device="cpu")
     n_out = 0
     for L, R in frames:
         out_a = vo_a.add_frame(L, R)
