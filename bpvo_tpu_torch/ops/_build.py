@@ -119,6 +119,10 @@ def library() -> ctypes.CDLL:
         lib.bpvo_level_gn.argtypes = ([p] * 14 + [i] * 4 + [f] * 6 + [i] * 3
                                       + [f] * 5 + [p])
         lib.bpvo_level_gn.restype = i
+        lib.bpvo_level_gn_ctas.argtypes = [i]
+        lib.bpvo_level_gn_ctas.restype = i
+        lib.bpvo_cuda_error_string.argtypes = [i]
+        lib.bpvo_cuda_error_string.restype = ctypes.c_char_p
         lib.bpvo_census_planes.argtypes = [p, p, i, i, p]
         lib.bpvo_census_planes.restype = i
         lib.bpvo_sgm_aggregate.argtypes = [p, p, i, i, i, f, f, i, p]
@@ -131,8 +135,6 @@ def library() -> ctypes.CDLL:
         lib.bpvo_irls_reduce.restype = i
         lib.bpvo_irls_reduce_blocks.argtypes = [i]
         lib.bpvo_irls_reduce_blocks.restype = i
-        lib.bpvo_cuda_error_string.argtypes = [i]
-        lib.bpvo_cuda_error_string.restype = ctypes.c_char_p
         # the microbenchmarks of bpvo_tpu_torch/probes
         for name, args in (
                 ("while_cta", [p, p, i, i, p]),

@@ -1,12 +1,14 @@
 """One pyramid level's whole IRLS Gauss-Newton solve: the hand-written CUDA
-kernel ``csrc/level_gn.cu``, its wrapper and its plain PyTorch version.
+kernel ``csrc/level_gn.cu`` (one launch of a thread-block cluster of
+``n_ctas(K)`` CTAs), its wrapper and its plain PyTorch version.
 
 Counterpart of ``bpvo_tpu/ops/pallas/level_gn_kernel.py`` (``make_level_gn``,
 body ``_kernel``), with the non-banded semantics: every point samples the
 image directly, so ``band_overflow`` is always 0 (kept in the contract).
 
 ``level_gn`` takes the plain version for CPU tensors only.  For CUDA tensors
-it launches the kernel or raises; it never falls back.
+it launches the kernel or raises (a cluster the card cannot place raises
+too); it never falls back.
 """
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ LOSS_CODES = {LossFunctionType.TUKEY: 0, LossFunctionType.HUBER: 1,
                LossFunctionType.L2: 2}
 _INTERP = (InterpolationType.LINEAR, InterpolationType.COSINE)
 
+# the kernel's median search: the 16 bisection steps as MEDIAN_ROUNDS rounds
+# of MEDIAN_DEPTHS steps, one cluster reduction per round
+MEDIAN_DEPTHS = 4
+MEDIAN_ROUNDS = mestimator.BISECTION_STEPS // MEDIAN_DEPTHS
+
 # kernel launches made by ``level_gn`` in this process (the plain version is
 # not counted)
 launch_count = 0
@@ -51,6 +58,45 @@ def check_supported(opts) -> None:
     if opts.verbose:
         raise NotImplementedError("level_gn: the verbose iteration table is "
                                   "not ported yet")
+
+
+def median_rounds(a, valid):
+    """Median of ``a`` (non-negative) over ``valid`` by count bisection, as
+    the kernel runs it: MEDIAN_ROUNDS rounds, each of which counts the valid
+    ``a`` at or below all 15 midpoints of the next MEDIAN_DEPTHS bisection
+    steps at once (integer counts, one reduction in the kernel) and then
+    takes those steps' decisions.  A midpoint is the sequential bisection's
+    own ``(lo + hi) * 0.5`` of its own endpoints, so (median, n, lo, hi)
+    equal ``mestimator.median_bisect`` and ``bisect_interval`` bit for bit.
+    Returns (median, n, lo, hi), n the valid count as float32."""
+    n = torch.sum(valid.to(torch.float32))
+    target = torch.floor((n + 1.0) * 0.5)
+    hi = torch.max(torch.where(valid, a, 0.0))
+    lo = torch.zeros_like(hi)
+    for _ in range(MEDIAN_ROUNDS):
+        # the round's tree in heap order: node i spans (l, h] and splits at
+        # its midpoint m; its children span (l, m] and (m, h]
+        spans, mids = [(lo, hi)], []
+        for i in range(2 ** MEDIAN_DEPTHS - 1):
+            l, h = spans[i]
+            mids.append((l + h) * 0.5)
+            spans += [(l, mids[i]), (mids[i], h)]
+        counts = torch.sum(valid & (a <= torch.stack(mids)[:, None]), 1)
+        node = torch.zeros((), dtype=torch.long, device=a.device)
+        for _ in range(MEDIAN_DEPTHS):
+            mid = (lo + hi) * 0.5                    # == mids[node]
+            pred = counts[node] >= target
+            lo, hi = torch.where(pred, lo, mid), torch.where(pred, mid, hi)
+            node = 2 * node + torch.where(pred, 1, 2)
+    return torch.where(n > 0, hi, 0.0), n, lo, hi
+
+
+def estimate_scale(residuals, valid):
+    """The kernel's robust sigma of ``residuals`` over ``valid``: the
+    ``median_rounds`` median through ``mestimator.scale_from_median``."""
+    med, n, _, _ = median_rounds(torch.abs(residuals.reshape(-1)),
+                                 valid.reshape(-1))
+    return mestimator.scale_from_median(med, n)
 
 
 def _linearize(cam, points, valid, pixels, channels, T, cosine: bool):
@@ -114,7 +160,7 @@ def level_gn_reference(cam, points, valid, pixels, jacobians, channels, T0,
         # sigma from channel 0, skipped once stable (:426-432)
         if bool(dscale > torch.clamp(opts.scale_tolerance_rel * sigma,
                                      min=opts.scale_tolerance)):
-            est = mestimator.estimate_scale_bisect(r[0], ok)
+            est = estimate_scale(r[0], ok)
             dscale = torch.abs(est - sigma)
             sigma = est
         w = mestimator.compute_weights(opts.loss, r, ok[None, :], sigma)
@@ -185,6 +231,15 @@ def _check_cuda_inputs(points, valid, pixels, jacobians, channels, T0, s, c):
                          f"K={K}")
 
 
+def n_ctas(K: int) -> int:
+    """CTAs of the cluster the kernel solves a level of K points on
+    (``bpvo_level_gn_ctas``: one up to 512 points, else one per 256
+    points, at most 16).  Builds the kernels' library: CUDA machines
+    only."""
+    from bpvo_tpu_torch.ops import _build
+    return int(_build.library().bpvo_level_gn_ctas(K))
+
+
 def level_gn(cam, points, valid, pixels, jacobians, channels, T0, sigma0,
              dscale0, s, c, opts):
     """Run one level's IRLS GN from pose T0.
@@ -207,7 +262,6 @@ def level_gn(cam, points, valid, pixels, jacobians, channels, T0, sigma0,
     _check_cuda_inputs(points, valid, pixels, jacobians, channels, T0, s, c)
     from bpvo_tpu_torch.ops import _build
     lib = _build.library()
-
     C, H, W = channels.shape
     K = points.shape[0]
     dev = channels.device
@@ -218,6 +272,8 @@ def level_gn(cam, points, valid, pixels, jacobians, channels, T0, sigma0,
     out_H = torch.empty(6, 6, dtype=f32, device=dev)
     out_g = torch.empty(6, dtype=f32, device=dev)
     w = torch.empty(C, K, dtype=f32, device=dev)
+    # the residuals and flags of a thread's points when they exceed its
+    # registers (more than 2 points a thread, or C > 8)
     r_scratch = torch.empty(C, K, dtype=f32, device=dev)
     ok_scratch = torch.empty(K, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -235,7 +291,9 @@ def level_gn(cam, points, valid, pixels, jacobians, channels, T0, sigma0,
         opts.function_tolerance, opts.parameter_tolerance,
         opts.gradient_tolerance, opts.scale_tolerance,
         opts.scale_tolerance_rel, ptr(stream))
-    _build.launch(lib, "level_gn", rc)
+    if rc != 0:
+        _build.launch(lib, f"level_gn (a cluster of "
+                           f"{lib.bpvo_level_gn_ctas(K)} CTAs)", rc)
     launch_count += 1
     return (out_T, stats, out_H, out_g, w,
             torch.zeros((), dtype=torch.int32, device=dev))

@@ -6,9 +6,10 @@ in-kernel estimator at ``bpvo_tpu/ops/pallas/level_gn_kernel.py:366-391,
 sigma = 1.4826 (1 + 5/max(n-6, 1)) median(|r_valid|), clamped to 1 when
 below 1e-6.  Three medians: the 1024-bin histogram median that
 ``gauss_newton.run`` uses (``estimate_scale``), the exact sorted median, and
-the 16-step count bisection on [0, max|r|] of the level kernel and its plain
-version (``estimate_scale_bisect``).  Each route is held to the estimator of
-the JAX code it replaces.
+the 16-step count bisection on [0, max|r|] of the level kernel
+(``estimate_scale_bisect``; the kernel and its plain version run it as 4
+rounds of 4 steps, ``ops.level_gn.median_rounds``, equal bit for bit).
+Each route is held to the estimator of the JAX code it replaces.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def compute_weights(loss: LossFunctionType, residuals, valid, sigma):
     return valid.to(residuals.dtype) * _WEIGHT_FNS[loss](residuals / sigma)
 
 
-def _scale_from_median(med, n):
+def scale_from_median(med, n):
     scale = 1.4826 * (1.0 + 5.0 / torch.clamp(n - 6.0, min=1.0)) * med
     return torch.where(scale < 1e-6, 1.0, scale)
 
@@ -109,15 +110,15 @@ def estimate_scale(residuals, valid, use_histogram: bool = True):
     v = valid.reshape(-1)
     med = (masked_median_histogram(r, v) if use_histogram
            else masked_median_sort(r, v))
-    return _scale_from_median(med, torch.sum(v).to(residuals.dtype))
+    return scale_from_median(med, torch.sum(v).to(residuals.dtype))
 
 
-def median_bisect(a, valid):
-    """Median of ``a`` (non-negative) over ``valid`` by count bisection.
+def bisect_interval(a, valid):
+    """(lo, hi, n) after the 16 steps of count bisection of the median of
+    ``a`` (non-negative) over ``valid``, n the valid count as float32.
 
     Invariant: count(a <= lo) < target <= count(a <= hi), so the median lies
-    in (lo, hi] and hi converges onto it from above (width max(a)/2^16).
-    Returns (median, n) with n the valid count as float32."""
+    in (lo, hi] and hi converges onto it from above (width max(a)/2^16)."""
     n = torch.sum(valid.to(torch.float32))
     target = torch.floor((n + 1.0) * 0.5)
     hi = torch.max(torch.where(valid, a, 0.0))
@@ -127,6 +128,14 @@ def median_bisect(a, valid):
         cnt = torch.sum((valid & (a <= mid)).to(torch.float32))
         pred = cnt >= target
         lo, hi = torch.where(pred, lo, mid), torch.where(pred, mid, hi)
+    return lo, hi, n
+
+
+def median_bisect(a, valid):
+    """Median of ``a`` (non-negative) over ``valid`` by count bisection:
+    ``bisect_interval``'s hi, 0 when nothing is valid.  Returns (median,
+    n)."""
+    _, hi, n = bisect_interval(a, valid)
     return torch.where(n > 0, hi, 0.0), n
 
 
@@ -134,4 +143,4 @@ def estimate_scale_bisect(residuals, valid):
     """Robust sigma with the bisection median: the level kernel's estimator
     (``ops.level_gn``), not ``gauss_newton.run``'s."""
     med, n = median_bisect(torch.abs(residuals.reshape(-1)), valid.reshape(-1))
-    return _scale_from_median(med, n)
+    return scale_from_median(med, n)

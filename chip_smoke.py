@@ -8,9 +8,11 @@
    KITTI-shape sequence, target frame 1; at each of the 4 bench pyramid
    levels (K = 16384/4096/1024/512) the ``level_gn`` CUDA kernel and its plain
    PyTorch version run on the same device tensors and must agree: after one
-   iteration, sigma, H and g at rtol 1e-3 and the weights at atol 1e-3;
-   converged, the pose at atol 1e-4, equal iterations and status, sigma and
-   H at rtol 1e-2.  Both are timed with CUDA events.
+   iteration, sigma bit for bit, H and g at rtol 1e-3 and the weights at
+   atol 1e-3; converged, the pose at atol 1e-4, equal iterations and status,
+   sigma and H at rtol 1e-2.  Both are timed with CUDA events (the kernel
+   also as a CUDA-graph replay, its device time); each level prints the
+   kernel's cluster size (CTAs), iterations and device us per iteration.
 3. Intensity VO phase: ``DeviceVO(device="cuda")`` over 1+30 frames with
    bench.py's intensity settings.  Every pose must be finite, within the
    ground-truth bound of the known per-frame motion, and within atol 5e-4 of
@@ -45,7 +47,10 @@
    Phases 2 and 5 add one line each: ``gauss_newton.run`` against
    ``level_gn`` at the bench L0 (K = 16384): both times and the pose
    difference.
-8. Dense VO phases: ``VisualOdometry(device="cuda")`` over 1+30 frames of
+8. Dense VO phases: first ``level_gn`` against its plain version at the
+   dense L2 and L3 shapes (K = 8192/2048), C=1 and C=8, with the checks
+   and prints of phase 2; then ``VisualOdometry(device="cuda")`` over 1+30
+   frames of
    the sequence (given disparity) in that configuration, intensity and
    Bit-Planes: poses finite, within the JAX run's own ground-truth error
    plus the margin, within T_ATOL_JAX_DENSE of the JAX reference
@@ -76,8 +81,11 @@ from a CUDA graph, per shape; for the probes "ms" is the replayed device
 time), the least time the card could take for the same work (``bound_ms``:
 the larger of the bytes moved over 3.35 TB/s and the f32 operations over
 67 TFLOP/s, H100 SXM; an image that a kernel gathers from counts only the
-distinct pixels this run's points read) and the library call's time where
-there is one; the
+distinct pixels this run's points read; ``level_gn`` counts the median
+search only on the iterations that re-estimate sigma, as its plain version
+runs them) and the library call's time where there is one (``level_gn``'s
+"ms", "plain_ms" and "bound_ms" sum the 8 bench level shapes; its
+``*_by_path`` and ``*_by_level`` keys add the dense L2 and L3); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -100,7 +108,8 @@ CONF = os.path.join(HERE, "conf", "kitti_bitplanes.cfg")
 N_STEPS = 30
 T_ATOL_KERNEL = 1e-4     # kernel vs plain version, same inputs, same device
 CONV_RTOL = 1e-2         # converged sigma and H, kernel vs plain version
-LIN_RTOL = 1e-3          # first linearization's sigma, H, g (one iteration)
+LIN_RTOL = 1e-3          # first linearization's H, g (one iteration; its
+                         # sigma must be equal)
 LIN_W_ATOL = 1e-3        # and its IRLS weights
 T_ATOL_JAX = 5e-4        # port vs JAX reference (bisection vs histogram median)
 ITERS_TOL_JAX = 1        # per-level GN iterations, port vs JAX reference
@@ -141,12 +150,14 @@ SGM_REPS, SGM_PLAIN_REPS = 10, 1
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # f32 operations per element, counted from each kernel's arithmetic: a
-# level_gn iteration projects each point (~20) and runs the 16-step median
-# bisection (~32), then per point and channel samples, weighs and adds to H,
-# g, f (~71); fused_linearize the same without the bisection; irls_reduce
-# per term weighs and adds (~64); census compares 8 neighbours; SGM ~8 per
-# cost per direction
-OPS_LEVEL_POINT, OPS_LEVEL_CHANNEL = 52, 71
+# level_gn iteration projects each point (~20), and per point and channel
+# samples, weighs and adds to H, g, f (~71); an iteration that re-estimates
+# sigma also runs the 16-step median bisection (~32 a point: what the
+# function needs; the kernel's 4 rounds compare each point with 15
+# midpoints, 60 compares, to save barriers); fused_linearize the same
+# without the bisection; irls_reduce per term weighs and adds (~64); census
+# compares 8 neighbours; SGM ~8 per cost per direction
+OPS_LEVEL_POINT, OPS_LEVEL_CHANNEL, OPS_MEDIAN_POINT = 20, 71, 32
 OPS_LIN_POINT, OPS_LIN_CHANNEL = 20, 71
 OPS_IRLS_TERM, OPS_CENSUS_PIXEL, OPS_SGM_COST = 64, 8, 32
 
@@ -236,29 +247,52 @@ def _counts():
 
 def _first_linearization(args, level):
     """One iteration of kernel and plain version: the first linearization's
-    sigma, weights (Tukey/Huber at level 0, Huber above) and normal
-    equations must agree tightly, since a converged pose hides weighting
-    errors."""
+    sigma must be equal (bit for bit: integer counts and the plain
+    version's rounding of the residuals), its weights (Tukey/Huber at level
+    0, Huber above) and normal equations agree tightly, since a converged
+    pose hides weighting errors."""
     import dataclasses
     from bpvo_tpu_torch.ops import level_gn as lg
     args = args[:-1] + (dataclasses.replace(args[-1], max_iterations=1),)
     _, sk, Hk, gk, wk, _ = lg.level_gn(*args)
     _, sp, Hp, gp, wp, _ = lg.level_gn_reference(*args)
-    d_sigma = abs(sk[4].item() - sp[4].item()) / abs(sp[4].item())
+    s_k, s_p = sk[4].item(), sp[4].item()
     dH, dg = _rel(Hk, Hp), _rel(gk, gp)
     dw = float((wk - wp).abs().max())
-    print(f"level {level} one iteration: rel|dsigma|={d_sigma:.3e} "
-          f"rel|dH|={dH:.3e} rel|dg|={dg:.3e} max|dw|={dw:.3e}")
-    _require(d_sigma <= LIN_RTOL and dH <= LIN_RTOL and dg <= LIN_RTOL
+    print(f"level {level} one iteration: sigma {s_k!r} vs plain {s_p!r} "
+          f"(equal: {s_k == s_p}) rel|dH|={dH:.3e} rel|dg|={dg:.3e} "
+          f"max|dw|={dw:.3e}")
+    _require(s_k == s_p and dH <= LIN_RTOL and dg <= LIN_RTOL
              and dw <= LIN_W_ATOL,
-             f"level {level}: first linearization differs (sigma {d_sigma}, "
-             f"H {dH}, g {dg}, w {dw})")
+             f"level {level}: first linearization differs (sigma {s_k} vs "
+             f"{s_p}, H {dH}, g {dg}, w {dw})")
 
 
-def kernel_phase(vo, init_pair, target, dev):
-    """level_gn kernel vs plain version at the 4 level shapes of ``vo``:
-    templates of ``init_pair`` (image, disparity or right image), channels
-    of the ``target`` image."""
+def _plain_and_estimates(args):
+    """The plain version's outputs, and how many of its iterations
+    re-estimated sigma (the rest skip the median search)."""
+    from bpvo_tpu_torch.ops import level_gn as lg
+    n, estimate = [0], lg.estimate_scale
+
+    def counted(*a):
+        n[0] += 1
+        return estimate(*a)
+
+    lg.estimate_scale = counted
+    try:
+        out = lg.level_gn_reference(*args)
+    finally:
+        lg.estimate_scale = estimate
+    return out, n[0]
+
+
+def kernel_phase(vo, init_pair, target, dev, levels=None):
+    """level_gn kernel vs plain version at the level shapes of ``vo`` (all,
+    or the indices in ``levels``): templates of ``init_pair`` (image,
+    disparity or right image), channels of the ``target`` image.  Returns
+    (max pose error, kernel ms, plain ms, (bound ms, bound by), {"L<l>":
+    {"ms", "replayed_ms", "n_ctas", "iterations", "us_per_iteration",
+    "sigma_estimates", "bound_ms"}})."""
     import torch
     from bpvo_tpu_torch.ops import interp
     from bpvo_tpu_torch.ops import level_gn as lg
@@ -270,13 +304,16 @@ def kernel_phase(vo, init_pair, target, dev):
         torch.as_tensor(target).to(dev), vo._p, vo._p.numPyramidLevels)
     T0 = torch.eye(4, dtype=torch.float32, device=dev)
     max_err, ms, plain_ms, bound_ms, by = 0.0, 0.0, 0.0, 0.0, set()
+    out = {}
     for level, (td, ch) in enumerate(zip(templates, channels)):
+        if levels is not None and level not in levels:
+            continue
         args = (vo._cams[level], td.points, td.valid, td.pixels,
                 td.jacobians, ch, T0, 1.0, 1e10, td.norm_scale,
                 td.norm_center, vo._opts[level])
         _first_linearization(args, level)
         Tk, sk, Hk, gk, wk, _ = lg.level_gn(*args)
-        Tp, sp, Hp, gp, wp, _ = lg.level_gn_reference(*args)
+        (Tp, sp, Hp, gp, wp, _), n_est = _plain_and_estimates(args)
         torch.cuda.synchronize()
         C, K = td.pixels.shape
         # the image stack counts only the pixels that the projections at the
@@ -290,20 +327,30 @@ def kernel_phase(vo, init_pair, target, dev):
             taps.append(_taps(u, v, ok, ch.shape[1], ch.shape[2]))
         nbytes = (_nbytes(*(a for a in args if a is not ch), Tk, sk, Hk, gk,
                           wk) + _tap_bytes(ch, torch.cat(taps)))
-        b_ms, b_by = _bound(nbytes, float(sk[0]) * K
-                            * (OPS_LEVEL_POINT + C * OPS_LEVEL_CHANNEL))
+        b_ms, b_by = _bound(nbytes, K * (
+            float(sk[0]) * (OPS_LEVEL_POINT + C * OPS_LEVEL_CHANNEL)
+            + n_est * OPS_MEDIAN_POINT))
         bound_ms += b_ms
         by.add(b_by)
         err = float((Tk - Tp).abs().max())
         dH = _rel(Hk, Hp)
         t_k = _cuda_ms(lambda: lg.level_gn(*args), KERNEL_REPS)
+        d_k = _graph_ms(lambda: lg.level_gn(*args), KERNEL_REPS)
         t_p = _cuda_ms(lambda: lg.level_gn_reference(*args), PLAIN_REPS)
         sk, sp = sk.tolist(), sp.tolist()
         d_sigma = abs(sk[4] - sp[4]) / abs(sp[4])
+        n_ctas = lg.n_ctas(K)
+        out[f"L{level}"] = {"ms": t_k, "replayed_ms": d_k, "n_ctas": n_ctas,
+                            "iterations": int(sk[0]),
+                            "us_per_iteration": d_k * 1e3 / max(sk[0], 1),
+                            "sigma_estimates": n_est, "bound_ms": b_ms}
         print(f"level {level} C={ch.shape[0]} {tuple(ch.shape[1:])} "
-              f"K={td.points.shape[0]}: "
+              f"K={td.points.shape[0]}: cluster of {n_ctas} CTAs, "
+              f"{d_k * 1e3 / max(sk[0], 1):.2f} us per iteration "
+              f"(replayed {d_k:.4f} ms); "
               f"max|dT|={err:.3e} iters {sk[0]:.0f}/{sp[0]:.0f} "
               f"status {sk[3]:.0f}/{sp[3]:.0f} sigma {sk[4]:.6g}/{sp[4]:.6g} "
+              f"({n_est} estimates) "
               f"rel|dH|={dH:.3e} max|dw|={float((wk - wp).abs().max()):.3e} "
               f"kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.5f} ms "
               f"({b_by})")
@@ -320,7 +367,7 @@ def kernel_phase(vo, init_pair, target, dev):
         plain_ms += t_p
         if level == 0:
             _route_line(vo, td, ch, T0)
-    return max_err, ms, plain_ms, (bound_ms, "/".join(sorted(by)))
+    return max_err, ms, plain_ms, (bound_ms, "/".join(sorted(by))), out
 
 
 def _host_ms(fn, reps=3):
@@ -939,8 +986,8 @@ def main() -> int:
         descriptor=DescriptorType.INTENSITY, functionTolerance=1e-4,
         parameterTolerance=1e-6, maxIterations=50)
     vo = DeviceVO(K, baseline, shape, params, device=dev)
-    err_i, ms_i, plain_i, bound_i = kernel_phase(vo, frames[0], frames[1][0],
-                                                 dev)
+    err_i, ms_i, plain_i, bound_i, levels_i = kernel_phase(
+        vo, frames[0], frames[1][0], dev)
     counts_i, _, fps, p50 = vo_phase(vo, frames, dev, ref, "VO intensity",
                                      T_ATOL_JAX, GT_MARGIN, True)
     print(f"VO intensity: {fps:.2f} frames/s, per-frame p50 {p50:.3f} ms "
@@ -957,8 +1004,8 @@ def main() -> int:
     vo_bp = DeviceVO(K, baseline, shape, params_bp, device=dev,
                      stereo_fn=matcher.as_fn())
     flip_phase(vo_bp, sframes[0][0], dev)
-    err_b, ms_b, plain_b, bound_b = kernel_phase(vo_bp, sframes[0][:2],
-                                                 sframes[1][0], dev)
+    err_b, ms_b, plain_b, bound_b, levels_b = kernel_phase(
+        vo_bp, sframes[0][:2], sframes[1][0], dev)
     counts_s, kf, fps_s, p50_s = vo_phase(
         vo_bp, [f[:2] for f in sframes], dev, ref_s, "VO stereo Bit-Planes",
         T_ATOL_JAX_STEREO, GT_MARGIN_STEREO, False)
@@ -974,8 +1021,16 @@ def main() -> int:
 
     del vo_bp
 
-    # dense VO at KITTI shape: L0 and L1 through gauss_newton.run
+    # dense VO at KITTI shape: L0 and L1 through gauss_newton.run, L2 and L3
+    # (K = 8192/2048) through level_gn, checked here at C=1 and C=8
     ref_d = dict(np.load(REF_DENSE_NPZ))
+    lg_dense = {}
+    for name, desc in (("intensity", DescriptorType.INTENSITY),
+                       ("bitplanes", DescriptorType.BITPLANES)):
+        vo_d = DeviceVO(K, baseline, shape, _dense_params(desc), device=dev)
+        lg_dense[name] = kernel_phase(vo_d, sframes[0][0::2], sframes[1][0],
+                                      dev, levels=(2, 3))
+        del vo_d
     gnk = gn_kernel_phase(K, baseline, [f[0::2] for f in sframes[:2]], dev)
     dense = {}
     for name, desc in (("intensity", DescriptorType.INTENSITY),
@@ -1014,20 +1069,35 @@ def main() -> int:
                 "plain_replayed_ms_by_shape": {k: v[3]
                                                for k, v in times.items()}}
 
+    # level_gn by path: (max error, ms, plain ms, (bound ms, by), levels)
+    lg_paths = {"intensity": (err_i, ms_i, plain_i, bound_i, levels_i),
+                "stereo_bitplanes": (err_b, ms_b, plain_b, bound_b, levels_b),
+                "dense_intensity": lg_dense["intensity"],
+                "dense_bitplanes": lg_dense["bitplanes"]}
+
+    def by_level(key):
+        return {path: {lvl: v[key] for lvl, v in r[4].items()}
+                for path, r in lg_paths.items()}
+
     print(json.dumps({"kernels": [
         {"name": "level_gn", "route": "cuda",
          "source": "bpvo_tpu_torch/csrc/level_gn.cu",
          "replaces": "bpvo_tpu/ops/pallas/level_gn_kernel.py:615",
          "launches": sum(by_path("level_gn").values()),
          "launches_by_path": by_path("level_gn"),
-         "max_abs_err": max(err_i, err_b), "ms": ms_i + ms_b,
-         "plain_ms": plain_i + plain_b,
+         "max_abs_err": max(r[0] for r in lg_paths.values()),
+         "ms": ms_i + ms_b, "plain_ms": plain_i + plain_b,
          "bound_ms": bound_i[0] + bound_b[0],
          "bound_by": "/".join(sorted({bound_i[1], bound_b[1]})),
          "library_ms": None,
-         "ms_by_path": {"intensity": ms_i, "stereo_bitplanes": ms_b},
-         "bound_ms_by_path": {"intensity": bound_i[0],
-                              "stereo_bitplanes": bound_b[0]}},
+         "ms_by_path": {k: r[1] for k, r in lg_paths.items()},
+         "plain_ms_by_path": {k: r[2] for k, r in lg_paths.items()},
+         "bound_ms_by_path": {k: r[3][0] for k, r in lg_paths.items()},
+         "ms_by_level": by_level("ms"),
+         "replayed_ms_by_level": by_level("replayed_ms"),
+         "bound_ms_by_level": by_level("bound_ms"),
+         "n_ctas_by_level": by_level("n_ctas"),
+         "sigma_estimates_by_level": by_level("sigma_estimates")},
         {"name": "census_planes", "route": "cuda",
          "source": "bpvo_tpu_torch/csrc/census.cu",
          "replaces": "bpvo_tpu/ops/pallas/census_kernel.py:46",

@@ -290,6 +290,133 @@ def test_level_gn_kernel_c8_matches_plain(bitplanes_levels, level):
     np.testing.assert_allclose(sk[4], sp[4], rtol=1e-2)
 
 
+def _level_args(levels, level, K=None):
+    """level_gn's arguments at ``level`` of a fixture's templates, from the
+    identity pose; with ``K``, the template's first K points only."""
+    vo, channels = levels
+    td = vo.state.templates[level]
+    pts, valid, pix, jac = td.points, td.valid, td.pixels, td.jacobians
+    if K is not None:
+        pts, valid = pts[:K].contiguous(), valid[:K].contiguous()
+        pix, jac = pix[:, :K].contiguous(), jac[:, :K].contiguous()
+    return [vo._cams[level], pts, valid, pix, jac, channels[level],
+            torch.eye(4, device=channels[0].device), 1.0, 1e10,
+            td.norm_scale, td.norm_center, vo._opts[level]]
+
+
+def _one_iteration(args):
+    import dataclasses
+    return args[:-1] + [dataclasses.replace(args[-1], max_iterations=1)]
+
+
+@pytest.fixture(scope="module")
+def eight_levels(bench_levels, bitplanes_levels):
+    """The 8 bench level shapes: C=1 and C=8 at K = 16384/4096/1024/512."""
+    return {(name, level): levels for name, levels in
+            (("intensity", bench_levels), ("bitplanes", bitplanes_levels))
+            for level in range(4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["intensity", "bitplanes"])
+@pytest.mark.parametrize("level", range(4))
+def test_level_gn_first_sigma_equals_plain(eight_levels, path, level):
+    """The first linearization's sigma is the plain version's bit for bit
+    at any cluster size: integer counts, a count and a max reduce in any
+    order, and the residuals round as the plain version's."""
+    args = _one_iteration(_level_args(eight_levels[path, level], level))
+    sk = lg.level_gn(*args)[1]
+    sp = lg.level_gn_reference(*args)[1]
+    assert sk[4].item() == sp[4].item()
+    assert sk[0].item() == sp[0].item() == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["intensity", "bitplanes"])
+@pytest.mark.parametrize("level", range(4))
+def test_level_gn_cluster_size_rule(eight_levels, path, level):
+    """One CTA up to 512 points, else one per 256 points, at most 16: 16 /
+    16 / 4 / 1 CTAs at the bench levels (and 16 / 8 at the dense L2 / L3,
+    K = 8192 / 2048); one launch counted per call."""
+    args = _level_args(eight_levels[path, level], level)
+    K = args[1].shape[0]
+    assert K == (16384, 4096, 1024, 512)[level]
+    assert lg.n_ctas(K) == (16, 16, 4, 1)[level]
+    assert [lg.n_ctas(k) for k in (1, 512, 513, 2048, 8192, 10 ** 6)] == \
+        [1, 1, 3, 8, 16, 16]
+    before = lg.launch_count
+    lg.level_gn(*args)
+    torch.cuda.synchronize()
+    assert lg.launch_count == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["intensity", "bitplanes"])
+@pytest.mark.parametrize("K, ctas", [(12345, 16), (3001, 12)])
+def test_level_gn_ragged_k_matches_plain(eight_levels, path, K, ctas):
+    """The first K points of the finest template: clusters whose last
+    chunk is short, 12 CTAs also a size that is no power of two."""
+    args = _level_args(eight_levels[path, 0], 0, K=K)
+    assert lg.n_ctas(K) == ctas
+    one = _one_iteration(args)
+    assert lg.level_gn(*one)[1][4].item() == \
+        lg.level_gn_reference(*one)[1][4].item()
+    Tk, sk, Hk, _, wk, _ = lg.level_gn(*args)
+    Tp, sp, Hp, _, wp, _ = lg.level_gn_reference(*args)
+    np.testing.assert_allclose(Tk.cpu(), Tp.cpu(), atol=1e-4)
+    sk, sp = sk.cpu().numpy(), sp.cpu().numpy()
+    assert sk[0] == sp[0] and sk[3] == sp[3] and sk[6] == sp[6] == 1.0
+    np.testing.assert_allclose(sk[4], sp[4], rtol=1e-2)
+    np.testing.assert_allclose(Hk.cpu(), Hp.cpu(),
+                               atol=1e-2 * float(Hp.abs().max()))
+    assert wk.shape == wp.shape == (args[3].shape[0], K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["c9", "k32768"])
+def test_level_gn_scratch_path_matches_plain(bench_levels, dense_intensity,
+                                             case):
+    """Inputs beyond a thread's registers go through the (C, K) scratch:
+    9 channels (scaled copies of the bench L1 channel), or the dense L1
+    template's 32768 points (2048 a CTA at 16 CTAs)."""
+    if case == "c9":
+        args = list(_args(bench_levels, 1))
+        scale = [1.0 + 0.25 * i for i in range(9)]
+        for i in (3, 4, 5):        # pixels, jacobians, channels
+            args[i] = torch.cat([args[i] * s for s in scale]).contiguous()
+    else:
+        td, ch, opts = dense_intensity[1][:3]
+        K, b, _ = synthetic.synthesize_sequence(1)
+        cam = device_vo.DeviceVO(K, b, (synthetic.ROWS, synthetic.COLS),
+                                 AlgorithmParameters(**DENSE),
+                                 device=ch.device)._cams[1]
+        args = [cam, td.points, td.valid, td.pixels, td.jacobians, ch,
+                torch.eye(4, device=ch.device), 1.0, 1e10, td.norm_scale,
+                td.norm_center, opts]
+        assert td.points.shape[0] == 32768 and lg.n_ctas(32768) == 16
+    one = _one_iteration(args)
+    assert lg.level_gn(*one)[1][4].item() == \
+        lg.level_gn_reference(*one)[1][4].item()
+    Tk, sk, _, _, wk, _ = lg.level_gn(*args)
+    Tp, sp, _, _, wp, _ = lg.level_gn_reference(*args)
+    np.testing.assert_allclose(Tk.cpu(), Tp.cpu(), atol=1e-4)
+    sk, sp = sk.cpu().numpy(), sp.cpu().numpy()
+    assert sk[3] == sp[3] and sk[6] == sp[6] == 1.0
+    assert abs(sk[0] - sp[0]) <= 1
+    np.testing.assert_allclose(sk[4], sp[4], rtol=1e-2)
+    assert wk.shape == wp.shape == args[3].shape
+
+
+@pytest.mark.gpu
+def test_level_gn_c8_bitwise_repeatable(bitplanes_levels):
+    """The C=8 finest level on a cluster of 16 CTAs: DSMEM reductions in
+    rank order, no atomics, so two runs agree bit for bit."""
+    args = _level_args(bitplanes_levels, 0)
+    assert lg.n_ctas(args[1].shape[0]) == 16
+    for x, y in zip(lg.level_gn(*args), lg.level_gn(*args)):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.gpu
 def test_stereo_bitplanes_vo_on_cuda_counts_launches(cuda):
     """conf/kitti_bitplanes.cfg over 1+3 stereo pairs on the card: finite

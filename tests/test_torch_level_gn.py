@@ -193,3 +193,88 @@ def test_unported_options_raise(change):
     with pytest.raises(NotImplementedError):
         gn.run_level(ttd, torch.as_tensor(I1)[None], camera_from_numpy(cam),
                      torch.eye(4), opts)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's median search: 4 rounds of 4 bisection depths
+# ---------------------------------------------------------------------------
+
+def _median_inputs(case, n, seed=0):
+    """(a, valid): n valid |residuals| of the kind ``case`` among ~n/3
+    larger invalid ones (n=1: the single-valid mask)."""
+    r = np.random.default_rng(seed + n)
+    m = n + n // 3 + 1
+    if case == "continuous":
+        a = np.abs(r.standard_normal(m)) * 7.3
+    elif case == "tied_bitplanes_25":   # smoothed census bits: k/25
+        a = r.integers(0, 26, m) / 25.0
+    elif case == "tied_bitplanes_9":    # k/9
+        a = r.integers(0, 10, m) / 9.0
+    else:                               # amax 0
+        a = np.zeros(m)
+    valid = np.zeros(m, bool)
+    valid[r.permutation(m)[:n]] = True
+    a = np.where(valid, a, 10.0 + np.abs(r.standard_normal(m)))
+    return (torch.as_tensor(a.astype(np.float32)), torch.as_tensor(valid))
+
+
+def _bits(x):
+    return x.reshape(1).view(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["continuous", "tied_bitplanes_25",
+                                  "tied_bitplanes_9", "amax_zero"])
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 7, 100, 1001, 4096, 12345, 20000])
+def test_median_rounds_equal_sequential_bisection(case, n):
+    """lo, hi, median and n of the 4-depths-per-round search equal the
+    16-step sequential bisection's bit for bit."""
+    from bpvo_tpu_torch.solver import mestimator
+    a, valid = _median_inputs(case, n)
+    med, cnt, lo, hi = lg.median_rounds(a, valid)
+    lo_s, hi_s, cnt_s = mestimator.bisect_interval(a, valid)
+    med_s, _ = mestimator.median_bisect(a, valid)
+    for x, y in ((lo, lo_s), (hi, hi_s), (med, med_s), (cnt, cnt_s)):
+        assert torch.equal(_bits(x), _bits(y)), (x, y)
+    assert float(cnt) == n
+    if case == "amax_zero":
+        assert float(med) == 0.0
+
+
+@pytest.mark.parametrize("mask", ["all_invalid", "single_valid_first",
+                                  "single_valid_last"])
+def test_median_rounds_degenerate_masks(mask):
+    a = torch.as_tensor(np.random.default_rng(3).uniform(
+        0, 5, 777).astype(np.float32))
+    valid = torch.zeros(777, dtype=torch.bool)
+    if mask != "all_invalid":
+        valid[0 if mask.endswith("first") else -1] = True
+    from bpvo_tpu_torch.solver import mestimator
+    med, n, lo, hi = lg.median_rounds(a, valid)
+    lo_s, hi_s, n_s = mestimator.bisect_interval(a, valid)
+    assert torch.equal(_bits(lo), _bits(lo_s))
+    assert torch.equal(_bits(hi), _bits(hi_s))
+    assert torch.equal(_bits(med), _bits(mestimator.median_bisect(a,
+                                                                  valid)[0]))
+    assert float(n) == float(n_s) == int(valid.sum())
+    if mask == "all_invalid":
+        assert float(med) == 0.0
+    else:   # the single value, to the bisection's resolution max(a)/2^16
+        x = float(a[valid][0])
+        assert x <= float(med) <= x * (1 + 2.0 ** -15)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_median_rounds_sigma_matches_jax_kernel(case):
+    """The round-wise search on the port's first residuals gives the plain
+    version's sigma (which runs it) and the JAX level kernel's sigma, bit
+    for bit (the residuals agree to the last bit here, ties included)."""
+    (_, sj, _, _, _, _), (_, st, _, _, _, _), (td, ch, cam) = _run_both(
+        max_iterations=1, **CASES[case])
+    cfg = CASES[case]
+    ttd = template_from_numpy(_np_template(td), "cpu")
+    ok, r = lg._linearize(
+        camera_from_numpy(cam), ttd.points, ttd.valid, ttd.pixels,
+        torch.as_tensor(np.array(ch)), torch.eye(4),
+        cfg.get("interp") == InterpolationType.COSINE)
+    sigma = float(lg.estimate_scale(r[0], ok))
+    assert sigma == float(st[4]) == float(sj[4])

@@ -368,3 +368,39 @@ def test_entry_points_default_to_cuda():
         probes.run(["features"])
     # asked for, the CPU still works
     assert DeviceVO(K, 0.1, (48, 64), device="cpu").device.type == "cpu"
+
+
+def test_level_gn_sweep_runs_only_on_the_card():
+    """The cluster-size sweep times the kernel: on the CPU it refuses."""
+    sweep = _script("level_gn_sweep")
+    with pytest.raises(ValueError):
+        sweep.run(device="cpu")
+
+
+def test_level_gn_sweep_writes_only_under_build():
+    """--out outside the checkout's build/ is refused before anything runs
+    (nothing is written)."""
+    sweep = _script("level_gn_sweep")
+    outside = sweep.BUILD.parent / "sweep.json"
+    with pytest.raises(SystemExit):
+        sweep.main(["--out", str(outside)])
+    assert not outside.exists()
+
+
+@pytest.mark.parametrize("n_ctas, phases", [(8, False), (None, True),
+                                            (16, True)])
+def test_level_gn_sweep_patches_a_copy(n_ctas, phases):
+    """The sweep's copies of level_gn.cu: every anchor of the shipped
+    source is found once, ctas_for returns the fixed size, and the phase
+    copy gains its marks and reader; the shipped source has no knob."""
+    sweep = _script("level_gn_sweep")
+    text = sweep.SOURCE.read_text()
+    assert "clock64" not in text and "#ifdef" not in text
+    out = sweep.patched_source(text, n_ctas=n_ctas, phases=phases)
+    fixed = f"int ctas_for(int K) {{\n  (void)K;\n  return {n_ctas};\n"
+    assert (fixed in out) == (n_ctas is not None)
+    # the declaration, 4 marks and the iteration count
+    assert out.count("g_phase_cycles[") == (6 if phases else 0)
+    assert ("bpvo_level_gn_phases" in out) == phases
+    with pytest.raises(ValueError):       # an anchor that is not there
+        sweep._insert_after(text, "no such line\n", "")
