@@ -18,6 +18,7 @@ import torch
 from bpvo_tpu_torch.config import ConfigFile
 from bpvo_tpu_torch.ops import census as census_ops
 from bpvo_tpu_torch.ops import sgm as sgm_ops
+from bpvo_tpu_torch.vo.device_vo import resolve_device
 
 # popcount of every byte, for the Hamming distance of packed census codes
 _POPCOUNT = np.array([bin(i).count("1") for i in range(256)], np.float32)
@@ -33,15 +34,16 @@ class StereoAlgorithm:
 def census_cost_volume(cL, cR, num_disparities: int):
     """(H, W, D) Hamming cost between the packed census codes (H, W) uint8
     of the left image and of the right image shifted by d, 8 where x < d
-    (stereo.py:212-218).  Built one disparity at a time into a (D, H, W)
-    buffer from the two (H, W) code images, then moved to D innermost."""
-    H, W = cL.shape
-    lut = torch.as_tensor(_POPCOUNT, device=cL.device)
-    cost = torch.full((num_disparities, H, W), 8.0, dtype=torch.float32,
-                      device=cL.device)
-    for d in range(min(num_disparities, W)):
-        cost[d, :, d:] = lut[(cL[:, d:] ^ cR[:, :W - d]).long()]
-    return cost.permute(1, 2, 0).contiguous()
+    (stereo.py:212-218).  Built with D innermost in a fixed number of tensor
+    ops for any D: one gather of the right codes at column x - d, XOR with
+    the left codes, code 255 (popcount 8) where x < d, and one lookup in the
+    popcount table."""
+    W = cL.shape[1]
+    src = (torch.arange(W, device=cL.device)[:, None]
+           - torch.arange(num_disparities, device=cL.device))      # (W, D)
+    codes = cR[:, src.clamp(min=0)] ^ cL[:, :, None]
+    codes.masked_fill_(src < 0, 255)
+    return torch.as_tensor(_POPCOUNT, device=cL.device)[codes.int()]
 
 
 def _wta_subpixel(a, D: int):
@@ -90,11 +92,15 @@ class TpuSGM(StereoAlgorithm):
         self.p1 = p1
         self.p2 = p2
 
-    def run(self, left, right):
-        """(H, W) images (numpy or tensors) -> numpy disparity."""
-        L = torch.as_tensor(np.asarray(left, np.float32))
-        R = torch.as_tensor(np.asarray(right, np.float32))
-        return _sgm(L, R, self.num_disparities, self.p1, self.p2).numpy()
+    def run(self, left, right, device="cuda"):
+        """(H, W) images (numpy arrays, or tensors on any device) -> numpy
+        disparity, computed on ``device``: the card unless the caller asks
+        for the CPU (without a CUDA device it raises)."""
+        dev = resolve_device(device)
+        L, R = (torch.as_tensor(x).to(dev, torch.float32)
+                for x in (left, right))
+        return _sgm(L, R, self.num_disparities, self.p1,
+                    self.p2).cpu().numpy()
 
     def as_fn(self):
         """``(left, right) -> disparity`` on the tensors' device: the

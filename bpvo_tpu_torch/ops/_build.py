@@ -109,6 +109,19 @@ def launch(lib: ctypes.CDLL, op: str, rc: int) -> None:
                            + lib.bpvo_cuda_error_string(rc).decode())
 
 
+def bind_sgm(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of sgm.cu's entry points on ``lib`` (the
+    kernels' library, or a build of sgm.cu alone)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bpvo_sgm_carry_pass.argtypes = [p, p, i, i, i, f, f, i, p]
+    lib.bpvo_sgm_carry_pass.restype = i
+    lib.bpvo_sgm_tile_pass.argtypes = [p, p, p, i, i, i, f, f, p]
+    lib.bpvo_sgm_tile_pass.restype = i
+    lib.bpvo_sgm_scratch_floats.argtypes = [i, i, i]
+    lib.bpvo_sgm_scratch_floats.restype = ctypes.c_longlong
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use in this process."""
     global _lib
@@ -125,8 +138,7 @@ def library() -> ctypes.CDLL:
         lib.bpvo_cuda_error_string.restype = ctypes.c_char_p
         lib.bpvo_census_planes.argtypes = [p, p, i, i, p]
         lib.bpvo_census_planes.restype = i
-        lib.bpvo_sgm_aggregate.argtypes = [p, p, i, i, i, f, f, i, p]
-        lib.bpvo_sgm_aggregate.restype = i
+        bind_sgm(lib)
         lib.bpvo_fused_linearize.argtypes = [p] * 7 + [i] * 6 + [p] * 5
         lib.bpvo_fused_linearize.restype = i
         lib.bpvo_fused_linearize_blocks.argtypes = [i]

@@ -3,6 +3,12 @@
 ``bpvo_tpu/ops/pallas/sgm_kernel.py`` and of
 ``bpvo_tpu/data/stereo._aggregate_4dir_scan``).
 
+On the card ``aggregate_4dir`` is two launches: a carry pass that scans
+all four directions at once and keeps only the carry entering each tile,
+then a tile pass that re-runs the directions across each tile from those
+carries and writes the sum once.  ``aggregate_direction`` is the first
+pass alone, storing every position.
+
 The cost volume is (H, W, D) float32 with the disparity axis innermost.
 ``aggregate_direction`` and ``aggregate_4dir`` take the plain version for CPU
 tensors only.  For CUDA tensors they launch the kernel or raise; they never
@@ -51,6 +57,34 @@ def aggregate_4dir_reference(cost, p1: float, p2: float):
     return a + _aggregate_scan(cost.flip(0), p1, p2).flip(0)
 
 
+def pass_launches(cost, p1: float, p2: float, n_dirs: int = 4, lib=None):
+    """``(out, {pass name: launch})`` for one aggregation of the CUDA tensor
+    ``cost`` along ``n_dirs`` (1 or 4) directions: each launch enqueues its
+    pass (in the dict's order) and returns the C entry point's CUDA status;
+    ``out`` holds the result once all have run.  ``lib`` is the kernels'
+    library by default, or a build of ``sgm.cu`` alone bound by
+    ``_build.bind_sgm``."""
+    from bpvo_tpu_torch.ops import _build
+    lib = lib or _build.library()
+    H, W, D = cost.shape
+    out = torch.empty_like(cost)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cost.device).cuda_stream)
+    args = (H, W, D, float(p1), float(p2))
+    ptr = ctypes.c_void_p
+    if n_dirs == 1:    # the carry kernel storing every position
+        return out, {"carry": lambda: lib.bpvo_sgm_carry_pass(
+            ptr(cost.data_ptr()), ptr(out.data_ptr()), *args, 1, stream)}
+    # the carries that enter each tile of the tile pass
+    scratch = torch.empty(lib.bpvo_sgm_scratch_floats(H, W, D),
+                          dtype=torch.float32, device=cost.device)
+    return out, {
+        "carry": lambda: lib.bpvo_sgm_carry_pass(
+            ptr(cost.data_ptr()), ptr(scratch.data_ptr()), *args, 4, stream),
+        "tile": lambda: lib.bpvo_sgm_tile_pass(
+            ptr(cost.data_ptr()), ptr(scratch.data_ptr()),
+            ptr(out.data_ptr()), *args, stream)}
+
+
 def _launch(cost, p1: float, p2: float, n_dirs: int):
     global launch_count
     if cost.dim() != 3 or cost.dtype != torch.float32:
@@ -62,14 +96,9 @@ def _launch(cost, p1: float, p2: float, n_dirs: int):
     if H < 1 or W < 1 or not 1 <= D <= 256 or cost.numel() >= 2 ** 40:
         raise ValueError(f"sgm: unsupported shape {tuple(cost.shape)}")
     from bpvo_tpu_torch.ops import _build
-    lib = _build.library()
-    out = torch.empty_like(cost)
-    stream = torch.cuda.current_stream(cost.device).cuda_stream
-    ptr = ctypes.c_void_p
-    rc = lib.bpvo_sgm_aggregate(ptr(cost.data_ptr()), ptr(out.data_ptr()),
-                                H, W, D, float(p1), float(p2), n_dirs,
-                                ptr(stream))
-    _build.launch(lib, "sgm", rc)
+    out, launches = pass_launches(cost, p1, p2, n_dirs)
+    for launch in launches.values():
+        _build.launch(_build.library(), "sgm", launch())
     launch_count += 1
     return out
 

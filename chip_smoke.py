@@ -21,9 +21,11 @@
    kernel's launch count must equal the number of level solves run.
 4. Stereo kernel phase, on frame 0 of the stereo pair of the same scene:
    the ``census_planes`` kernel against its plain version at 376x1241 and
-   the SGM aggregation kernel against its plain version on that pair's
-   376x1241x128 census cost volume with conf/kitti_bitplanes.cfg's
-   penalties, both bit for bit; the matcher's frame-0 disparity must have
+   the SGM aggregation kernel (and each of its two passes, whose device
+   times it prints) against its plain version on that pair's 376x1241x128
+   census cost volume with conf/kitti_bitplanes.cfg's penalties, both bit
+   for bit; the matcher's ms per call, whole and by stage (census, cost
+   volume, aggregation, WTA); the matcher's frame-0 disparity must have
    the JAX reference's valid count and mean |d - GT|; the share of census
    bits that flip between the card's Bit-Planes pyramid and the CPU's
    stays under FLIP_BOUND.
@@ -74,11 +76,13 @@
 Any failure exits non-zero.  The line before the last is a JSON object with
 the kernels' launches (summed over the VO phases that run each; for the
 probes, the probe groups' run), errors, CUDA-event times (mean ms per call
-through the wrapper; for census, whose wrapper costs more host time than
-the kernel device time, back-to-back launches of its C entry point; for
-fused_linearize and irls_reduce also the device time of the call replayed
-from a CUDA graph, per shape; for the probes "ms" is the replayed device
-time), the least time the card could take for the same work (``bound_ms``:
+through the wrapper; SGM also ``ms_by_pass``, ``structure_bound_ms`` (the
+two-pass structure's bytes over 3.35 TB/s) and the matcher's ms, whole
+and ``matcher_ms_by_stage``; for census, whose wrapper costs more host
+time than the kernel device time, back-to-back launches of its C entry
+point; for fused_linearize and irls_reduce also the device time of the call
+replayed from a CUDA graph, per shape; for the probes "ms" is the replayed
+device time), the least time the card could take for the same work (``bound_ms``:
 the larger of the bytes moved over 3.35 TB/s and the f32 operations over
 67 TFLOP/s, H100 SXM; an image that a kernel gathers from counts only the
 distinct pixels this run's points read; ``level_gn`` counts the median
@@ -732,13 +736,14 @@ def census_phase(left, dev):
     return float((got - want).abs().max()), t_raw, t_p, bound
 
 
-def sgm_phase(pair, matcher, dev, ref):
+def sgm_phase(pair, matcher, dev, ref, smi):
     """SGM aggregation kernel vs plain version on the pair's census cost
-    volume, bit for bit, and the matcher's frame-0 disparity vs JAX's."""
-    import numpy as np
+    volume, bit for bit; each pass's device time (back-to-back launches of
+    its C entry point); the matcher's ms per call by stage; the matcher's
+    frame-0 disparity vs JAX's."""
     import torch
     from bpvo_tpu_torch.data import stereo
-    from bpvo_tpu_torch.ops import census, sgm
+    from bpvo_tpu_torch.ops import _build, census, sgm
     left, right, gt = (torch.as_tensor(a).to(dev) for a in pair)
     p1, p2, D = matcher.p1, matcher.p2, matcher.num_disparities
     codes = census.census(torch.stack([left, right]))
@@ -757,21 +762,50 @@ def sgm_phase(pair, matcher, dev, ref):
           f"(max |d| {err:.3e}), kernel {t_k:.4f} ms plain {t_p:.4f} ms")
     _require(n_diff == 0, f"sgm kernel differs from its plain version in "
                           f"{n_diff} values (max {err})")
+    # the two passes alone, from their C entry points
+    out, launches = sgm.pass_launches(cost, p1, p2)
+    _require(all(launch() == 0 for launch in launches.values()),
+             "sgm passes failed to launch")
+    by_pass = {k: _cuda_ms(launch, SGM_REPS) for k, launch in launches.items()}
+    _require(torch.equal(out, got), "sgm: the passes' output differs")
     bound = _bound(_nbytes(cost, got), OPS_SGM_COST * cost.numel())
-    t_m = _cuda_ms(lambda: matcher.as_fn()(left, right), SGM_REPS)
-    disp = matcher.as_fn()(left, right)
+    # bytes of the two-pass structure: the cost read 5 times, the carries
+    # written and read, the output written
+    H, W, _ = cost.shape
+    scratch = _build.library().bpvo_sgm_scratch_floats(H, W, D) * 4
+    structure = _bound(5 * _nbytes(cost) + 2 * scratch + _nbytes(got), 0)[0]
+    print(f"sgm passes, device ms: carry {by_pass['carry']:.4f}, tile "
+          f"{by_pass['tile']:.4f}; through the wrapper {t_k:.4f}; bound "
+          f"{bound[0]:.4f} ({bound[1]}), the two-pass structure's bytes "
+          f"{structure:.4f}; on {smi}")
+    fn = matcher.as_fn()
+    t_m = _cuda_ms(lambda: fn(left, right), SGM_REPS)
+    stages = {
+        "census": _cuda_ms(lambda: census.census(torch.stack([left, right])),
+                           SGM_REPS),
+        "cost_volume": _cuda_ms(
+            lambda: stereo.census_cost_volume(codes[0], codes[1], D),
+            SGM_REPS),
+        "aggregation": t_k,
+        "wta": _cuda_ms(lambda: stereo._wta_subpixel(got, D), SGM_REPS)}
+    disp = fn(left, right)
     valid = disp > 0
     n_valid = int(valid.sum())
     mae = float((disp - gt).abs()[valid].mean())
     want_n, want_mae = int(ref["disp0_valid"]), float(ref["disp0_mean_abs_err"])
     print(f"matcher frame 0: {n_valid} valid (JAX {want_n}), mean |d - GT| "
-          f"{mae:.6f} (JAX {want_mae:.6f}), {t_m:.4f} ms per call")
+          f"{mae:.6f} (JAX {want_mae:.6f}), {t_m:.4f} ms per call; by stage "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f" ms; on {smi}")
     _require(abs(n_valid - want_n) <= DISP_VALID_RTOL * want_n,
              f"disparity valid count {n_valid} vs JAX {want_n}")
     _require(abs(mae - want_mae) <= DISP_ERR_RTOL * want_mae,
              f"disparity mean |d - GT| {mae} vs JAX {want_mae}")
-    del cost, got, want, one, one_want
-    return err, t_k, t_p, bound
+    del cost, got, want, one, one_want, out, launches
+    return err, t_k, t_p, bound, {"ms_by_pass": by_pass,
+                                  "structure_bound_ms": structure,
+                                  "matcher_ms": t_m,
+                                  "matcher_ms_by_stage": stages}
 
 
 def flip_phase(vo, image, dev):
@@ -1000,7 +1034,8 @@ def main() -> int:
     params_bp = AlgorithmParameters.from_config(cf)
     matcher = stereo.create_stereo_algorithm(cf)
     err_c, ms_c, plain_c, bound_c = census_phase(sframes[0][0], dev)
-    err_s, ms_s, plain_s, bound_s = sgm_phase(sframes[0], matcher, dev, ref_s)
+    err_s, ms_s, plain_s, bound_s, sgm_extra = sgm_phase(
+        sframes[0], matcher, dev, ref_s, smi)
     vo_bp = DeviceVO(K, baseline, shape, params_bp, device=dev,
                      stereo_fn=matcher.as_fn())
     flip_phase(vo_bp, sframes[0][0], dev)
@@ -1109,7 +1144,7 @@ def main() -> int:
          "replaces": "bpvo_tpu/ops/pallas/sgm_kernel.py:51",
          "launches": counts_s["sgm_aggregate"], "max_abs_err": err_s,
          "ms": ms_s, "plain_ms": plain_s, "bound_ms": bound_s[0],
-         "bound_by": bound_s[1], "library_ms": None},
+         "bound_by": bound_s[1], "library_ms": None, **sgm_extra},
         gn_entry("fused_linearize", "bpvo_tpu_torch/csrc/fused_linearize.cu",
                  "bpvo_tpu/ops/pallas/gn_kernel.py:181 and :433",
                  "intensity L0 C=1"),

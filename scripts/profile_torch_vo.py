@@ -13,8 +13,8 @@ bench.py's settings, non-maxima suppression off and pointCapacity 131072
 (``dense-intensity``, ``dense-bitplanes``):
 
 1. two untraced passes (the first pays first-use costs), each printing
-   frames/s and per-frame p50/p90 ms on the host clock, split into keyframe
-   and other steps;
+   frames/s and per-frame p50/p90 ms on the host clock, also for keyframe
+   and other steps apart;
 2. one pass under ``torch.profiler`` (CPU + CUDA activities), printing the
    ops by device time, the device busy share (union of the device events'
    intervals over the pass's wall time), each hand-written kernel's
@@ -126,6 +126,7 @@ def main(argv=None) -> int:
             kf.append(bool(out.is_keyframe))
         t_ms, kf = np.array(t_ms), np.array(kf)
         split = "".join(f" {name} p50 {np.percentile(t_ms[sel], 50):.3f}"
+                        f" p90 {np.percentile(t_ms[sel], 90):.3f}"
                         for name, sel in (("keyframe", kf), ("other", ~kf))
                         if sel.any())
         print(f"pass {rep}: {len(t_ms) / t_ms.sum() * 1e3:.2f} frames/s, "

@@ -230,6 +230,31 @@ def test_sgm_kernel_bitwise_integer(cuda, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("H, W", [(1, 1), (1, 37), (23, 1), (5, 7), (8, 8),
+                                  (12, 12), (8, 37), (23, 8), (16, 24),
+                                  (19, 45), (24, 13)])
+@pytest.mark.parametrize("D", [7, 32, 48, 100, 128, 256])
+def test_sgm_two_pass_edges_bitwise(cuda, H, W, D):
+    """The carry pass and the tile pass at the tile's edges (8x8): images
+    that are not a multiple of the tile, smaller than one tile, one row or
+    column, a line exactly one or a few tiles long.  Integer costs with
+    p1 = 2, p2 = 8 and uniform real costs with p1 = 1, p2 = 8 equal the
+    plain versions bit for bit: the re-run from a carry repeats the
+    operations of the single scan in its order, and the sum keeps its
+    order."""
+    r = np.random.default_rng(H * 1000 + W * 10 + D)
+    for cost, p1 in ((_int_cost((H, W, D), H + W), 2.0),
+                     (r.uniform(0, 8, (H, W, D)).astype(np.float32), 1.0)):
+        cost = torch.as_tensor(cost, device=cuda)
+        got = sgm.aggregate_4dir(cost, p1, 8.0)
+        one = sgm.aggregate_direction(cost, p1, 8.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sgm.aggregate_4dir_reference(cost, p1, 8.0))
+        assert torch.equal(one, sgm.aggregate_direction_reference(cost, p1,
+                                                                  8.0))
+
+
+@pytest.mark.gpu
 def test_sgm_kernel_real_penalties(cuda):
     """tests/test_pallas.py's case, uniform real costs, p1=1.0, p2=8.0:
     the same operations in the same order, held at its atol 1e-4."""
@@ -259,7 +284,11 @@ def test_matcher_on_cuda_matches_cpu(cuda):
     m = stereo.TpuSGM(num_disparities=64)
     got = m.as_fn()(torch.as_tensor(L, device=cuda),
                     torch.as_tensor(R, device=cuda)).cpu()
+    assert torch.equal(got, torch.as_tensor(m.run(L, R, device="cpu")))
+    # run() on the card by default, from numpy or from tensors on the card
     assert torch.equal(got, torch.as_tensor(m.run(L, R)))
+    assert torch.equal(got, torch.as_tensor(m.run(
+        torch.as_tensor(L, device=cuda), torch.as_tensor(R, device=cuda))))
     assert float((got > 0).float().mean()) > 0.5
 
 

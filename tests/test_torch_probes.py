@@ -30,6 +30,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from bpvo_tpu_torch import VisualOdometry
 from bpvo_tpu_torch import probes
+from bpvo_tpu_torch.data import stereo
 from bpvo_tpu_torch.probes import band, gather, kernel_features as kf
 from bpvo_tpu_torch.utils import convert
 from bpvo_tpu_torch.vo.device_vo import DeviceVO
@@ -350,7 +351,8 @@ def test_probes_import_no_jax():
 
 def test_entry_points_default_to_cuda():
     for fn in (DeviceVO.__init__, VisualOdometry.__init__,
-               convert.template_from_numpy, convert.state_from_numpy):
+               convert.template_from_numpy, convert.state_from_numpy,
+               stereo.TpuSGM.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         return
@@ -366,6 +368,9 @@ def test_entry_points_default_to_cuda():
                 "norm_scale", "norm_center", "rows", "cols")})
     with pytest.raises(RuntimeError):
         probes.run(["features"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stereo.TpuSGM(num_disparities=16).run(np.zeros((8, 16), np.float32),
+                                              np.zeros((8, 16), np.float32))
     # asked for, the CPU still works
     assert DeviceVO(K, 0.1, (48, 64), device="cpu").device.type == "cpu"
 
@@ -404,3 +409,34 @@ def test_level_gn_sweep_patches_a_copy(n_ctas, phases):
     assert ("bpvo_level_gn_phases" in out) == phases
     with pytest.raises(ValueError):       # an anchor that is not there
         sweep._insert_after(text, "no such line\n", "")
+
+
+# ---------------------------------------------------------------------------
+# scripts/sgm_bench.py: the matcher's timings and the SGM tile sweep
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tile", [(8, 8), (8, 12), (12, 8)])
+def test_sgm_bench_patches_the_tile(tile):
+    """The sweep's copies of sgm.cu: the shipped tile constants are found
+    once and replaced; the shipped shape leaves the text as it is."""
+    bench = _script("sgm_bench")
+    text = bench.SOURCE.read_text()
+    assert tile in bench.TILES and "#ifdef" not in text
+    out = bench.patched_source(text, tile)
+    assert f"constexpr int kTileY = {tile[0]};" in out
+    assert f"constexpr int kTileX = {tile[1]};" in out
+    assert (out == text) == (tile == bench.SHIPPED)
+    with pytest.raises(ValueError):       # a source without the anchors
+        bench.patched_source("// no tile here\n", tile)
+
+
+def test_sgm_bench_runs_only_on_the_card(tmp_path):
+    """It times kernels: without a CUDA device it refuses, and --out
+    outside the checkout's build/ is refused before anything runs."""
+    bench = _script("sgm_bench")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench.run(reps=1)
+    with pytest.raises(SystemExit):
+        bench.main(["--out", str(tmp_path / "x.json")])
+    assert not (tmp_path / "x.json").exists()

@@ -88,8 +88,8 @@ def _stereo_pair(rows=60, cols=80, baseline=0.5):
 
 
 def test_cost_volume_matches_rolled_planes():
-    """The one-disparity-at-a-time Hamming volume equals stereo.py's
-    rolled-plane cost (stereo.py:212-218), including d >= W."""
+    """The gathered Hamming volume equals stereo.py's rolled-plane cost
+    (stereo.py:212-218), including d >= W."""
     L, R, _ = _stereo_pair(rows=12, cols=40)
     cl, cr = (np.asarray(jcensus.census_planes(jnp.asarray(x)))
               for x in (L, R))
@@ -101,6 +101,43 @@ def test_cost_volume_matches_rolled_planes():
     got = stereo.census_cost_volume(codes[0], codes[1], D)
     assert got.shape == (12, 40, D) and got.is_contiguous()
     np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("D", [8, 64, 200])
+def test_cost_volume_op_count_independent_of_d(D):
+    """The volume is built by the same tensor ops for every D (no loop over
+    disparities), the same as at D = 1."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    r = np.random.default_rng(D)
+    cl, cr = (torch.as_tensor(r.integers(0, 256, (6, 40)).astype(np.uint8))
+              for _ in range(2))
+    counts = []
+    for n in (1, D):
+        with Count() as c:
+            stereo.census_cost_volume(cl, cr, n)
+        counts.append(c.ops)
+    assert counts[0] == counts[1] and len(counts[1]) <= 16
+
+
+def test_tpusgm_run_takes_tensors_and_returns_numpy():
+    """run() takes numpy arrays or tensors and computes on the device it is
+    given; the disparity comes back as numpy, equal for both inputs."""
+    L, R, _ = _stereo_pair(rows=24, cols=48)
+    m = stereo.TpuSGM(num_disparities=16)
+    a = m.run(L, R, device="cpu")
+    b = m.run(_t(L).double(), _t(R), device="cpu")
+    assert isinstance(b, np.ndarray) and b.dtype == np.float32
+    np.testing.assert_array_equal(a, b)
 
 
 def test_wta_ties_take_the_first_index():
@@ -119,8 +156,9 @@ def test_sgm_disparity_matches_jax():
     want = np.asarray(jstereo._sgm(jnp.asarray(L), jnp.asarray(R), 32, 2.0,
                                    8.0))
     before = (census.launch_count, sgm.launch_count)
-    got = stereo.TpuSGM(num_disparities=32).run(L, R)
+    got = stereo.TpuSGM(num_disparities=32).run(L, R, device="cpu")
     assert (census.launch_count, sgm.launch_count) == before
+    assert isinstance(got, np.ndarray)
     np.testing.assert_array_equal(got < 0, want < 0)
     np.testing.assert_allclose(got, want, atol=1e-6)
     ok = got > 0
@@ -284,6 +322,47 @@ def test_stereo_state_carried_from_jax(stereo_frames, jax_stereo_run):
     np.testing.assert_allclose(ot.pose.numpy(), oj["pose"], atol=POSE_ATOL)
 
 
+def test_stereo_pose_difference_not_amplified_at_keyframes():
+    """ROADMAP C.11: both packages' level-kernel routes over 12 stereo pairs
+    (the run above, longer).  Per step, the relative pose's max |port -
+    JAX| and the world pose's; the world difference may grow only by the
+    step's own difference (additive), never by a factor at a keyframe.
+    ``pytest -s`` prints the table."""
+    n = 12
+    ds = SyntheticPlaneDataset(rows=120, cols=160, n_frames=n, baseline=0.5,
+                               texture="noise", twist_per_frame=TWIST)
+    K, b = ds.calibration.K, ds.calibration.baseline
+    tvo = DeviceVO(K, b, ds.image_size,
+                   _params(AlgorithmParameters, DescriptorType,
+                           LossFunctionType),
+                   stereo_fn=stereo.TpuSGM(num_disparities=48).as_fn(),
+                   device="cpu")
+    rows = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BPVO_LEVEL_KERNEL", "force")
+        jvo = JDeviceVO(K, b, ds.image_size, _params(JParams, JDesc, JLoss),
+                        stereo_fn=jstereo.TpuSGM(num_disparities=48).as_fn())
+        for i in range(n):
+            L, R = ds.get_frame(i).image, ds.right_image(i)
+            oj, ot = jvo.add_frame(L, R), tvo.add_frame(L, R)
+            if oj is None:
+                continue
+            assert bool(ot.is_keyframe) == bool(oj.is_keyframe)
+            rows.append((i, bool(oj.is_keyframe),
+                         np.abs(ot.pose.numpy() - np.asarray(oj.pose)).max(),
+                         np.abs(ot.pose_world.numpy()
+                                - np.asarray(oj.pose_world)).max()))
+    for i, kf, dp, dw in rows:
+        print(f"step {i:2d} {'keyframe' if kf else '        '} "
+              f"max|dpose| {dp:.3e} max|dpose_world| {dw:.3e}")
+    assert sum(kf for _, kf, _, _ in rows) >= 4
+    worst = 0.0
+    for _, _, dp, dw in rows:
+        assert dw <= worst + dp + 1e-6
+        worst = max(worst, dw)
+    assert worst < 1e-3
+
+
 def test_stereo_fn_matches_precomputed_disparity(stereo_frames):
     """DeviceVO(stereo_fn=...) fed (left, right) gives the trajectory of
     DeviceVO fed the same matcher's disparity of every frame (as
@@ -299,7 +378,7 @@ def test_stereo_fn_matches_precomputed_disparity(stereo_frames):
     n_out = 0
     for L, R in frames:
         out_a = vo_a.add_frame(L, R)
-        out_b = vo_b.add_frame(L, matcher.run(L, R))
+        out_b = vo_b.add_frame(L, matcher.run(L, R, device="cpu"))
         if out_a is not None:
             n_out += 1
             np.testing.assert_allclose(out_a.pose.numpy(),
