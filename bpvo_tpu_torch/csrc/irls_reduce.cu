@@ -10,14 +10,22 @@
 //
 // What bounds it: per term it reads J (24 B), r and the validity (5 B) and
 // may write w (4 B): 4-35 MB for M = 131072 to 1048576 terms, a few to ~10 us
-// at 3.35 TB/s; ~60 flops per term are far below the card's rate.
+// at 3.35 TB/s; ~64 flops per term (FMAs in registers, no tensor cores) are
+// far below the card's rate.
 //
-// Design: a grid-stride loop with a fixed grid for a given M, so each thread
-// sums its terms in a fixed order; the block and grid sums are gn_reduce.cuh's
-// two fixed-order passes (no atomics, bitwise repeatable).  J stays in the
-// template's own (M, 6) layout: the TPU kernel's (6, M) transpose and 8-row
-// slabs were there for its lanes and MXU.  A null w pointer skips the weight
-// store (irls_reduce).  Sigma is read from device memory.
+// Design: one launch per call (gn_reduce.cuh: warp reduce-scatter, block
+// fold, completion ticket; bitwise repeatable).  A block owns threads x
+// unroll x tiles consecutive terms; launch_for picks the shape from M.  Per
+// tile each thread issues the loads of its `unroll` terms together: the
+// validity, the residual and the J row as three 8-byte loads, then sums
+// them in a fixed order.  Bringing a tile's residuals and J rows into shared
+// memory by bulk copies (cp.async.bulk on an mbarrier) was built and timed
+// by the launch-shape sweep and was never faster (PERF.md §6), so
+// the kernel reads straight from global memory.  J stays in the template's
+// own (M, 6) layout: the TPU kernel's (6, M) transpose and 8-row slabs were
+// there for its lanes and MXU.  A null w pointer skips the weight store
+// (irls_reduce); the sums are the same bit for bit.  Sigma is read from
+// device memory.
 
 #include <stdint.h>
 
@@ -25,46 +33,93 @@
 
 namespace {
 
-// enough blocks to fill the 132 SMs several times over at any M
-constexpr int kMaxBlocks = 132 * 8;
+// Threads, terms per thread per tile and tiles per block for M terms (from
+// scripts/gn_kernel_bench.py --sweep).
+gn::Launch launch_for(int M) {
+  return gn::launch_for_points(M, 4);
+}
 
-__global__ void __launch_bounds__(gn::kThreads)
+template <int U>
+__global__ void __launch_bounds__(gn::kMaxThreads)
 irls_reduce_kernel(const float* __restrict__ J, const float* __restrict__ r,
                    const uint8_t* __restrict__ valid,
-                   const float* __restrict__ sigma_ptr, int M, int loss,
-                   float* __restrict__ w, float* __restrict__ partials) {
+                   const float* __restrict__ sigma_ptr, int M, int tiles,
+                   int loss, float* __restrict__ w,
+                   float* __restrict__ partials, unsigned int* ticket,
+                   float* __restrict__ out) {
+  const int B = blockDim.x, tid = threadIdx.x;
+  const float sigma = __ldg(sigma_ptr);
   float acc[gn::kSys];
 #pragma unroll
   for (int i = 0; i < gn::kSys; ++i) acc[i] = 0.0f;
-  const float sigma = *sigma_ptr;
-  const int stride = gridDim.x * gn::kThreads;
-  for (int m = blockIdx.x * gn::kThreads + threadIdx.x; m < M; m += stride) {
-    const float rm = r[m];
-    const float wv = valid[m] ? gn::robust_weight(rm / sigma, loss) : 0.0f;
-    if (w != nullptr) w[m] = wv;
-    if (wv != 0.0f) gn::accumulate(acc, J + (size_t)m * 6, rm, wv);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int m0 = (blockIdx.x * tiles + t) * B * U;
+    const int n = max(0, min(B * U, M - m0));   // terms of this tile
+    const float* r0 = r + m0;
+    const float* J0 = J + (size_t)m0 * 6;
+    bool ok[U];
+#pragma unroll
+    for (int p = 0; p < U; ++p) {
+      const int i = p * B + tid;
+      ok[p] = i < n && valid[m0 + i];
+    }
+    float rm[U], j[U][6];
+#pragma unroll
+    for (int p = 0; p < U; ++p) {
+      const int i = p * B + tid;
+      if (i < n) {
+        rm[p] = __ldg(r0 + i);
+        gn::load_row(J0 + (size_t)i * 6, j[p]);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < U; ++p) {
+      const int i = p * B + tid;
+      if (i >= n) continue;
+      const float wv = ok[p] ? gn::robust_weight(rm[p] / sigma, loss) : 0.0f;
+      if (w != nullptr) w[m0 + i] = wv;
+      if (wv != 0.0f) gn::accumulate(acc, j[p], rm[p], wv);
+    }
   }
-  gn::store_block_partial(acc, partials);
+  gn::reduce_to(acc, partials, ticket, out);
+}
+
+template <int U>
+int launch(const gn::Launch& l, int blocks, cudaStream_t s, const float* J,
+           const float* r, const uint8_t* valid, const float* sigma, int M,
+           int loss, float* w, float* partials, unsigned int* ticket,
+           float* out) {
+  irls_reduce_kernel<U><<<blocks, l.threads, 0, s>>>(
+      J, r, valid, sigma, M, l.tiles, loss, w, partials, ticket, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Blocks of the first pass for M terms: the size of the partials scratch is
-// this times 28 floats.
+// Blocks for M terms: the size of the partials scratch is this times 28
+// floats.
 extern "C" int bpvo_irls_reduce_blocks(int M) {
-  const int blocks = (M + gn::kThreads - 1) / gn::kThreads;
-  return blocks < kMaxBlocks ? blocks : kMaxBlocks;
+  return gn::blocks_for(launch_for(M), M);
 }
 
 extern "C" int bpvo_irls_reduce(const float* J, const float* r,
                                 const uint8_t* valid, const float* sigma,
                                 int M, int loss, float* w, float* partials,
-                                float* out, void* stream) {
+                                unsigned int* ticket, float* out,
+                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = bpvo_irls_reduce_blocks(M);
-  irls_reduce_kernel<<<blocks, gn::kThreads, 0, s>>>(J, r, valid, sigma, M,
-                                                       loss, w, partials);
-  const int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  return gn::reduce_partials(partials, blocks, out, s);
+  const gn::Launch l = launch_for(M);
+  const int blocks = gn::blocks_for(l, M);
+  switch (l.unroll) {
+    case 1:
+      return launch<1>(l, blocks, s, J, r, valid, sigma, M, loss, w, partials,
+                       ticket, out);
+    case 2:
+      return launch<2>(l, blocks, s, J, r, valid, sigma, M, loss, w, partials,
+                       ticket, out);
+    default:
+      return launch<4>(l, blocks, s, J, r, valid, sigma, M, loss, w, partials,
+                       ticket, out);
+  }
 }

@@ -23,6 +23,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib = None
+# completion-ticket counters of the one-launch GN kernels, per device index:
+# (zeroed int32 slab of TICKET_SLOTS counters, {stream handle: slot})
+TICKET_SLOTS = 1024
+_tickets = {}
 
 
 def _nvcc() -> str:
@@ -109,6 +113,39 @@ def launch(lib: ctypes.CDLL, op: str, rc: int) -> None:
                            + lib.bpvo_cuda_error_string(rc).decode())
 
 
+def ticket_counter(stream) -> ctypes.c_void_p:
+    """The completion-ticket counter of ``fused_linearize.cu`` and
+    ``irls_reduce.cu`` (``csrc/gn_reduce.cuh``) for launches on the CUDA
+    ``stream``: one zeroed int per stream, each launch leaves it at 0.
+
+    A device's counters are allocated, zeroed, at its first call, which
+    must come before any CUDA-graph capture on that device; a stream first
+    seen later (a capture stream) takes a free one of them.  Launches on
+    two streams thus never share a counter.  Both kernels share a stream's
+    counter, since launches on one stream never overlap; a captured graph
+    keeps the counter of the stream it was captured on.
+    """
+    import torch
+    dev = stream.device
+    if dev.index not in _tickets:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "fused_linearize / irls_reduce: call one of them on "
+                f"{dev} before capturing a CUDA graph (their ticket counters "
+                "are allocated at the first call)")
+        slab = torch.zeros(TICKET_SLOTS, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize(dev)          # zero before any stream uses it
+        _tickets[dev.index] = (slab, {})
+    slab, slots = _tickets[dev.index]
+    slot = slots.get(stream.cuda_stream)
+    if slot is None:
+        if len(slots) == TICKET_SLOTS:
+            raise RuntimeError(f"fused_linearize / irls_reduce: more than "
+                               f"{TICKET_SLOTS} streams on {dev}")
+        slot = slots[stream.cuda_stream] = len(slots)
+    return ctypes.c_void_p(slab.data_ptr() + 4 * slot)
+
+
 def bind_sgm(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of sgm.cu's entry points on ``lib`` (the
     kernels' library, or a build of sgm.cu alone)."""
@@ -119,6 +156,22 @@ def bind_sgm(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bpvo_sgm_tile_pass.restype = i
     lib.bpvo_sgm_scratch_floats.argtypes = [i, i, i]
     lib.bpvo_sgm_scratch_floats.restype = ctypes.c_longlong
+    return lib
+
+
+def bind_gn(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of fused_linearize.cu's and irls_reduce.cu's
+    entry points on ``lib`` (the kernels' library, or a build of those two
+    sources alone)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bpvo_fused_linearize.argtypes = [p] * 7 + [i] * 6 + [p] * 6
+    lib.bpvo_fused_linearize.restype = i
+    lib.bpvo_fused_linearize_blocks.argtypes = [i, i]
+    lib.bpvo_fused_linearize_blocks.restype = i
+    lib.bpvo_irls_reduce.argtypes = [p] * 4 + [i] * 2 + [p] * 5
+    lib.bpvo_irls_reduce.restype = i
+    lib.bpvo_irls_reduce_blocks.argtypes = [i]
+    lib.bpvo_irls_reduce_blocks.restype = i
     return lib
 
 
@@ -139,14 +192,7 @@ def library() -> ctypes.CDLL:
         lib.bpvo_census_planes.argtypes = [p, p, i, i, p]
         lib.bpvo_census_planes.restype = i
         bind_sgm(lib)
-        lib.bpvo_fused_linearize.argtypes = [p] * 7 + [i] * 6 + [p] * 5
-        lib.bpvo_fused_linearize.restype = i
-        lib.bpvo_fused_linearize_blocks.argtypes = [i]
-        lib.bpvo_fused_linearize_blocks.restype = i
-        lib.bpvo_irls_reduce.argtypes = [p] * 4 + [i] * 2 + [p] * 4
-        lib.bpvo_irls_reduce.restype = i
-        lib.bpvo_irls_reduce_blocks.argtypes = [i]
-        lib.bpvo_irls_reduce_blocks.restype = i
+        bind_gn(lib)
         # the microbenchmarks of bpvo_tpu_torch/probes
         for name, args in (
                 ("while_cta", [p, p, i, i, p]),

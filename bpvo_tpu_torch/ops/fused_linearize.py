@@ -9,6 +9,10 @@ for leaving a row band: JAX's ``band_ok`` would always be true and is not
 returned.  The TPU layout helpers (``pack_template*``, ``pad_channels``) have
 no counterpart: the kernel reads the template's own arrays.
 
+One call is one kernel launch (the grid-wide sum of the normal equations is
+folded by the last block to finish, ``csrc/gn_reduce.cuh``).  Each stream
+has its own completion counter (``_build.ticket_counter``): make the first
+call on a device before capturing a CUDA graph there.
 ``fused_linearize`` takes the plain version for CPU tensors only.  For CUDA
 tensors it launches the kernel or raises; it never falls back.
 """
@@ -83,9 +87,10 @@ def fused_linearize(u, v, ok, channels, pixels, jacobians, sigma, loss,
     dev = channels.device
     r0 = torch.empty(K, dtype=f32, device=dev)
     w = torch.empty(C, K, dtype=f32, device=dev)
-    partials = torch.empty(lib.bpvo_fused_linearize_blocks(K) * 28,
+    partials = torch.empty(lib.bpvo_fused_linearize_blocks(K, C) * 28,
                            dtype=f32, device=dev)
     out = torch.empty(43, dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev)
     ptr = ctypes.c_void_p
     rc = lib.bpvo_fused_linearize(
         ptr(u.data_ptr()), ptr(v.data_ptr()), ptr(ok.data_ptr()),
@@ -93,7 +98,8 @@ def fused_linearize(u, v, ok, channels, pixels, jacobians, sigma, loss,
         ptr(jacobians.data_ptr()), ptr(sigma.data_ptr()), C, H, W, K,
         LOSS_CODES[loss], int(interp == InterpolationType.COSINE),
         ptr(r0.data_ptr()), ptr(w.data_ptr()), ptr(partials.data_ptr()),
-        ptr(out.data_ptr()), ptr(torch.cuda.current_stream(dev).cuda_stream))
+        _build.ticket_counter(stream), ptr(out.data_ptr()),
+        ptr(stream.cuda_stream))
     _build.launch(lib, "fused_linearize", rc)
     launch_count += 1
     return out[:36].view(6, 6), out[36:42], out[42], r0, w

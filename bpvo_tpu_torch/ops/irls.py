@@ -7,8 +7,11 @@ Counterpart of ``bpvo_tpu/ops/pallas/irls_kernel.py`` (``irls_reduce_w`` and
 template's own (M, 6) layout (``jacobians.reshape(-1, 6)``); the TPU
 kernel's (6, M) transpose and 8-row slabs are not needed.
 
-The wrappers take the plain version for CPU tensors only.  For CUDA tensors
-they launch the kernel or raise; they never fall back.
+One call is one kernel launch (``csrc/gn_reduce.cuh``); each stream has its
+own completion counter (``_build.ticket_counter``): make the first call on a
+device before capturing a CUDA graph there.  The wrappers take
+the plain version for CPU tensors only.  For CUDA tensors they launch the
+kernel or raise; they never fall back.
 """
 from __future__ import annotations
 
@@ -53,12 +56,14 @@ def _launch(J, r, valid, sigma, loss, with_w: bool):
     partials = torch.empty(lib.bpvo_irls_reduce_blocks(M) * 28, dtype=f32,
                            device=dev)
     out = torch.empty(43, dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev)
     ptr = ctypes.c_void_p
     rc = lib.bpvo_irls_reduce(
         ptr(J.data_ptr()), ptr(r.data_ptr()), ptr(valid.data_ptr()),
         ptr(sigma.data_ptr()), M, LOSS_CODES[loss],
         ptr(w.data_ptr() if with_w else None), ptr(partials.data_ptr()),
-        ptr(out.data_ptr()), ptr(torch.cuda.current_stream(dev).cuda_stream))
+        _build.ticket_counter(stream), ptr(out.data_ptr()),
+        ptr(stream.cuda_stream))
     _build.launch(lib, "irls_reduce", rc)
     launch_count += 1
     return out[:36].view(6, 6), out[36:42], out[42], w

@@ -1,6 +1,7 @@
 """Clocks for the probes.  On a CUDA device: the device time of a call
-replayed from a CUDA graph (the launches without the Python around them)
-and the time of a call through its wrapper, both by CUDA events.  On the
+replayed from a CUDA graph (the launches without the Python around them),
+the time of a call through its wrapper, both by CUDA events, and the device
+kernels a call runs.  On the
 CPU (plain versions only): the host clock, and the result says so."""
 from __future__ import annotations
 
@@ -34,6 +35,20 @@ def events_ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels that one call of ``fn()`` runs, counted
+    by torch.profiler after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def host_ms(fn, reps=3):

@@ -53,8 +53,9 @@ STATUS_ENUMS = {
 
 # Levels with more points go to ``run``.  JAX's MAX_POINTS_BANDED
 # (level_gn_kernel.py:549), there a TPU VMEM envelope; here ``level_gn``
-# runs a level in one block on one SM, and ``run`` spreads larger levels
-# over the card.
+# runs a level on one cluster of up to 16 CTAs (16 SMs), and ``run``
+# spreads larger levels over the whole card, one kernel launch per
+# linearization.
 MAX_LEVEL_KERNEL_POINTS = 16384
 
 

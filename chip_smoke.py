@@ -45,7 +45,10 @@
    channel-0 sigma pass), ``fused_linearize`` against its plain version
    (channel 0's residuals and the histogram sigma from them bit for bit,
    weights at GN_W_ATOL, H, g, f^2 within GN_RTOL of their largest entry),
-   and ``irls_reduce_w`` / ``irls_reduce`` at M = K and 8K the same way.
+   and ``irls_reduce_w`` / ``irls_reduce`` at M = K and 8K the same way
+   (``irls_reduce``'s sums bit for bit those of ``irls_reduce_w``; each
+   timed on its own, with its own bound); one wrapper call of each must run
+   exactly one device kernel (torch.profiler).
    Phases 2 and 5 add one line each: ``gauss_newton.run`` against
    ``level_gn`` at the bench L0 (K = 16384): both times and the pose
    difference.
@@ -81,7 +84,12 @@ two-pass structure's bytes over 3.35 TB/s) and the matcher's ms, whole
 and ``matcher_ms_by_stage``; for census, whose wrapper costs more host
 time than the kernel device time, back-to-back launches of its C entry
 point; for fused_linearize and irls_reduce also the device time of the call
-replayed from a CUDA graph, per shape; for the probes "ms" is the replayed
+replayed from a CUDA graph of 10 calls, per shape (``replayed_ms_by_shape``:
+per call of a 10-call graph; earlier versions of this script replayed one
+call per graph, which also timed the host's graph launches, so their
+readings do not compare), the device kernels one
+call runs (``kernels_per_call``) and, for irls_reduce, the call without
+the weight store (``no_weights_*``); for the probes "ms" is the replayed
 device time), the least time the card could take for the same work (``bound_ms``:
 the larger of the bytes moved over 3.35 TB/s and the f32 operations over
 67 TFLOP/s, H100 SXM; an image that a kernel gathers from counts only the
@@ -135,6 +143,7 @@ KERNEL_REPS, PLAIN_REPS = 50, 3
 # the sums run in another order (H, g, f^2), the weights divide the same
 # residuals by the same sigma
 GN_RTOL, GN_W_ATOL = 1e-4, 1e-6
+GN_PER_GRAPH = 10        # calls per CUDA graph when the GN kernels are replayed
 # dense VO: bench.py's settings, NMS off (as conf/tunnel.cfg), and a point
 # capacity every level fills: 131072/32768/8192/2048 points
 BENCH = dict(minSaliency=2.0, numPyramidLevels=4, functionTolerance=1e-4,
@@ -217,18 +226,6 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _graph_ms(fn, reps):
-    """Mean device ms per call of fn() replayed from a CUDA graph: the
-    launches without the host work of the Python wrapper around them."""
-    import torch
-    fn()                                  # first-use costs outside capture
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        fn()
-    return _cuda_ms(g.replay, reps)
-
-
 def _rel(a, b):
     """max |a - b| / max |b|."""
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
@@ -300,6 +297,7 @@ def kernel_phase(vo, init_pair, target, dev, levels=None):
     import torch
     from bpvo_tpu_torch.ops import interp
     from bpvo_tpu_torch.ops import level_gn as lg
+    from bpvo_tpu_torch.probes import timing
     from bpvo_tpu_torch.vo import device_vo, warp
 
     vo.init(*init_pair)
@@ -339,7 +337,8 @@ def kernel_phase(vo, init_pair, target, dev, levels=None):
         err = float((Tk - Tp).abs().max())
         dH = _rel(Hk, Hp)
         t_k = _cuda_ms(lambda: lg.level_gn(*args), KERNEL_REPS)
-        d_k = _graph_ms(lambda: lg.level_gn(*args), KERNEL_REPS)
+        d_k = timing.graph_ms(lambda: lg.level_gn(*args), KERNEL_REPS,
+                              per_graph=1)
         t_p = _cuda_ms(lambda: lg.level_gn_reference(*args), PLAIN_REPS)
         sk, sp = sk.tolist(), sp.tolist()
         d_sigma = abs(sk[4] - sp[4]) / abs(sp[4])
@@ -506,16 +505,21 @@ def _gn_check(label, got, want):
 def gn_kernel_phase(K, baseline, frames, dev):
     """fused_linearize and irls_reduce(_w) against their plain versions
     at the dense L0 and L1 shapes, C=1 and C=8.  Returns {kernel: (max
-    error, {shape: (ms, plain ms)})}."""
+    error, {shape: (ms, plain ms, replayed ms, plain replayed ms)},
+    {shape: (bound ms, bound by)}, {shape: device kernels per call})};
+    irls_reduce's tuples also carry the call without weights: (ms,
+    replayed ms) and (bound ms, bound by) after the others."""
     import torch
     from bpvo_tpu_torch import DescriptorType
     from bpvo_tpu_torch.ops import fused_linearize as fl
     from bpvo_tpu_torch.ops import interp, irls
+    from bpvo_tpu_torch.probes import timing
     from bpvo_tpu_torch.solver import mestimator
     from bpvo_tpu_torch.vo import device_vo, template_data, warp
     err = {"fused_linearize": 0.0, "irls_reduce": 0.0}
     ms = {"fused_linearize": {}, "irls_reduce": {}}
     bounds = {"fused_linearize": {}, "irls_reduce": {}}
+    per_call = {"fused_linearize": {}, "irls_reduce": {}}
     for name, desc in (("intensity", DescriptorType.INTENSITY),
                        ("bitplanes", DescriptorType.BITPLANES)):
         vo = device_vo.DeviceVO(K, baseline, (frames[0][0].shape),
@@ -549,18 +553,24 @@ def gn_kernel_phase(K, baseline, frames, dev):
                 t_k = _cuda_ms(lambda: fl.fused_linearize(*a), KERNEL_REPS)
                 t_p = _cuda_ms(lambda: fl.fused_linearize_reference(*a),
                                PLAIN_REPS)
-                d_k = _graph_ms(lambda: fl.fused_linearize(*a), KERNEL_REPS)
-                d_p = _graph_ms(lambda: fl.fused_linearize_reference(*a),
-                                KERNEL_REPS)
+                d_k = timing.graph_ms(lambda: fl.fused_linearize(*a),
+                                      KERNEL_REPS, GN_PER_GRAPH)
+                d_p = timing.graph_ms(
+                    lambda: fl.fused_linearize_reference(*a), KERNEL_REPS,
+                    GN_PER_GRAPH)
+                n_k = len(timing.device_kernels(
+                    lambda: fl.fused_linearize(*a)))
                 shape = (f"{name} L{level} C={n}"
                          + (" sigma pass" if n < C else ""))
                 label = f"fused_linearize {shape}"
                 print(f"  {label}: r0 bitwise {r0_same}, sigma bitwise "
                       f"{s_same}; kernel {t_k:.4f} ms through the wrapper, "
-                      f"{d_k:.4f} ms replayed; plain {t_p:.4f} ms, "
-                      f"{d_p:.4f} ms replayed")
+                      f"{d_k:.4f} ms replayed, {n_k} device kernel(s) per "
+                      f"call; plain {t_p:.4f} ms, {d_p:.4f} ms replayed")
                 _require(r0_same and s_same, f"{label}: r0 or its sigma "
                                              f"differs from the plain version")
+                _require(n_k == 1, f"{label}: {n_k} device kernels per call")
+                per_call["fused_linearize"][shape] = n_k
                 dw = _gn_check(label, got, want)
                 err["fused_linearize"] = max(err["fused_linearize"], dw)
                 ms["fused_linearize"][shape] = (t_k, t_p, d_k, d_p)
@@ -585,20 +595,34 @@ def gn_kernel_phase(K, baseline, frames, dev):
                                    KERNEL_REPS)
                     t_p = _cuda_ms(lambda: irls.irls_reduce_reference(*b),
                                    PLAIN_REPS)
-                    d_k = _graph_ms(lambda: irls.irls_reduce_w(*b),
-                                    KERNEL_REPS)
-                    d_p = _graph_ms(lambda: irls.irls_reduce_reference(*b),
-                                    KERNEL_REPS)
-                    print(f"  {label}: kernel {t_k:.4f} ms through the "
-                          f"wrapper, {d_k:.4f} ms replayed; plain "
-                          f"{t_p:.4f} ms, {d_p:.4f} ms replayed")
+                    d_k = timing.graph_ms(lambda: irls.irls_reduce_w(*b),
+                                          KERNEL_REPS, GN_PER_GRAPH)
+                    d_p = timing.graph_ms(
+                        lambda: irls.irls_reduce_reference(*b), KERNEL_REPS,
+                        GN_PER_GRAPH)
+                    t_3 = _cuda_ms(lambda: irls.irls_reduce(*b), KERNEL_REPS)
+                    d_3 = timing.graph_ms(lambda: irls.irls_reduce(*b),
+                                          KERNEL_REPS, GN_PER_GRAPH)
+                    n_k = max(len(timing.device_kernels(fn)) for fn in (
+                        lambda: irls.irls_reduce_w(*b),
+                        lambda: irls.irls_reduce(*b)))
+                    print(f"  {label}: irls_reduce_w {t_k:.4f} ms through the "
+                          f"wrapper, {d_k:.4f} ms replayed; irls_reduce "
+                          f"{t_3:.4f} / {d_3:.4f} ms; {n_k} device kernel(s) "
+                          f"per call; plain {t_p:.4f} ms, {d_p:.4f} ms "
+                          f"replayed")
+                    _require(n_k == 1,
+                             f"{label}: {n_k} device kernels per call")
                     err["irls_reduce"] = max(err["irls_reduce"],
                                              _gn_check(label, got, want))
-                    ms["irls_reduce"][shape] = (t_k, t_p, d_k, d_p)
-                    bounds["irls_reduce"][shape] = _bound(
-                        _nbytes(*b[:4], *got), m * Kl * OPS_IRLS_TERM)
+                    ms["irls_reduce"][shape] = (t_k, t_p, d_k, d_p, t_3, d_3)
+                    ops = m * Kl * OPS_IRLS_TERM
+                    bounds["irls_reduce"][shape] = (
+                        _bound(_nbytes(*b[:4], *got), ops)
+                        + _bound(_nbytes(*b[:4], *got3), ops))
+                    per_call["irls_reduce"][shape] = n_k
         del vo, pyr
-    return {k: (err[k], ms[k], bounds[k]) for k in err}
+    return {k: (err[k], ms[k], bounds[k], per_call[k]) for k in err}
 
 
 def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
@@ -1089,7 +1113,13 @@ def main() -> int:
                 "dense_bitplanes": dense["bitplanes"][kernel]}
 
     def gn_entry(kernel, source, replaces, shape):
-        err, times, bounds = gnk[kernel]
+        err, times, bounds, per_call = gnk[kernel]
+        extra = {} if kernel != "irls_reduce" else {
+            "no_weights_ms_by_shape": {k: v[4] for k, v in times.items()},
+            "no_weights_replayed_ms_by_shape": {k: v[5]
+                                                for k, v in times.items()},
+            "no_weights_bound_ms_by_shape": {k: v[2]
+                                             for k, v in bounds.items()}}
         return {"name": kernel, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(by_path(kernel).values()),
@@ -1102,7 +1132,9 @@ def main() -> int:
                 "plain_ms_by_shape": {k: v[1] for k, v in times.items()},
                 "replayed_ms_by_shape": {k: v[2] for k, v in times.items()},
                 "plain_replayed_ms_by_shape": {k: v[3]
-                                               for k, v in times.items()}}
+                                               for k, v in times.items()},
+                "kernels_per_call": max(per_call.values()),
+                "kernels_per_call_by_shape": per_call, **extra}
 
     # level_gn by path: (max error, ms, plain ms, (bound ms, by), levels)
     lg_paths = {"intensity": (err_i, ms_i, plain_i, bound_i, levels_i),

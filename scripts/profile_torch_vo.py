@@ -18,10 +18,9 @@ bench.py's settings, non-maxima suppression off and pointCapacity 131072
 2. one pass under ``torch.profiler`` (CPU + CUDA activities), printing the
    ops by device time, the device busy share (union of the device events'
    intervals over the pass's wall time), each hand-written kernel's
-   (``level_gn``, ``census``, ``sgm``, ``fused_linearize``, ``irls_reduce``
-   and their shared ``reduce_partials`` pass) device total and launches,
-   and the
-   top-level host ops issued per step.
+   (``level_gn``, ``census``, ``sgm``, ``fused_linearize``,
+   ``irls_reduce``) device total and launches, and the top-level host ops
+   issued per step.
 
 Imports no JAX.  Times are only comparable inside one run.
 """
@@ -46,8 +45,7 @@ from bpvo_tpu_torch.vo.device_vo import DeviceVO  # noqa: E402
 
 CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "conf", "kitti_bitplanes.cfg")
-KERNELS = ("level_gn", "census", "sgm", "fused_linearize", "irls_reduce",
-           "reduce_partials")
+KERNELS = ("level_gn", "census", "sgm", "fused_linearize", "irls_reduce")
 
 BENCH_PARAMS = dict(minSaliency=2.0, numPyramidLevels=4,
                     descriptor=DescriptorType.INTENSITY,

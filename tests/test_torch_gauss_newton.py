@@ -164,8 +164,19 @@ def test_fused_linearize_plain_matches_pallas(desc, interp_name, loss):
 @pytest.mark.parametrize("loss", ["Tukey", "Huber", "L2"])
 def test_irls_reduce_plain_matches_pallas(loss):
     """tests/test_pallas.py:59-95's case, M=3000 (not a block multiple)."""
+    _check_irls_reduce(loss, 3000)
+
+
+@pytest.mark.parametrize("M", [1, 255, 257, 1001])
+@pytest.mark.parametrize("loss", ["Tukey", "Huber"])
+def test_irls_reduce_plain_matches_pallas_at_ragged_sizes(loss, M):
+    """The sizes at which the GPU tests hold the kernel to its plain version
+    (a ragged last block or tile), here the plain version against Pallas."""
+    _check_irls_reduce(loss, M)
+
+
+def _check_irls_reduce(loss, M):
     r_ = np.random.default_rng(2)
-    M = 3000
     J = r_.standard_normal((M, 6)).astype(np.float32)
     r = (5.0 * r_.standard_normal(M)).astype(np.float32)
     valid = r_.uniform(size=M) < 0.8

@@ -645,6 +645,156 @@ def test_gn_kernels_reject_what_they_cannot_take(dense_intensity):
             irls.irls_reduce_w(*bad, sigma, opts.loss)
 
 
+def _offset_copy(x, offset):
+    """A contiguous copy of ``x`` that starts ``offset`` floats (or bytes)
+    into its storage: a base address that is not 8- or 16-byte aligned."""
+    buf = torch.empty(offset + x.numel(), dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _ragged_fused_args(dense, K, C, offset):
+    td, ch, opts, u, v, ok, r, sigma = dense[0]
+    return (tuple(_offset_copy(x, offset) for x in (
+        u[:K], v[:K], ok[:K], ch[:C].contiguous(),
+        td.pixels[:C, :K].contiguous(), td.jacobians[:C, :K].contiguous()))
+        + (sigma, opts.loss, opts.interp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("C", (1, 8))
+@pytest.mark.parametrize("K", (1, 255, 257, 1001, 32769))
+def test_fused_linearize_ragged_matches_plain(dense_bitplanes, K, C, offset):
+    """Sizes that leave a ragged last tile and, at odd K or a shifted base,
+    Jacobian rows that are not 8-byte aligned (read as single floats)."""
+    from bpvo_tpu_torch.ops import fused_linearize as fl
+    args = _ragged_fused_args(dense_bitplanes, K, C, offset)
+    H, g, f, r0, w = fl.fused_linearize(*args)
+    Hp, gp, fp, r0p, wp = fl.fused_linearize_reference(*args)
+    assert torch.equal(r0.view(torch.int32), r0p.view(torch.int32))
+    assert float((w - wp).abs().max()) <= 1e-6
+    for a, b in ((H, Hp), (g, gp), (f, fp)):
+        _close(a, b, 1e-4)
+
+
+def _irls_args(dense, M, offset):
+    td, ch, opts, u, v, ok, r, sigma = dense[0]
+    return (_offset_copy(td.jacobians.reshape(-1, 6)[:M], offset),
+            _offset_copy(r.reshape(-1)[:M], offset),
+            _offset_copy(ok.expand(8, -1).reshape(-1)[:M], offset),
+            sigma, opts.loss)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("M", (1, 255, 257, 1001, 32769))
+def test_irls_reduce_ragged_matches_plain(dense_bitplanes, M, offset):
+    from bpvo_tpu_torch.ops import irls
+    args = _irls_args(dense_bitplanes, M, offset)
+    H, g, f, w = irls.irls_reduce_w(*args)
+    Hp, gp, fp, wp = irls.irls_reduce_reference(*args)
+    assert float((w - wp).abs().max()) <= 1e-6
+    for a, b in ((H, Hp), (g, gp), (f, fp)):
+        _close(a, b, 1e-4)
+    for a, b in zip(irls.irls_reduce(*args), (H, g, f)):
+        assert torch.equal(a, b)
+
+
+def _gn_calls(dense_bitplanes, dense_intensity):
+    """{name: a call of one GN kernel's wrapper} at the dense shapes."""
+    from bpvo_tpu_torch.ops import fused_linearize as fl
+    from bpvo_tpu_torch.ops import irls
+    td, ch, opts, u, v, ok, r, sigma = dense_bitplanes[0]
+    fused8 = (u, v, ok, ch, td.pixels, td.jacobians, sigma, opts.loss,
+              opts.interp)
+    td1, ch1, opts1, u1, v1, ok1, r1, sigma1 = dense_intensity[1]
+    fused1 = (u1, v1, ok1, ch1, td1.pixels, td1.jacobians, sigma1,
+              opts1.loss, opts1.interp)
+    m1 = (td1.jacobians.reshape(-1, 6), r1.reshape(-1), ok1, sigma1,
+          opts1.loss)
+    m8 = (td.jacobians.reshape(-1, 6), r.reshape(-1),
+          ok.expand(8, -1).reshape(-1), sigma, opts.loss)
+    return {"fused_linearize C=8 L0": lambda: fl.fused_linearize(*fused8),
+            "fused_linearize C=1 L1": lambda: fl.fused_linearize(*fused1),
+            "irls_reduce_w M=K L1": lambda: irls.irls_reduce_w(*m1),
+            "irls_reduce M=8K L0": lambda: irls.irls_reduce(*m8)}
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_gn_kernels_repeat_under_graph_replay(dense_bitplanes,
+                                              dense_intensity):
+    """Two back-to-back calls and 10 replays of a captured CUDA graph all
+    equal the first call bit for bit: the completion ticket resets."""
+    for name, call in _gn_calls(dense_bitplanes, dense_intensity).items():
+        first = [x.clone() for x in call()]
+        second = call()
+        torch.cuda.synchronize()
+        assert _same(second, first), name
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            outs = call()
+        for _ in range(10):
+            g.replay()
+            torch.cuda.synchronize()
+            assert _same(outs, first), name
+
+
+@pytest.mark.gpu
+def test_gn_kernels_interleaved_on_one_stream(dense_bitplanes,
+                                              dense_intensity):
+    """The kernels launched back to back in turns, with no sync between,
+    give what each gives alone."""
+    calls = _gn_calls(dense_bitplanes, dense_intensity)
+    alone = {}
+    for name, call in calls.items():
+        alone[name] = [x.clone() for x in call()]
+        torch.cuda.synchronize()
+    got = [(name, call()) for _ in range(3) for name, call in calls.items()]
+    torch.cuda.synchronize()
+    for name, outs in got:
+        assert _same(outs, alone[name]), name
+
+
+@pytest.mark.gpu
+def test_gn_kernels_on_two_streams_at_once(dense_bitplanes, dense_intensity):
+    """Each kernel launched on two streams with no sync between them gives,
+    on both, what it gives alone: each stream has its own ticket counter."""
+    from bpvo_tpu_torch.ops import _build
+    calls = _gn_calls(dense_bitplanes, dense_intensity)
+    alone = {name: [x.clone() for x in call()] for name, call in calls.items()}
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    counters = {_build.ticket_counter(s).value for s in streams}
+    assert len(counters) == 2
+    got = []
+    for _ in range(5):
+        for name, call in calls.items():
+            for s in streams:
+                with torch.cuda.stream(s):
+                    got.append((name, call()))
+    torch.cuda.synchronize()
+    for name, outs in got:
+        assert _same(outs, alone[name]), name
+
+
+@pytest.mark.gpu
+def test_gn_kernels_one_device_kernel_per_call(dense_bitplanes,
+                                               dense_intensity):
+    """torch.profiler sees one device kernel per wrapper call."""
+    from bpvo_tpu_torch.probes import timing
+    for name, call in _gn_calls(dense_bitplanes, dense_intensity).items():
+        kernels = timing.device_kernels(call)
+        kernel = ("fused_linearize_kernel" if name.startswith("fused")
+                  else "irls_reduce_kernel")
+        assert len(kernels) == 1 and kernel in kernels[0], (name, kernels)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("descriptor", [DescriptorType.INTENSITY,
                                         DescriptorType.BITPLANES])
