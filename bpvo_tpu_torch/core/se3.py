@@ -55,7 +55,7 @@ def exp(p):
 def _compose_rt(R, t):
     top = torch.cat([R, t[..., None]], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)   # a kernel: no host copy, so capturable
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -94,11 +94,12 @@ def imsmooth(I, sigma: float, ksize: int = 0):
 _PYR_KERNEL = (1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _filter_decimate_matrix(n: int, device: str) -> torch.Tensor:
     """Banded (ceil(n/2), n) matrix: the 5-tap pyrDown filter with
     reflect-101 borders fused with 2x decimation.  Cached per size and
-    device; callers never write to it."""
+    device, and never evicted: a captured CUDA graph reads it at its
+    address; callers never write to it."""
     m = -(-n // 2)
     M = np.zeros((m, n), np.float32)
     k = np.asarray(np.float32(_PYR_KERNEL), np.float64)

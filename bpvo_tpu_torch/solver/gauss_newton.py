@@ -16,7 +16,10 @@ Flow per iteration (inverse compositional, template Jacobians fixed):
 linearization in the CUDA kernels ``ops.fused_linearize`` and
 ``ops.irls``; it reads the device once per iteration (converged, solver ok,
 and whether sigma is still moving) and keeps everything else, sigma
-included, on the device.  Levenberg-Marquardt is not ported yet.
+included, on the device.  Given a ``RunGraphs`` (the entry points hold one
+per level on CUDA) each of its iterations is one CUDA-graph replay; the
+eager loop stays as the route verbose runs take and the graphs are held
+to.  Levenberg-Marquardt is not ported yet.
 """
 from __future__ import annotations
 
@@ -144,13 +147,15 @@ def run_level(tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
                    band_overflow=bo)
 
 
-def solve_level(tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
+def solve_level(tdata, channels, cam, T_init, opts: GNOptions,
+                graphs=None) -> GNState:
     """A level solve by the route JAX takes on the TPU: ``run_level`` where
-    ``level_kernel_supported``, ``run`` elsewhere."""
+    ``level_kernel_supported``, ``run`` elsewhere (with the level's
+    ``RunGraphs``, if given)."""
     C, rows, cols = channels.shape
     if level_kernel_supported(opts, C, rows, cols, tdata.pixels.shape[1]):
         return run_level(tdata, channels, cam, T_init, opts)
-    return run(tdata, channels, cam, T_init, opts)
+    return run(tdata, channels, cam, T_init, opts, graphs=graphs)
 
 
 def _sigma_unstable(delta_scale, scale, opts: GNOptions):
@@ -253,92 +258,253 @@ def _test_convergence(dp_norm, dp_norm_prev, g_norm, f_norm, f_norm_prev,
     return p_tol | f_tol | g_ok, status.to(torch.int32)
 
 
-def run(tdata, channels, cam, T_init, opts: GNOptions,
-        linearize_fn=None) -> GNState:
+class _LoopState(NamedTuple):
+    """``run``'s loop state between iterations (device tensors)."""
+    T: torch.Tensor             # (4, 4) pose the next iteration linearizes at
+    T_best: torch.Tensor        # (4, 4) lowest-cost pose evaluated so far
+    f_best: torch.Tensor        # its cost
+    dp: torch.Tensor            # (6,) last step taken
+    f_norm: torch.Tensor        # cost at the last linearization
+    dp_norm_prev: torch.Tensor  # |dp| before the last iteration
+    g_tol: torch.Tensor         # gradient threshold, fixed at iteration 0
+    scale: torch.Tensor         # robust sigma
+    delta_scale: torch.Tensor   # its last change
+    H: torch.Tensor             # (6, 6) last Hessian
+    g: torch.Tensor             # (6,) last gradient
+    w: torch.Tensor             # (C, K) last IRLS weights
+    status: torch.Tensor        # int32 STATUS_* code
+    conv: torch.Tensor          # bool, a convergence test fired
+    ok: torch.Tensor            # bool, the last solve succeeded
+    flags: torch.Tensor         # (3,) bool: conv, ok, sigma still moving
+
+
+def _initial_state(T_init, C: int, K: int, dev) -> _LoopState:
+    f32 = torch.float32
+
+    def scalar(x, dtype=f32):   # filled on the device: no host copy
+        return torch.full((), x, dtype=dtype, device=dev)
+
+    T = T_init.to(device=dev, dtype=f32)
+    conv, ok = scalar(False, torch.bool), scalar(True, torch.bool)
+    return _LoopState(
+        T=T, T_best=T, f_best=scalar(float("inf")),
+        dp=torch.zeros(6, dtype=f32, device=dev), f_norm=scalar(0.0),
+        dp_norm_prev=scalar(0.0), g_tol=scalar(0.0), scale=scalar(1.0),
+        delta_scale=scalar(1e10), H=torch.eye(6, dtype=f32, device=dev),
+        g=torch.zeros(6, dtype=f32, device=dev),
+        w=torch.zeros(C, K, dtype=f32, device=dev),
+        status=scalar(STATUS_MAX_ITERATIONS, torch.int32), conv=conv, ok=ok,
+        flags=torch.stack([conv, ok, scalar(True, torch.bool)]))
+
+
+def _iteration(st: _LoopState, linearize_fn, s, c, opts: GNOptions,
+               first: bool, do_est: bool):
+    """One GN iteration from ``st`` (the loop body of ``gn.run``'s
+    ``lax.while_loop``, gauss_newton.py:492): linearize at T, test
+    convergence against the previous iteration's values (only the gradient
+    test on the first iteration), solve and update.  ``first`` and
+    ``do_est`` (sigma still moving) are host-static, as the branches they
+    pick.  Returns (new state, dp_new, g_norm)."""
+    H, g, f_new, sigma, delta_scale, w = linearize_fn(st.T, st.scale,
+                                                      st.delta_scale, do_est)
+    g_norm = torch.max(torch.abs(g))
+    dp_norm = torch.linalg.norm(st.dp)
+    if first:
+        # first-order-optimality threshold fixed from the first gradient
+        # (pose_estimator_base.h:341-343); only that test applies now
+        g_tol = opts.gradient_tolerance * torch.clamp(g_norm, min=_SQRT_EPS)
+        conv = g_norm < g_tol
+        status = torch.where(conv, STATUS_GRADIENT_TOL,
+                             STATUS_MAX_ITERATIONS).to(torch.int32)
+    else:
+        g_tol = st.g_tol
+        conv, status = _test_convergence(dp_norm, st.dp_norm_prev, g_norm,
+                                         f_new, st.f_norm, g_tol, opts)
+    dp_new, ok = linear_system.solve(H, g)
+    do_update = ~conv & ok
+    better = f_new < st.f_best
+    T_best = torch.where(better, st.T, st.T_best)
+    f_best = torch.where(better, f_new, st.f_best)
+    T = torch.where(do_update, st.T @ warp_mod.params_to_pose(-dp_new, s, c),
+                    st.T)
+    dp = torch.where(do_update, dp_new, st.dp)
+    status = torch.where(ok, status, STATUS_SOLVER_ERROR).to(torch.int32)
+    flags = torch.stack([conv, ok, _sigma_unstable(delta_scale, sigma, opts)])
+    return _LoopState(
+        T=T, T_best=T_best, f_best=f_best, dp=dp, f_norm=f_new,
+        dp_norm_prev=dp_norm, g_tol=g_tol, scale=sigma,
+        delta_scale=delta_scale, H=H, g=g, w=w, status=status, conv=conv,
+        ok=ok, flags=flags), dp_new, g_norm
+
+
+def _loop(advance, opts: GNOptions):
+    """The host loop: ``advance(it, do_est)`` runs iteration ``it`` and
+    returns its (3,) flags tensor, the loop's one read of the device per
+    iteration (converged, solver ok, and whether sigma is still moving).
+    Returns (iterations run, converged)."""
+    it, converged, solver_ok = 0, False, True
+    do_est = 1e10 > max(opts.scale_tolerance, opts.scale_tolerance_rel)
+    while not converged and solver_ok and it < opts.max_iterations:
+        converged, solver_ok, do_est = advance(it, do_est).tolist()
+        it += 1
+    return it, converged
+
+
+def _result(st: _LoopState, it: int, converged: bool,
+            copy: bool = False) -> GNState:
+    """The level's GNState: the best evaluated pose when the loop ended
+    unconverged at a higher cost.  ``copy`` clones what aliases ``st``."""
+    dev = st.T.device
+
+    def out(t):
+        return t.clone() if copy else t
+
+    T = (out(st.T) if converged
+         else torch.where(st.f_best < st.f_norm, st.T_best, st.T))
+    return GNState(T=T, f_norm=out(st.f_norm), g=out(st.g),
+                   scale=out(st.scale), weights=out(st.w), H=out(st.H),
+                   num_iters=torch.full((), it, dtype=torch.int32, device=dev),
+                   status=out(st.status), converged=out(st.conv),
+                   solver_ok=out(st.ok),
+                   band_overflow=torch.zeros((), dtype=torch.int32,
+                                             device=dev))
+
+
+def _default_linearize_fn(tdata, channels, cam, opts: GNOptions):
+    """RigidBody levels with LINEAR or COSINE sampling take the CUDA
+    kernels (their plain versions on the CPU), others the plain
+    ``_linearize``."""
+    if opts.warp == "RigidBody" and opts.interp in (
+            InterpolationType.LINEAR, InterpolationType.COSINE):
+        return _fused_linearize_fn(tdata, channels.contiguous(), cam, opts)
+
+    def linearize_fn(T, scale, delta_scale, do_est):
+        return _linearize(tdata, channels, cam, T, scale, delta_scale,
+                          do_est, opts)
+    return linearize_fn
+
+
+def run(tdata, channels, cam, T_init, opts: GNOptions, linearize_fn=None,
+        graphs=None) -> GNState:
     """GN from T_init until a convergence test fires, the solve fails or
     ``max_iterations`` are spent; falls back to the best evaluated pose
     when it ends unconverged at a higher cost.
 
     Iteration i linearizes at T_i, tests convergence against iteration
     i-1's values (only the gradient test on the first iteration), then
-    solves and updates.  ``linearize_fn(T, scale, delta_scale, do_est) ->
-    (H, g, f, sigma, delta_scale, w)`` may replace the linearization; the
-    host bool ``do_est`` says whether sigma is still moving.  By default
-    RigidBody levels with LINEAR or COSINE sampling take the CUDA kernels
-    (their plain versions on the CPU), others the plain ``_linearize``.
+    solves and updates (``_iteration``).  ``linearize_fn(T, scale,
+    delta_scale, do_est) -> (H, g, f, sigma, delta_scale, w)`` may replace
+    the linearization; the host bool ``do_est`` says whether sigma is still
+    moving.  By default RigidBody levels with LINEAR or COSINE sampling take
+    the CUDA kernels (their plain versions on the CPU), others the plain
+    ``_linearize``.
+
+    ``graphs`` (a ``RunGraphs``, held per level by the caller) replays each
+    iteration from a CUDA graph; without it every op is issued from here.
+    Verbose runs and ``max_iterations == 0`` issue every op whatever
+    ``graphs`` is: a static route choice, as ``level_kernel_supported``.
     """
-    f32 = torch.float32
-    dev = channels.device
+    if graphs is not None and not opts.verbose and opts.max_iterations > 0:
+        if linearize_fn is not None:
+            raise ValueError("gauss_newton.run: a custom linearize_fn has no "
+                             "graphed route; pass graphs=None")
+        return graphs.run(tdata, channels, cam, T_init, opts)
     C, K = tdata.pixels.shape
     s, c = tdata.norm_scale, tdata.norm_center
     if linearize_fn is None:
-        if opts.warp == "RigidBody" and opts.interp in (
-                InterpolationType.LINEAR, InterpolationType.COSINE):
-            linearize_fn = _fused_linearize_fn(tdata, channels.contiguous(),
-                                               cam, opts)
-        else:
-            def linearize_fn(T, scale, delta_scale, do_est):
-                return _linearize(tdata, channels, cam, T, scale, delta_scale,
-                                  do_est, opts)
+        linearize_fn = _default_linearize_fn(tdata, channels, cam, opts)
+    st = _initial_state(T_init, C, K, channels.device)
 
-    def scalar(x, dtype=f32):   # filled on the device: no host copy
-        return torch.full((), x, dtype=dtype, device=dev)
-
-    T = T_init.to(device=dev, dtype=f32)
-    T_best = T
-    dp = torch.zeros(6, dtype=f32, device=dev)
-    f_norm, dp_norm_prev, g_tol = scalar(0.0), scalar(0.0), scalar(0.0)
-    f_best = scalar(float("inf"))
-    scale, delta_scale = scalar(1.0), scalar(1e10)
-    g = torch.zeros(6, dtype=f32, device=dev)
-    w = torch.zeros(C, K, dtype=f32, device=dev)
-    H = torch.eye(6, dtype=f32, device=dev)
-    status = scalar(STATUS_MAX_ITERATIONS, torch.int32)
-    conv, ok = scalar(False, torch.bool), scalar(True, torch.bool)
-    it, converged, solver_ok = 0, False, True
-    do_est = 1e10 > max(opts.scale_tolerance, opts.scale_tolerance_rel)
-    while not converged and solver_ok and it < opts.max_iterations:
-        H, g, f_new, sigma, delta_scale, w = linearize_fn(T, scale,
-                                                          delta_scale, do_est)
-        g_norm = torch.max(torch.abs(g))
-        dp_norm = torch.linalg.norm(dp)
-        if it == 0:
-            # first-order-optimality threshold fixed from the first gradient
-            # (pose_estimator_base.h:341-343); only that test applies now
-            g_tol = opts.gradient_tolerance * torch.clamp(g_norm,
-                                                          min=_SQRT_EPS)
-            conv = g_norm < g_tol
-            status = torch.where(conv, STATUS_GRADIENT_TOL,
-                                 STATUS_MAX_ITERATIONS).to(torch.int32)
-        else:
-            conv, status = _test_convergence(dp_norm, dp_norm_prev, g_norm,
-                                             f_new, f_norm, g_tol, opts)
-        dp_new, ok = linear_system.solve(H, g)
-        do_update = ~conv & ok
-        better = f_new < f_best
-        T_best = torch.where(better, T, T_best)
-        f_best = torch.where(better, f_new, f_best)
-        T = torch.where(do_update, T @ warp_mod.params_to_pose(-dp_new, s, c),
-                        T)
-        dp = torch.where(do_update, dp_new, dp)
-        status = torch.where(ok, status, STATUS_SOLVER_ERROR).to(torch.int32)
-        f_norm, dp_norm_prev, scale = f_new, dp_norm, sigma
-        # the loop's one read of the device per iteration
-        flags = torch.stack([conv, ok, _sigma_unstable(delta_scale, scale,
-                                                       opts)]).tolist()
-        converged, solver_ok, do_est = flags
+    def advance(it, do_est):
+        nonlocal st
+        st, dp_new, g_norm = _iteration(st, linearize_fn, s, c, opts,
+                                        it == 0, do_est)
         if opts.verbose:
             f_, g_, dp_, s_ = torch.stack([
-                f_new, g_norm, torch.linalg.norm(dp_new), sigma]).tolist()
+                st.f_norm, g_norm, torch.linalg.norm(dp_new),
+                st.scale]).tolist()
             print(f"  it {it}  |F|={f_:.6g}  |G|={g_:.4g}  |dp|={dp_:.4g}  "
                   f"sigma={s_:.4g}")
-        it += 1
-    if not converged:
-        T = torch.where(f_best < f_norm, T_best, T)
-    return GNState(T=T, f_norm=f_norm, g=g, scale=scale, weights=w, H=H,
-                   num_iters=scalar(it, torch.int32), status=status,
-                   converged=conv, solver_ok=ok,
-                   band_overflow=scalar(0, torch.int32))
+        return st.flags
+
+    it, converged = _loop(advance, opts)
+    return _result(st, it, converged)
+
+
+class RunGraphs:
+    """One level's ``run`` iterations as CUDA graphs (the counterpart of
+    jitting ``gn.run``'s ``lax.while_loop`` body): a graph for each
+    (first iteration, sigma re-estimated, options, camera), at most 4 per
+    level, over static copies of the level's template, channels and T_init
+    and over the loop state, which each replay updates in place.  Each
+    iteration is then one replay and the loop's one read of its flags.
+
+    Held per level by whatever owns the level's buffers (``PoseEstimator``,
+    ``DeviceVO``); the level's shapes are fixed at the first run.  The
+    template is copied in when a run brings another template object, the
+    channels and T_init on every run.  ``cache`` is the ``GraphCache``
+    (default: one on the channels' device)."""
+
+    def __init__(self, cache=None):
+        self._cache = cache
+        self._td_src = None
+        self._td = self._channels = self._T_in = self._st = None
+
+    def _load(self, tdata, channels, T_init):
+        if self._td is None:
+            self._td = td_mod.TemplateData(*(t.clone() for t in tdata))
+            self._channels = channels.contiguous().clone()
+            self._T_in = T_init.to(torch.float32).clone()
+            C, K = tdata.pixels.shape
+            # every field its own buffer: the initial state shares T
+            # between T, T_best and T_init
+            self._st = _LoopState(*(t.clone() for t in _initial_state(
+                self._T_in, C, K, channels.device)))
+        else:
+            if (tuple(channels.shape) != tuple(self._channels.shape)
+                    or any(a.shape != b.shape
+                           for a, b in zip(tdata, self._td))):
+                raise ValueError(
+                    "gauss_newton.RunGraphs: a level's shapes are fixed at "
+                    f"its first run (channels {tuple(self._channels.shape)},"
+                    f" got {tuple(channels.shape)})")
+            if tdata is not self._td_src:
+                for dst, src in zip(self._td, tdata):
+                    dst.copy_(src)
+            self._channels.copy_(channels)
+            self._T_in.copy_(T_init)
+        self._td_src = tdata
+
+    def run(self, tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
+        """``gauss_newton.run`` with each iteration replayed; bitwise its
+        result.  The returned state owns its tensors."""
+        if self._cache is None:
+            from bpvo_tpu_torch.utils import graphs
+            self._cache = graphs.GraphCache(channels.device)
+        self._load(tdata, channels, T_init)
+        td, st = self._td, self._st
+        C, K = td.pixels.shape
+        dev = self._channels.device
+
+        def body(first, do_est):
+            def fn():
+                lin = _default_linearize_fn(td, self._channels, cam, opts)
+                start = (_initial_state(self._T_in, C, K, dev) if first
+                         else st)
+                new = _iteration(start, lin, td.norm_scale, td.norm_center,
+                                 opts, first, do_est)[0]
+                for dst, src in zip(st, new):
+                    dst.copy_(src)
+                return st.flags
+            return fn
+
+        def advance(it, do_est):
+            first = it == 0
+            return self._cache((first, do_est, opts, cam), body(first,
+                                                                do_est))
+
+        it, converged = _loop(advance, opts)
+        return _result(st, it, converged, copy=True)
 
 
 def fraction_of_good_points(weights, num_channels, num_valid, threshold):

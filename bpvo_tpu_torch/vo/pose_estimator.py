@@ -2,10 +2,12 @@
 ``bpvo_tpu/vo/pose_estimator.py``; reference vo_pose_estimator.cc:63-107).
 
 Each level is solved by ``gauss_newton.solve_level``: the one-launch level
-kernel on levels it takes, ``gauss_newton.run`` on the others.  The level
-chain stays on the device; ``PoseEstimator.estimate`` reads its results back
-in one copy.  Levenberg-Marquardt and the ``coarseInitOffsetPx``
-multi-start are not ported yet.
+kernel on levels it takes, ``gauss_newton.run`` on the others, whose
+iterations ``PoseEstimator`` replays from CUDA graphs on CUDA (one
+``gauss_newton.RunGraphs`` per level).  The level chain stays on the
+device; ``PoseEstimator.estimate`` reads its results back in one copy.
+Levenberg-Marquardt and the ``coarseInitOffsetPx`` multi-start are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -49,10 +51,12 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
                   max_test_level: int, good_threshold: float,
                   min_points: int = 0, solver: str = "GaussNewton",
                   start_level: int = -1, alt_init=None,
-                  multistart_px: float = 0.0):
+                  multistart_px: float = 0.0, run_graphs=None):
     """Coarse-to-fine estimation from ``start_level`` (default: coarsest)
     down to ``max_test_level``.  ``alt_init`` is taken instead of ``T_init``
     when its photometric cost at the start level is not higher.
+    ``run_graphs`` (one ``gauss_newton.RunGraphs`` per level) replays the
+    iterations of levels that take ``gauss_newton.run``.
 
     Returns (T, iters (L,), f_norm (L,), g (L, 6), status (L,), frac_good,
     H (6,6), finest weights, band_overflow ()), all on the device; levels
@@ -79,7 +83,8 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
     finest = None
     for level in range(start_level, max_test_level - 1, -1):
         st = gn.solve_level(templates[level], channels[level], cams[level], T,
-                            opts_per_level[level])
+                            opts_per_level[level],
+                            graphs=run_graphs and run_graphs[level])
         enough = templates[level].num_valid >= min_points
         T = torch.where(enough, st.T, T)
         iters[level] = torch.where(enough, st.num_iters, 0).to(torch.int32)
@@ -101,6 +106,15 @@ class PoseEstimator:
         self._last_weights = None
         self._last_H = None
         self._last_frac = 1.0
+        self._run_graphs = None
+
+    def _level_graphs(self, channels_pyr):
+        """One ``gauss_newton.RunGraphs`` per level on CUDA (the graphed
+        route of ``gauss_newton.run``), None on the CPU."""
+        if self._run_graphs is None and channels_pyr[0].device.type == "cuda":
+            self._run_graphs = tuple(gn.RunGraphs()
+                                     for _ in range(len(channels_pyr)))
+        return self._run_graphs
 
     def _opts_for(self, n_levels: int):
         return tuple(self._fine_opts if lvl == self._p.maxTestLevel
@@ -121,7 +135,7 @@ class PoseEstimator:
             tuple(templates), tuple(channels_pyr), tuple(cams), T_init,
             self._opts_for(n_levels), p.maxTestLevel, p.goodPointThreshold,
             _MIN_POINTS_PER_LEVEL, p.poseEstimator, start_level, alt_init,
-            multistart_px)
+            multistart_px, self._level_graphs(channels_pyr))
         self._last_weights = w
         # one device -> host copy of everything the host reads
         host = torch.cat([T.reshape(-1), H.reshape(-1), g.reshape(-1),

@@ -76,7 +76,7 @@ def normalization_matrix(s, c):
     s = torch.as_tensor(s, dtype=torch.float32)
     c = torch.as_tensor(c, dtype=torch.float32, device=s.device)
     T = torch.eye(4, dtype=torch.float32, device=s.device) * s
-    T[3, 3] = 1.0
+    T[3, 3].fill_(1.0)   # a kernel: no host copy, so capturable
     T[:3, 3] = -s * c
     return T
 

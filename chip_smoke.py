@@ -14,11 +14,14 @@
    also as a CUDA-graph replay, its device time); each level prints the
    kernel's cluster size (CTAs), iterations and device us per iteration.
 3. Intensity VO phase: ``DeviceVO(device="cuda")`` over 1+30 frames with
-   bench.py's intensity settings.  Every pose must be finite, within the
-   ground-truth bound of the known per-frame motion, and within atol 5e-4 of
-   the JAX package's poses (tests/data/torch_port_bench_ref.npz), with the
-   same keyframes and per-level iterations within 1 of the reference's; the
-   kernel's launch count must equal the number of level solves run.
+   bench.py's intensity settings, through ``add_frame`` (the graphed route:
+   the step up to its keyframe decision replayed from a CUDA graph, the
+   replays counted as their kernel launches).  Every pose must be finite,
+   within the ground-truth bound of the known per-frame motion, and within
+   atol 5e-4 of the JAX package's poses
+   (tests/data/torch_port_bench_ref.npz), with the same keyframes and
+   per-level iterations within 1 of the reference's; the kernel's launch
+   count must equal the number of level solves run.
 4. Stereo kernel phase, on frame 0 of the stereo pair of the same scene:
    the ``census_planes`` kernel against its plain version at 376x1241 and
    the SGM aggregation kernel (and each of its two passes, whose device
@@ -63,8 +66,18 @@
    launches: fused_linearize = gauss_newton.run iterations (+ one sigma pass
    per sigma re-estimate at C=8), irls_reduce = sigma re-estimates at C=1,
    level_gn = the L2 and L3 solves, each > 0.
-
-9. Probe phase (``bpvo_tpu_torch.probes``, the GPU counterparts of the JAX
+   ``VisualOdometry.add_frame`` replays each ``gauss_newton.run``
+   iteration from a CUDA graph; the sigma re-estimates are counted in its
+   host loop (``gauss_newton._loop``).
+9. Graph phase: each of the four VO paths eager and graphed in this
+   process (the graphed route is the entry point; the eager one is
+   ``DeviceVO``'s step function, or ``VisualOdometry`` with its pose
+   estimator's graphs withheld), each route once to warm up, once timed
+   and once under torch.profiler: poses, iterations and keyframes must be
+   bitwise equal; per route it prints p50/p90 ms of keyframe and other
+   steps and the top-level host ops per step (a graph replay counted as
+   one op), and one JSON line with those numbers.
+10. Probe phase (``bpvo_tpu_torch.probes``, the GPU counterparts of the JAX
    package's Mosaic probe scripts): with its launch counts set to 0, the
    probe runner's four groups run once (its main path).  Its steps hold
    every probe kernel and variant against its plain version on the card
@@ -144,6 +157,7 @@ KERNEL_REPS, PLAIN_REPS = 50, 3
 # residuals by the same sigma
 GN_RTOL, GN_W_ATOL = 1e-4, 1e-6
 GN_PER_GRAPH = 10        # calls per CUDA graph when the GN kernels are replayed
+STEP_LABEL = "vo_step_"  # the profiler label of a step in the graph phase
 # dense VO: bench.py's settings, NMS off (as conf/tunnel.cfg), and a point
 # capacity every level fills: 131072/32768/8192/2048 points
 BENCH = dict(minSaliency=2.0, numPyramidLevels=4, functionTolerance=1e-4,
@@ -635,7 +649,6 @@ def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
     from bpvo_tpu_torch.core import se3
     from bpvo_tpu_torch.data import synthetic
     from bpvo_tpu_torch.solver import gauss_newton as gn
-    from bpvo_tpu_torch.solver import mestimator
 
     images = [torch.as_tensor(f[0]).to(dev) for f in frames]
     disps = [torch.as_tensor(f[1]).to(dev) for f in frames]
@@ -655,27 +668,31 @@ def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
 
     torch.cuda.synchronize()
     one_pass()                          # warm-up: first-use costs of each op
-    # what the launch counts must equal: gauss_newton.run's iterations and
-    # its sigma re-estimates (device scalars, summed after the run)
+    # what the launch counts must equal: gauss_newton.run's iterations
+    # (device scalars, summed after the run) and its sigma re-estimates
+    # (the iterations its host loop runs with sigma still moving, replayed
+    # or not)
     run_iters, n_est = [], [0]
-    run, estimate_scale = gn.run, mestimator.estimate_scale
+    run, loop = gn.run, gn._loop
 
     def counted_run(*a, **k):
         st = run(*a, **k)
         run_iters.append(st.num_iters)
         return st
 
-    def counted_estimate_scale(*a, **k):
-        n_est[0] += 1
-        return estimate_scale(*a, **k)
+    def counted_loop(advance, opts):
+        def counted(it, do_est):
+            n_est[0] += bool(do_est)
+            return advance(it, do_est)
+        return loop(counted, opts)
 
-    gn.run, mestimator.estimate_scale = counted_run, counted_estimate_scale
+    gn.run, gn._loop = counted_run, counted_loop
     try:
         _reset_counts()
         vo, res, t_ms = one_pass()
         counts = _counts()
     finally:
-        gn.run, mestimator.estimate_scale = run, estimate_scale
+        gn.run, gn._loop = run, loop
     iters_run = int(torch.stack(run_iters).sum())
 
     poses = np.stack([r.pose for r in res]).astype(np.float32)
@@ -727,6 +744,138 @@ def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
                  f"expected {n}")
     return counts, len(res) / (t_ms.sum() / 1e3), float(
         np.percentile(t_ms, 50)), float(np.percentile(t_ms, 90))
+
+
+def _host_ops(run_step, n):
+    """Top-level host ops of each of ``n`` steps (``run_step(i)``), counted
+    as scripts/profile_torch_vo.py counts them: the ops torch.profiler
+    records directly under the step's label, plus one for each CUDA-graph
+    replay in the step (a replay is no PyTorch op)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from bpvo_tpu_torch.utils import graphs
+    replays = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(n):
+            r0 = graphs.replay_count
+            with record_function(f"{STEP_LABEL}{i}"):
+                run_step(i)
+            replays.append(graphs.replay_count - r0)
+    steps = {e.name: e for e in prof.events()
+             if e.name.startswith(STEP_LABEL)}
+    return [len(steps[f"{STEP_LABEL}{i}"].cpu_children) + replays[i]
+            for i in range(n)]
+
+
+def graph_phase(name, make_vo, frames, dev, smi):
+    """One VO path, eager and graphed, in this process: each route once to
+    warm up (the graphs' captures), once timed (host clock, each step
+    ending in a sync) and once under torch.profiler for its host ops per
+    step.  The graphed route is
+    the entry point (``add_frame``); the eager one is ``DeviceVO``'s step
+    function, or ``VisualOdometry`` with its pose estimator's graphs
+    withheld.  Poses, iterations and keyframes must be equal bit for bit.
+    Returns {route: {"p50_ms", "p90_ms", "kf_p50_ms", "kf_p90_ms",
+    "other_p50_ms", "other_p90_ms", "host_ops_other", "host_ops_kf"}}."""
+    import numpy as np
+    import torch
+    from bpvo_tpu_torch import VisualOdometry
+
+    images = [torch.as_tensor(f[0]).to(dev) for f in frames]
+    auxs = [torch.as_tensor(f[1]).to(dev) for f in frames]
+    n = len(images) - 1
+
+    def summary(out):
+        """(poses, iterations, keyframe flag) of a step's output."""
+        if isinstance(out, tuple):      # a VOStepOutput
+            return (torch.cat([out.pose.reshape(-1),
+                               out.pose_world.reshape(-1),
+                               out.f_norm]).cpu().numpy(),
+                    out.iters.cpu().numpy(), bool(out.is_keyframe))
+        return (np.asarray(out.pose), np.array(
+            [st.num_iterations for st in out.optimizer_statistics]),
+            bool(out.is_keyframe))
+
+    def route(graphed):
+        vo = make_vo()
+        if isinstance(vo, VisualOdometry):
+            holder = [vo]
+
+            def reset():
+                # a new VisualOdometry (it has no reset) that takes over
+                # the run graphs its predecessor captured, as one object
+                # running on would hold them
+                run_graphs = holder[0]._pose_estimator._run_graphs
+                holder[0] = make_vo()
+                if graphed:
+                    holder[0]._pose_estimator._run_graphs = run_graphs
+                else:
+                    holder[0]._pose_estimator._level_graphs = (
+                        lambda channels_pyr: None)
+                holder[0].add_frame(images[0], auxs[0])
+
+            def step(i):
+                return holder[0].add_frame(images[i + 1], auxs[i + 1])
+        else:
+            state = [None]
+
+            def reset():
+                vo.state = None
+                vo.add_frame(images[0], auxs[0])
+                state[0] = vo.state
+
+            def step(i):
+                if graphed:
+                    return vo.add_frame(images[i + 1], auxs[i + 1])
+                state[0], out = vo._step(state[0], images[i + 1],
+                                         auxs[i + 1])
+                return out
+        runs = []
+        for _ in range(2):              # warm-up, then the timed pass
+            reset()
+            torch.cuda.synchronize()
+            outs, t_ms = [], []
+            for i in range(n):
+                t0 = time.perf_counter()
+                outs.append(step(i))
+                torch.cuda.synchronize()
+                t_ms.append((time.perf_counter() - t0) * 1e3)
+            runs.append(([summary(o) for o in outs], np.array(t_ms)))
+        reset()
+        torch.cuda.synchronize()
+        ops = np.array(_host_ops(step, n))
+        return runs[1], ops
+
+    (res_e, t_e), ops_e = route(False)
+    (res_g, t_g), ops_g = route(True)
+    kf = np.array([r[2] for r in res_e])
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               and a[2] == b[2] for a, b in zip(res_e, res_g))
+    out = {}
+    for label, t_ms, ops in (("eager", t_e, ops_e), ("graphed", t_g, ops_g)):
+        r = {"p50_ms": float(np.percentile(t_ms, 50)),
+             "p90_ms": float(np.percentile(t_ms, 90))}
+        for part, sel in (("kf", kf), ("other", ~kf)):
+            if sel.any():
+                r[f"{part}_p50_ms"] = float(np.percentile(t_ms[sel], 50))
+                r[f"{part}_p90_ms"] = float(np.percentile(t_ms[sel], 90))
+                r[f"host_ops_{part}"] = float(np.median(ops[sel]))
+        out[label] = r
+        print(f"graph phase {name} {label}: per-frame ms p50 "
+              f"{r['p50_ms']:.3f} p90 {r['p90_ms']:.3f}; keyframe steps p50 "
+              f"{r.get('kf_p50_ms', math.nan):.3f} p90 "
+              f"{r.get('kf_p90_ms', math.nan):.3f}; others p50 "
+              f"{r.get('other_p50_ms', math.nan):.3f} p90 "
+              f"{r.get('other_p90_ms', math.nan):.3f}; top-level host ops "
+              f"per other step {r.get('host_ops_other', math.nan):.0f}, per "
+              f"keyframe step {r.get('host_ops_kf', math.nan):.0f} on {smi}")
+    print(f"graph phase {name}: {n} steps, {int(kf.sum())} keyframes; "
+          f"graphed and eager poses, iterations and keyframes bitwise equal: "
+          f"{same}")
+    _require(same, f"graph phase {name}: the graphed route differs from the "
+                   f"eager one")
+    _require(kf.any() and not kf.all(),
+             f"graph phase {name}: {int(kf.sum())} keyframes in {n} steps")
+    return out
 
 
 def census_phase(left, dev):
@@ -1101,6 +1250,26 @@ def main() -> int:
               f"{p50_d:.3f} ms p90 {p90_d:.3f} ms on {smi}")
     _require(dense["intensity"]["irls_reduce"] > 0,
              "irls_reduce never launched on the dense intensity path")
+
+    # the compiled step: each VO path eager and graphed, bitwise equal
+    from bpvo_tpu_torch import VisualOdometry
+    dframes = [f[0::2] for f in sframes]
+    graph_res = {
+        "intensity": graph_phase(
+            "intensity", lambda: DeviceVO(K, baseline, shape, params,
+                                          device=dev), dframes, dev, smi),
+        "stereo_bitplanes": graph_phase(
+            "stereo Bit-Planes", lambda: DeviceVO(
+                K, baseline, shape, params_bp, device=dev,
+                stereo_fn=matcher.as_fn()), [f[:2] for f in sframes], dev,
+            smi)}
+    for name, desc in (("intensity", DescriptorType.INTENSITY),
+                       ("bitplanes", DescriptorType.BITPLANES)):
+        graph_res[f"dense_{name}"] = graph_phase(
+            f"dense {name}", lambda desc=desc: VisualOdometry(
+                K, baseline, shape, _dense_params(desc), device=dev),
+            dframes, dev, smi)
+    print(json.dumps({"graph_phase": graph_res}))
 
     probe_entries = probe_phase(dev, smi)
 

@@ -2,6 +2,7 @@
 
     python3 scripts/profile_torch_vo.py [--config intensity|stereo-bitplanes|
         dense-intensity|dense-bitplanes] [--steps 30] [--trace out.json]
+        [--root DIR]
 
 Runs VO on the card over 1+steps frames of the synthetic 376x1241 sequence:
 ``DeviceVO(device="cuda")`` with bench.py's intensity settings
@@ -12,15 +13,23 @@ bench.py's settings, non-maxima suppression off and pointCapacity 131072
 (dense VO: L0 and L1 through ``gauss_newton.run``), intensity or Bit-Planes
 (``dense-intensity``, ``dense-bitplanes``):
 
-1. two untraced passes (the first pays first-use costs), each printing
-   frames/s and per-frame p50/p90 ms on the host clock, also for keyframe
-   and other steps apart;
+1. two untraced passes (the first pays first-use costs, the CUDA-graph
+   captures among them), each printing frames/s and per-frame p50/p90 ms
+   on the host clock, also for keyframe and other steps apart;
 2. one pass under ``torch.profiler`` (CPU + CUDA activities), printing the
    ops by device time, the device busy share (union of the device events'
    intervals over the pass's wall time), each hand-written kernel's
    (``level_gn``, ``census``, ``sgm``, ``fused_linearize``,
    ``irls_reduce``) device total and launches, and the top-level host ops
-   issued per step.
+   issued per step (a CUDA-graph replay, which torch.profiler records as no
+   op, counted as one).
+
+Every pass starts from the first frame on a VO that keeps what earlier
+passes built, as a long-running process does: the same ``DeviceVO`` with
+its state reset (its step graphs stay), or a new ``VisualOdometry`` (it has
+no reset) that takes over the previous one's ``gauss_newton.run`` graphs.
+``--root DIR`` profiles the package of another checkout (a parent commit
+unpacked under ``build/`` with ``git archive``) with this script.
 
 Imports no JAX.  Times are only comparable inside one run.
 """
@@ -36,19 +45,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from bpvo_tpu_torch import (AlgorithmParameters, ConfigFile,  # noqa: E402
-                            DescriptorType, VisualOdometry)
-from bpvo_tpu_torch.data import stereo, synthetic  # noqa: E402
-from bpvo_tpu_torch.vo.device_vo import DeviceVO  # noqa: E402
-
-CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "conf", "kitti_bitplanes.cfg")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONF = os.path.join(ROOT, "conf", "kitti_bitplanes.cfg")
 KERNELS = ("level_gn", "census", "sgm", "fused_linearize", "irls_reduce")
 
 BENCH_PARAMS = dict(minSaliency=2.0, numPyramidLevels=4,
-                    descriptor=DescriptorType.INTENSITY,
                     functionTolerance=1e-4, parameterTolerance=1e-6,
                     maxIterations=50)
 DENSE = dict(minNumPixelsForNonMaximaSuppression=20000000,
@@ -76,17 +77,33 @@ def main(argv=None) -> int:
                     default="intensity")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--trace", help="write a Chrome trace of the profiled pass")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose bpvo_tpu_torch is profiled")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_vo: no CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    from bpvo_tpu_torch import (AlgorithmParameters, ConfigFile,
+                                DescriptorType, VisualOdometry)
+    from bpvo_tpu_torch.data import stereo, synthetic
+    from bpvo_tpu_torch.vo.device_vo import DeviceVO
+    try:
+        from bpvo_tpu_torch.utils import graphs
+    except ImportError:         # a checkout from before the CUDA graphs
+        graphs = None
+
+    def replays():
+        return graphs.replay_count if graphs else 0
+
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
     if args.config == "intensity":
         K, b, frames = synthetic.synthesize_sequence(1 + args.steps)
-        params, stereo_fn = AlgorithmParameters(**BENCH_PARAMS), None
+        params, stereo_fn = AlgorithmParameters(
+            **BENCH_PARAMS, descriptor=DescriptorType.INTENSITY), None
     elif args.config.startswith("dense"):
         K, b, frames = synthetic.synthesize_sequence(1 + args.steps)
         params, stereo_fn = AlgorithmParameters(**dict(
@@ -98,23 +115,33 @@ def main(argv=None) -> int:
         cf = ConfigFile(CONF)
         params = AlgorithmParameters.from_config(cf)
         stereo_fn = stereo.create_stereo_algorithm(cf).as_fn()
-    print(f"config {args.config}")
+    print(f"config {args.config}, package {os.path.abspath(args.root)}")
     images = [torch.as_tensor(f[0]).to(dev) for f in frames]
     disps = [torch.as_tensor(f[1]).to(dev) for f in frames]
+    shape = (synthetic.ROWS, synthetic.COLS)
+    held = [None]
 
-    def fresh_vo():
+    def start_pass():
+        """The first frame, on a VO that keeps what earlier passes built
+        (see the module docstring)."""
+        prev = held[0]
         if args.config.startswith("dense"):
-            vo = VisualOdometry(K, b, (synthetic.ROWS, synthetic.COLS),
-                                params, device=dev)
+            vo = VisualOdometry(K, b, shape, params, device=dev)
+            run_graphs = getattr(prev and prev._pose_estimator,
+                                 "_run_graphs", None)
+            if run_graphs is not None:
+                vo._pose_estimator._run_graphs = run_graphs
         else:
-            vo = DeviceVO(K, b, (synthetic.ROWS, synthetic.COLS), params,
-                          device=dev, stereo_fn=stereo_fn)
+            vo = prev or DeviceVO(K, b, shape, params, device=dev,
+                                  stereo_fn=stereo_fn)
+            vo.state = None
         vo.add_frame(images[0], disps[0])
         torch.cuda.synchronize()
+        held[0] = vo
         return vo
 
     for rep in range(2):
-        vo = fresh_vo()
+        vo = start_pass()
         t_ms, kf = [], []
         for image, disp in zip(images[1:], disps[1:]):
             t0 = time.perf_counter()
@@ -132,14 +159,16 @@ def main(argv=None) -> int:
               f"{np.percentile(t_ms, 90):.3f} ms;{split}; {int(kf.sum())} "
               f"keyframes")
 
-    vo = fresh_vo()
-    kf = []
+    vo = start_pass()
+    kf, n_replays = [], []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i, (image, disp) in enumerate(zip(images[1:], disps[1:])):
+            r0 = replays()
             with record_function(f"{STEP_LABEL}{i}"):
                 kf.append(bool(vo.add_frame(image, disp).is_keyframe))
+            n_replays.append(replays() - r0)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -170,13 +199,14 @@ def main(argv=None) -> int:
     steps = {e.name: e for e in events if e.name.startswith(STEP_LABEL)
              and e.device_type == torch.autograd.DeviceType.CPU}
     n_ops = np.array([len(steps[f"{STEP_LABEL}{i}"].cpu_children)
-                      for i in range(len(kf))])
+                      + n_replays[i] for i in range(len(kf))])
     kf = np.array(kf)
     for name, sel in (("keyframe", kf), ("other", ~kf)):
         if sel.any():
             print(f"top-level host ops per {name} step: median "
                   f"{np.median(n_ops[sel]):.0f} (min {n_ops[sel].min()}, "
-                  f"max {n_ops[sel].max()})")
+                  f"max {n_ops[sel].max()}; CUDA-graph replays in them: "
+                  f"median {np.median(np.array(n_replays)[sel]):.0f})")
     if args.trace:
         prof.export_chrome_trace(args.trace)
     return 0
