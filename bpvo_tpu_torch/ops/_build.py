@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -23,6 +24,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib = None
+_lib_lock = threading.Lock()
+# held while a wrapper adds to its module's ``launch_count`` and while a CUDA
+# graph is captured (``utils.graphs``): a launch another thread counts then
+# is added after the capture, never taken for one of the graph's
+count_lock = threading.RLock()
 # completion-ticket counters of the one-launch GN kernels, per device index:
 # (zeroed int32 slab of TICKET_SLOTS counters, {stream handle: slot})
 TICKET_SLOTS = 1024
@@ -176,42 +182,48 @@ def bind_gn(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use in this process."""
+    """The kernels' shared library, built on first use in this process
+    (once, whichever threads ask for it)."""
     global _lib
-    if _lib is None:
-        compile_library()
-        lib = ctypes.CDLL(str(library_path()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.bpvo_level_gn.argtypes = ([p] * 14 + [i] * 4 + [f] * 6 + [i] * 3
-                                      + [f] * 5 + [p])
-        lib.bpvo_level_gn.restype = i
-        lib.bpvo_level_gn_ctas.argtypes = [i]
-        lib.bpvo_level_gn_ctas.restype = i
-        lib.bpvo_cuda_error_string.argtypes = [i]
-        lib.bpvo_cuda_error_string.restype = ctypes.c_char_p
-        lib.bpvo_census_planes.argtypes = [p, p, i, i, p]
-        lib.bpvo_census_planes.restype = i
-        bind_sgm(lib)
-        bind_gn(lib)
-        # the microbenchmarks of bpvo_tpu_torch/probes
-        for name, args in (
-                ("while_cta", [p, p, i, i, p]),
-                ("while_cluster", [p, p, i, i, i, p]),
-                ("while_grid_ctas", []),
-                ("while_grid", [p, p, i, i, p, p]),
-                ("scalar_chain", [p, p, p]),
-                ("matmul_chain", [p, p, p, i, f, p]),
-                ("take_global", [p, p, p, i, i, i, p]),
-                ("take_smem", [p, p, p, i, i, i, p]),
-                ("take_dsmem", [p, p, p, i, i, i, p]),
-                ("take_dsmem_clusters", [i, p]),
-                ("band_bilinear", [p, p, p, p, i, i, i, i, i, p]),
-                ("band_static_slice", [p, i, i, i, p, p]),
-                ("band_dyn_slice", [p, i, p, i, i, i, p, p]),
-                ("band_onehot", [p, i, p, p]),
-                ("band_onehot_matmul", [p, p, i, p, p]),
-                ("band_rowweight", [p, p, i, i, p, p])):
-            fn = getattr(lib, "bpvo_probe_" + name)
-            fn.argtypes, fn.restype = args, i
-        _lib = lib
+    with _lib_lock:
+        return _lib if _lib is not None else _load_library()
+
+
+def _load_library() -> ctypes.CDLL:
+    global _lib
+    compile_library()
+    lib = ctypes.CDLL(str(library_path()))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bpvo_level_gn.argtypes = ([p] * 14 + [i] * 4 + [f] * 6 + [i] * 3
+                                  + [f] * 5 + [p])
+    lib.bpvo_level_gn.restype = i
+    lib.bpvo_level_gn_ctas.argtypes = [i]
+    lib.bpvo_level_gn_ctas.restype = i
+    lib.bpvo_cuda_error_string.argtypes = [i]
+    lib.bpvo_cuda_error_string.restype = ctypes.c_char_p
+    lib.bpvo_census_planes.argtypes = [p, p, i, i, p]
+    lib.bpvo_census_planes.restype = i
+    bind_sgm(lib)
+    bind_gn(lib)
+    # the microbenchmarks of bpvo_tpu_torch/probes
+    for name, args in (
+            ("while_cta", [p, p, i, i, p]),
+            ("while_cluster", [p, p, i, i, i, p]),
+            ("while_grid_ctas", []),
+            ("while_grid", [p, p, i, i, p, p]),
+            ("scalar_chain", [p, p, p]),
+            ("matmul_chain", [p, p, p, i, f, p]),
+            ("take_global", [p, p, p, i, i, i, p]),
+            ("take_smem", [p, p, p, i, i, i, p]),
+            ("take_dsmem", [p, p, p, i, i, i, p]),
+            ("take_dsmem_clusters", [i, p]),
+            ("band_bilinear", [p, p, p, p, i, i, i, i, i, p]),
+            ("band_static_slice", [p, i, i, i, p, p]),
+            ("band_dyn_slice", [p, i, p, i, i, i, p, p]),
+            ("band_onehot", [p, i, p, p]),
+            ("band_onehot_matmul", [p, p, i, p, p]),
+            ("band_rowweight", [p, p, i, i, p, p])):
+        fn = getattr(lib, "bpvo_probe_" + name)
+        fn.argtypes, fn.restype = args, i
+    _lib = lib
     return _lib

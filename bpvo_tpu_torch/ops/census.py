@@ -67,7 +67,8 @@ def census_planes(I):
         rc = lib.bpvo_census_planes(ptr(src[n].data_ptr()),
                                     ptr(out[n].data_ptr()), H, W, ptr(stream))
         _build.launch(lib, "census", rc)
-        launch_count += 1
+        with _build.count_lock:
+            launch_count += 1
     return out.reshape(lead + (8, H, W))
 
 

@@ -101,5 +101,6 @@ def fused_linearize(u, v, ok, channels, pixels, jacobians, sigma, loss,
         _build.ticket_counter(stream), ptr(out.data_ptr()),
         ptr(stream.cuda_stream))
     _build.launch(lib, "fused_linearize", rc)
-    launch_count += 1
+    with _build.count_lock:
+        launch_count += 1
     return out[:36].view(6, 6), out[36:42], out[42], r0, w

@@ -65,7 +65,8 @@ def _launch(J, r, valid, sigma, loss, with_w: bool):
         _build.ticket_counter(stream), ptr(out.data_ptr()),
         ptr(stream.cuda_stream))
     _build.launch(lib, "irls_reduce", rc)
-    launch_count += 1
+    with _build.count_lock:
+        launch_count += 1
     return out[:36].view(6, 6), out[36:42], out[42], w
 
 

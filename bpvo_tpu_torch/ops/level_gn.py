@@ -294,6 +294,7 @@ def level_gn(cam, points, valid, pixels, jacobians, channels, T0, sigma0,
     if rc != 0:
         _build.launch(lib, f"level_gn (a cluster of "
                            f"{lib.bpvo_level_gn_ctas(K)} CTAs)", rc)
-    launch_count += 1
+    with _build.count_lock:
+        launch_count += 1
     return (out_T, stats, out_H, out_g, w,
             torch.zeros((), dtype=torch.int32, device=dev))

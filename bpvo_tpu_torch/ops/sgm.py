@@ -99,7 +99,8 @@ def _launch(cost, p1: float, p2: float, n_dirs: int):
     out, launches = pass_launches(cost, p1, p2, n_dirs)
     for launch in launches.values():
         _build.launch(_build.library(), "sgm", launch())
-    launch_count += 1
+    with _build.count_lock:
+        launch_count += 1
     return out
 
 

@@ -25,10 +25,20 @@ The kernel wrappers count their launches in Python (``launch_count`` of each
 each count advanced during the capture, puts the counts back, and adds that
 advance on every replay.  A key's first call counts through the wrappers
 themselves, so the counts equal those of running the function eagerly.
+The capture holds ``ops._build.count_lock``, under which every wrapper
+counts, so a launch counted by another thread (a data loader's stereo
+matcher) waits until the capture is over and is not taken for the graph's.
+
+Captures run in CUDA's thread-local mode: another thread may go on
+allocating, copying and launching on its own streams while this one
+captures (a loader thread prefetching frames and running a matcher); only
+this thread's calls are held to what a capture allows.
 """
 from __future__ import annotations
 
 import torch
+
+from bpvo_tpu_torch.ops import _build
 
 # graph replays made by every GraphCache in this process (read by
 # scripts/profile_torch_vo.py, which counts a replay as one host op)
@@ -78,20 +88,23 @@ class GraphCache:
         captured, launches = entry
         out = captured.replay()
         replay_count += 1
-        for mod, n in launches:
-            mod.launch_count += n
+        with _build.count_lock:
+            for mod, n in launches:
+                mod.launch_count += n
         return out
 
     def _first_call(self, key, fn):
         mods = self._modules if self._modules is not None else op_modules()
         out = self._warm_up(fn)
-        before = [mod.launch_count for mod in mods]
-        try:
-            captured = self._capture(fn)
-        finally:
-            advanced = [mod.launch_count - n for mod, n in zip(mods, before)]
-            for mod, n in zip(mods, before):
-                mod.launch_count = n
+        with _build.count_lock:
+            before = [mod.launch_count for mod in mods]
+            try:
+                captured = self._capture(fn)
+            finally:
+                advanced = [mod.launch_count - n
+                            for mod, n in zip(mods, before)]
+                for mod, n in zip(mods, before):
+                    mod.launch_count = n
         self._entries[key] = (captured, [(mod, n) for mod, n in
                                          zip(mods, advanced) if n])
         return out
@@ -117,6 +130,7 @@ class GraphCache:
         an object whose ``replay()`` runs the graph and returns its static
         outputs; raises if the capture fails."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._side_stream()):
+        with torch.cuda.graph(graph, stream=self._side_stream(),
+                              capture_error_mode="thread_local"):
             outputs = fn()
         return _Captured(graph, outputs)

@@ -24,6 +24,11 @@ from bpvo_tpu_torch.vo.pose_estimator import PoseEstimator
 from bpvo_tpu_torch.vo.trajectory import Trajectory
 
 
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
 class _Frame:
     """One frame's descriptor pyramid, plus its templates once it is the
     keyframe (reference VisualOdometryFrame)."""
@@ -106,10 +111,44 @@ class VisualOdometry:
                                   "yet")
 
     def save(self, path: str) -> None:
-        raise NotImplementedError("VisualOdometry.save is not ported yet")
+        """Checkpoint the state in the JAX package's format
+        (bpvo_tpu/vo/odometry.py:162-181): the keyframe's and the
+        candidate's raw image and disparity, ``T_kf`` and the trajectory;
+        templates are a function of those and ``load`` rebuilds them."""
+        payload = {
+            "T_kf": self._T_kf,
+            "trajectory": (np.stack(self._trajectory.poses)
+                           if len(self._trajectory) else np.zeros((0, 4, 4))),
+        }
+        if self._ref.image is not None:
+            payload["ref_image"] = _numpy(self._ref.image)
+            payload["ref_disparity"] = _numpy(self._ref.disparity)
+        if not self._prev.empty and self._prev.image is not None:
+            payload["prev_image"] = _numpy(self._prev.image)
+            payload["prev_disparity"] = _numpy(self._prev.disparity)
+        np.savez_compressed(path, **payload)
 
     def load(self, path: str) -> None:
-        raise NotImplementedError("VisualOdometry.load is not ported yet")
+        """Restore a state ``save`` of either package wrote (same camera,
+        parameters and image size) (bpvo_tpu/vo/odometry.py:183-200)."""
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        p = self._p
+        with np.load(path) as data:
+            self._T_kf = data["T_kf"].astype(np.float32)
+            self._trajectory = Trajectory()
+            for T in data["trajectory"]:
+                self._trajectory.poses.append(T)
+            if "ref_image" in data.files:
+                self._ref = _Frame()
+                self._ref.set_data(data["ref_image"], data["ref_disparity"],
+                                   p.numPyramidLevels, p, self.device)
+                self._ref.set_template(self._cams, p, self._capacities)
+            if "prev_image" in data.files:
+                self._prev = _Frame()
+                self._prev.set_data(data["prev_image"],
+                                    data["prev_disparity"],
+                                    p.numPyramidLevels, p, self.device)
 
     def _estimate(self, T_init, **kw):
         return self._pose_estimator.estimate(
@@ -231,9 +270,7 @@ class VisualOdometry:
         scale = 1 << p.maxTestLevel
         ys = np.clip(td.rows.cpu().numpy()[valid] * scale, 0, self._rows - 1)
         xs = np.clip(td.cols.cpu().numpy()[valid] * scale, 0, self._cols - 1)
-        img = self._ref.image
-        img = img.cpu().numpy() if isinstance(img, torch.Tensor) else img
-        c = np.asarray(img)[ys, xs].astype(np.uint8)
+        c = _numpy(self._ref.image)[ys, xs].astype(np.uint8)
         colors = np.stack([c, c, c, np.full_like(c, 255)], axis=1)
         return PointCloud(points=pts.astype(np.float32), colors=colors,
                           weights=weights.astype(np.float32))

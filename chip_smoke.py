@@ -70,9 +70,10 @@
    iteration from a CUDA graph; the sigma re-estimates are counted in its
    host loop (``gauss_newton._loop``).
 9. Graph phase: each of the four VO paths eager and graphed in this
-   process (the graphed route is the entry point; the eager one is
-   ``DeviceVO``'s step function, or ``VisualOdometry`` with its pose
-   estimator's graphs withheld), each route once to warm up, once timed
+   process over the first GRAPH_STEPS (15) steps (the graphed route is the
+   entry point; the eager one is ``DeviceVO``'s step function, or
+   ``VisualOdometry`` with its pose estimator's graphs withheld), each
+   route once to warm up, once timed
    and once under torch.profiler: poses, iterations and keyframes must be
    bitwise equal; per route it prints p50/p90 ms of keyframe and other
    steps and the top-level host ops per step (a graph replay counted as
@@ -88,6 +89,24 @@
    the same function, that call.  No step or variant may fail or disagree,
    every probe kernel must launch, and the wide points must differ from
    unbanded sampling.
+
+11. App phase (the host data layer and the apps): the stereo bench
+   sequence written as a KITTI tree (8-bit PNGs, calib.txt P0/P1,
+   poses/00.txt; the scene KITTI_SCALE times larger, so its 30 steps cover
+   the devkit's 100 m segment) and a Tsukuba-layout tree (480x640, 1+10
+   frames) under build/app_phase; the PNG decode time of a stereo frame;
+   ``apps.eval_kitti run`` (Intensity, TpuSGM) with the counts at 0
+   (census 2 and SGM 1 per frame read, level_gn > 0, the GN kernels 0)
+   and ``eval``: t_err and ATE under KITTI_T_ERR_BOUND and
+   KITTI_ATE_PER_M x path length; ``python -m bpvo_tpu_torch.apps.vo`` in
+   a process of its own on that tree (JAX's output files, the same
+   bounds); ``VoApp`` threaded and prefetched, threaded, and unthreaded
+   (p50/p90 per frame; bitwise equal trajectories and iterations), on a
+   dense config whose CUDA graphs are captured while the loader thread
+   runs SGM, on ``synthetic_stereo`` at 376x1241 and the Tsukuba tree
+   with ``TpuBlockMatching`` (D=128 / 96, 1+10 frames); TpuBlockMatching's
+   ms per call at both sizes and its card-vs-CPU equal share (at least
+   BM_SHARE_FLOOR).  One ``{"app_phase": ...}`` JSON line.
 
 Any failure exits non-zero.  The line before the last is a JSON object with
 the kernels' launches (summed over the VO phases that run each; for the
@@ -158,6 +177,9 @@ KERNEL_REPS, PLAIN_REPS = 50, 3
 GN_RTOL, GN_W_ATOL = 1e-4, 1e-6
 GN_PER_GRAPH = 10        # calls per CUDA graph when the GN kernels are replayed
 STEP_LABEL = "vo_step_"  # the profiler label of a step in the graph phase
+# steps of the graph phase (30 before the app phase came; cut to keep the
+# script's wall near its earlier ~190 s)
+GRAPH_STEPS = 15
 # dense VO: bench.py's settings, NMS off (as conf/tunnel.cfg), and a point
 # capacity every level fills: 131072/32768/8192/2048 points
 BENCH = dict(minSaliency=2.0, numPyramidLevels=4, functionTolerance=1e-4,
@@ -171,6 +193,20 @@ DENSE = dict(minNumPixelsForNonMaximaSuppression=20000000,
 T_ATOL_JAX_DENSE = {"intensity": 5e-4, "bitplanes": 2e-3}
 GT_MARGIN_DENSE = {"intensity": GT_MARGIN, "bitplanes": GT_MARGIN_STEREO}
 SGM_REPS, SGM_PLAIN_REPS = 10, 1
+# app phase: eval_kitti's KITTI tree is the bench scene 125 times larger, so
+# its 30 steps (0.0307 m each) cover 115 m and the devkit's 100 m segment;
+# the bounds are twice the JAX package's own t_err (3.88%) and ATE per
+# metre of path (2.81 m over 122.6 m) in tests/test_torch_apps.py's CPU
+# parity run of the same camera at 120x320
+KITTI_SCALE = 125.0
+KITTI_T_ERR_BOUND = 8.0          # percent
+KITTI_ATE_PER_M = 0.046
+APP_SHORT_FRAMES = 11            # synthetic_stereo and Tsukuba: 1+10 frames
+# TpuBlockMatching, card against CPU: at these sizes the float32 prefix sums
+# pass 2^24 and the card's scan rounds them otherwise, which flips near-tie
+# argmins (accepted delta g; 0.912 of the pixels equal at 376x1241x128 in
+# the first chip run)
+BM_SHARE_FLOOR = 0.85
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bandwidth and the f32
 # rate outside the tensor cores; bound_ms is the larger of bytes / the one
 # and operations / the other
@@ -218,6 +254,78 @@ def _tap_bytes(ch, taps):
     a gather from the (C, H, W) stack must read, each value once."""
     import torch
     return torch.unique(taps).numel() * ch.shape[0] * ch.element_size()
+
+
+def write_kitti_tree(root, frames, K, baseline, scale, seq=0):
+    """Write stereo ``frames`` [(left, right, ...)] of the bench scene
+    (``synthetic.synthesize_stereo_sequence``) in the KITTI odometry
+    layout: ``sequences/<seq>/image_0|image_1/%06d.png`` (8-bit grey),
+    ``calib.txt`` with P0/P1 and ``poses/<seq>.txt`` (ground-truth
+    camera-to-world 3x4 rows).  The scene is taken ``scale`` times larger:
+    baseline and translations scale, the images do not, so a short
+    sequence can cover the devkit's 100 m segments.  Returns the
+    dataset root."""
+    import numpy as np
+    from bpvo_tpu_torch.data import imageio, synthetic
+    seq_dir = os.path.join(root, "sequences", f"{seq:02d}")
+    for cam in ("image_0", "image_1"):
+        os.makedirs(os.path.join(seq_dir, cam), exist_ok=True)
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    for i, (left, right, *_) in enumerate(frames):
+        for cam, img in (("image_0", left), ("image_1", right)):
+            imageio.imwrite(os.path.join(seq_dir, cam, f"{i:06d}.png"),
+                            np.clip(np.round(img), 0, 255).astype(np.uint8))
+    P0 = np.zeros((3, 4))
+    P0[:, :3] = K
+    P1 = P0.copy()
+    P1[0, 3] = -K[0, 0] * baseline * scale
+    with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+        for name, P in (("P0", P0), ("P1", P1)):
+            f.write(f"{name}: " + " ".join(f"{v:.12e}" for v in P.ravel())
+                    + "\n")
+    step, T, rows = synthetic.step_pose(), np.eye(4), []
+    for _ in frames:
+        world = np.linalg.inv(T)
+        world[:3, 3] *= scale
+        rows.append(" ".join(f"{v:.12e}" for v in world[:3].ravel()))
+        T = step @ T
+    with open(os.path.join(root, "poses", f"{seq:02d}.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return root
+
+
+def write_tsukuba_tree(root, n_frames, rows=480, cols=640, z0=3.0):
+    """Write ``n_frames`` stereo pairs of a noise-textured plane in the
+    NewTsukuba layout (``illumination/fluorescent/left|right/
+    tsukuba_fluorescent_L|R_%05d.png`` from 1, and the ground-truth
+    disparity rounded into ``groundtruth/disparity_maps/left``), rendered
+    with the fixed NewTsukuba rig (fx 615, cx 320, cy 240, baseline
+    0.1).  Returns the dataset root."""
+    import numpy as np
+    from bpvo_tpu_torch.data import imageio
+    from bpvo_tpu_torch.data.synthetic import SyntheticPlaneDataset
+    ds = SyntheticPlaneDataset(rows=rows, cols=cols, n_frames=n_frames,
+                               fx=615.0, baseline=0.1, z0=z0,
+                               texture="noise")
+    ill = os.path.join(root, "illumination", "fluorescent")
+    gt = os.path.join(root, "groundtruth", "disparity_maps", "left")
+    for d in (os.path.join(ill, "left"), os.path.join(ill, "right"), gt):
+        os.makedirs(d, exist_ok=True)
+
+    def u8(img):
+        return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+    for i in range(n_frames):
+        frame = ds.get_frame(i)
+        imageio.imwrite(os.path.join(
+            ill, "left", f"tsukuba_fluorescent_L_{i + 1:05d}.png"),
+            u8(frame.image))
+        imageio.imwrite(os.path.join(
+            ill, "right", f"tsukuba_fluorescent_R_{i + 1:05d}.png"),
+            u8(ds.right_image(i)))
+        imageio.imwrite(os.path.join(
+            gt, f"tsukuba_disparity_L_{i + 1:05d}.png"), u8(frame.disparity))
+    return root
 
 
 def _require(cond, msg):
@@ -1002,6 +1110,248 @@ def flip_phase(vo, image, dev):
     _require(flips / total <= FLIP_BOUND, f"census flips {flips}/{total}")
 
 
+def _lap(t_start, name):
+    print(f"{name} done at {time.perf_counter() - t_start:.1f} s")
+
+
+def _pcts(ms):
+    """{"p50_ms", "p90_ms"} of per-frame times, the first frame left out
+    (it builds the first keyframe and warms the caches)."""
+    import numpy as np
+    ms = np.asarray(ms[1:])
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p90_ms": float(np.percentile(ms, 90))}
+
+
+def _app_runs(cfg, dev, label, modes, smi, prefix=None):
+    """Run ``VoApp`` over ``cfg`` once per (threaded, prefetch) of
+    ``modes``; every run's trajectory and iterations must equal the first
+    run's bit for bit.  With ``prefix`` the first run writes its output
+    files there, which must be JAX's set.  The first run starts with the
+    launch counts at 0.  Returns ({mode: timings}, the first run's
+    launches)."""
+    import numpy as np
+    from bpvo_tpu_torch.apps.vo_app import VoApp
+
+    out, first = {}, None
+    if prefix:
+        os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    for k, (threaded, prefetch) in enumerate(modes):
+        files = dict(trajectory_prefix=prefix, points_prefix=prefix) if (
+            prefix and k == 0) else {}
+        if k == 0:
+            _reset_counts()
+        res = VoApp.from_config(cfg, device=dev, threaded=threaded,
+                                prefetch=prefetch, **files).run(log_every=0)
+        if k == 0:
+            launches = _counts()
+        got = (np.stack(res.vo.trajectory.poses), res.iterations)
+        _require(np.isfinite(got[0]).all(), f"{label}: non-finite poses")
+        if first is None:
+            first = got
+        else:
+            _require(np.array_equal(got[0], first[0]) and got[1] == first[1],
+                     f"{label}: threaded={threaded} prefetch={prefetch} "
+                     "differs from the first run")
+        name = ("threaded_prefetch" if prefetch else "threaded") \
+            if threaded else "unthreaded"
+        out[name] = {"frames": res.num_frames,
+                     "interval": _pcts(res.frame_interval_ms),
+                     "add_frame": _pcts(res.frame_times_ms)}
+        print(f"{label} {name}: {res.num_frames} frames, per frame "
+              f"(end to end) p50 {out[name]['interval']['p50_ms']:.3f} / "
+              f"p90 {out[name]['interval']['p90_ms']:.3f} ms, add_frame p50 "
+              f"{out[name]['add_frame']['p50_ms']:.3f} ms on {smi}")
+    if prefix:
+        for suffix in ("_path.txt", "_poses.txt", "_kitti.txt", "_time.txt",
+                       "_iterations.txt", "_00000.ply"):
+            _require(os.path.exists(prefix + suffix),
+                     f"{label}: {prefix + suffix} was not written")
+    return out, launches
+
+
+def app_phase(sframes, K, baseline, dev, smi):
+    """The host data layer and the apps on the card: KITTI- and
+    Tsukuba-layout trees written under build/app_phase, ``eval_kitti run``
+    (counted), ``eval`` against the bounds, ``python -m
+    bpvo_tpu_torch.apps.vo`` in a process of its own, VoApp threaded /
+    prefetched / unthreaded (bitwise; with CUDA graphs on a dense config;
+    TpuBlockMatching on synthetic_stereo and Tsukuba), the PNG decode and
+    TpuBlockMatching times.  Returns the ``app_phase`` JSON object."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from bpvo_tpu_torch.apps import eval_kitti
+    from bpvo_tpu_torch.data import imageio, stereo
+    from bpvo_tpu_torch.eval import kitti_eval
+
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "build", "app_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    kitti = write_kitti_tree(os.path.join(root, "kitti"), sframes, K,
+                             baseline, KITTI_SCALE)
+    tsukuba = write_tsukuba_tree(os.path.join(root, "tsukuba"),
+                                 APP_SHORT_FRAMES)
+    tsukuba_pair = [imageio.imread(os.path.join(
+        tsukuba, "illumination", "fluorescent", side,
+        f"tsukuba_fluorescent_{side[0].upper()}_00001.png"))
+        for side in ("left", "right")]
+    rows, cols = sframes[0][0].shape
+    gt_dir = os.path.join(kitti, "poses")
+    path_m = float(kitti_eval.trajectory_distances(kitti_eval.load_poses(
+        os.path.join(gt_dir, "00.txt")))[-1])
+    print(f"app phase: trees written in {time.perf_counter() - t0:.1f} s")
+
+    # the PNG decode of a stereo frame's two images (Paeth rows, the slow
+    # path) on the host
+    pngs = [os.path.join(kitti, "sequences", "00", cam, "000001.png")
+            for cam in ("image_0", "image_1")]
+    decode = []
+    for _ in range(5):
+        t = time.perf_counter()
+        for p in pngs:
+            imageio.imread(p)
+        decode.append((time.perf_counter() - t) * 1e3)
+    decode_ms = float(np.median(decode))
+    print(f"PNG decode per stereo frame (2 x {rows}x{cols}, 8-bit, Paeth): "
+          f"{decode_ms:.2f} ms (host)")
+
+    def bounds(metrics, label):
+        _require(metrics["segments"] >= 1, f"{label}: no 100 m segment")
+        _require(metrics["t_err_percent"] <= KITTI_T_ERR_BOUND,
+                 f"{label}: t_err {metrics['t_err_percent']:.3f}% > "
+                 f"{KITTI_T_ERR_BOUND}%")
+        _require(metrics["ate_rmse_m"] <= KITTI_ATE_PER_M * path_m,
+                 f"{label}: ATE {metrics['ate_rmse_m']:.3f} m > "
+                 f"{KITTI_ATE_PER_M * path_m:.3f} m")
+        print(f"{label}: t_err {metrics['t_err_percent']:.4f}% (bound "
+              f"{KITTI_T_ERR_BOUND}), r_err {metrics['r_err_deg_per_m']:.6f} "
+              f"deg/m, ATE {metrics['ate_rmse_m']:.4f} m over {path_m:.1f} m "
+              f"(bound {KITTI_ATE_PER_M * path_m:.3f})")
+
+    # eval_kitti run (Intensity, TpuSGM: census and SGM every frame, level_gn
+    # every level), with the counts at 0, then eval
+    n = len(sframes)
+    out = os.path.join(root, "eval_kitti")
+    _reset_counts()
+    eval_kitti.main(["run", "--root", kitti, "--out", out, "--seqs", "0",
+                     "--device", str(dev)])
+    counts = _counts()
+    want = {"census_planes": 2 * (n + 1), "sgm_aggregate": n + 1,
+            "fused_linearize": 0, "irls_reduce": 0}
+    for name, k in want.items():
+        _require(counts[name] == k, f"eval_kitti run: {name} launched "
+                 f"{counts[name]} times, expected {k}")
+    _require(counts["level_gn"] > 0, "eval_kitti run: level_gn never ran")
+    print(f"eval_kitti run: {n} frames, launches {counts}")
+    metrics = eval_kitti.evaluate(gt_dir, out, [0])["00"]
+    bounds(metrics, "eval_kitti eval")
+
+    # the command line, in a process of its own, on the same tree
+    # (maxDepth: the scene is KITTI_SCALE times larger, and a keyframe's
+    # PLY keeps the points nearer than maxDepth)
+    cfg = os.path.join(root, "kitti.cfg")
+    eval_kitti.make_kitti_config(kitti, 0).set("maxDepth", 1e6).save(cfg)
+    cli = os.path.join(root, "cli", "00")
+    os.makedirs(os.path.dirname(cli))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bpvo_tpu_torch.apps.vo", "--config", cfg,
+         "--output", cli, "--points", "--device", str(dev)], cwd=HERE,
+        capture_output=True, text=True, timeout=600)
+    _require(proc.returncode == 0, "python -m bpvo_tpu_torch.apps.vo failed:"
+             f"\n{proc.stderr[-3000:]}")
+    print(f"python -m bpvo_tpu_torch.apps.vo: {time.perf_counter() - t:.1f} s"
+          f"; {(proc.stderr.strip().splitlines() or [''])[-1]}")
+    for suffix in ("_path.txt", "_poses.txt", "_kitti.txt", "_time.txt",
+                   "_iterations.txt", "_00000.ply"):
+        _require(os.path.exists(cli + suffix), f"apps.vo wrote no {suffix}")
+    shutil.copy(cli + "_kitti.txt", os.path.join(os.path.dirname(cli),
+                                                 "00.txt"))
+    cli_metrics = eval_kitti.evaluate(gt_dir, os.path.dirname(cli), [0])["00"]
+    bounds(cli_metrics, "apps.vo + eval_kitti eval")
+
+    # VoApp threaded and prefetched / threaded / unthreaded: bitwise, timed;
+    # the first run counted (census and SGM from the loader thread)
+    modes = ((True, True), (True, False), (False, False))
+    kitti_runs, app_counts = _app_runs(
+        cfg, dev, f"VoApp kitti {rows}x{cols} TpuSGM", modes, smi,
+        os.path.join(root, "app", "00"))
+    _require(app_counts == counts, f"VoApp threaded: launches {app_counts},"
+             f" eval_kitti run's {counts}")
+    # dense (NMS off, capacity 131072): L0 and L1 replay CUDA graphs that
+    # are captured while the loader thread runs SGM
+    dense_cfg = os.path.join(root, "kitti_dense.cfg")
+    cf = eval_kitti.make_kitti_config(kitti, 0).set("maxDepth", 1e6)
+    for key, value in DENSE.items():
+        cf.set(key, value)
+    cf.save(dense_cfg)
+    from bpvo_tpu_torch.utils import graphs
+    replays = graphs.replay_count
+    dense_runs, _ = _app_runs(dense_cfg, dev,
+                              f"VoApp kitti dense {rows}x{cols}", modes[::2],
+                              smi)
+    _require(graphs.replay_count > replays, "dense VoApp replayed no graph")
+
+    # TpuBlockMatching through the synthetic_stereo and Tsukuba datasets
+    syn_cfg = os.path.join(root, "synthetic_stereo.cfg")
+    with open(syn_cfg, "w") as f:
+        f.write(f"Dataset = synthetic_stereo\nSyntheticRows = {rows}"
+                f"\nSyntheticCols = {cols}\nSyntheticNumFrames = "
+                f"{APP_SHORT_FRAMES}\nStereoAlgorithm = TpuBlockMatching\n"
+                "numberOfDisparities = 128\nminSaliency = 2.0\n"
+                "numPyramidLevels = 4\nfunctionTolerance = 1e-4\n"
+                "parameterTolerance = 1e-6\n")
+    syn_runs, _ = _app_runs(syn_cfg, dev,
+                            f"VoApp synthetic_stereo {rows}x{cols} "
+                            "TpuBlockMatching D=128", modes[::2], smi,
+                            os.path.join(root, "synthetic", "out"))
+    tsu_cfg = os.path.join(root, "tsukuba_stereo.cfg")
+    with open(os.path.join(HERE, "conf", "tsukuba_stereo.cfg")) as src, \
+            open(tsu_cfg, "w") as f:
+        for line in src:
+            key = line.split("=")[0].strip()
+            if key not in ("DataSetRootDirectory", "StereoAlgorithm"):
+                f.write(line)
+        f.write(f"DataSetRootDirectory = {tsukuba}\n"
+                "StereoAlgorithm = TpuBlockMatching\n")
+    tsu_runs, _ = _app_runs(tsu_cfg, dev, "VoApp tsukuba_stereo {}x{} "
+                            "TpuBlockMatching D=96".format(
+                                *tsukuba_pair[0].shape), modes[::2], smi,
+                            os.path.join(root, "tsukuba_out", "out"))
+
+    # TpuBlockMatching per call (CUDA events), and the card against the CPU
+    bm_ms, bm_share = {}, {}
+    for (L, R), D in (
+            ([np.clip(np.round(x), 0, 255).astype(np.uint8)
+              for x in sframes[0][:2]], 128),
+            (tsukuba_pair, 96)):
+        label = "{}x{}x{}".format(*L.shape, D)
+        bm = stereo.TpuBlockMatching(num_disparities=D)
+        Lt, Rt = (torch.as_tensor(x).to(dev, torch.float32) for x in (L, R))
+        fn = bm.as_fn()
+        bm_ms[label] = _cuda_ms(lambda: fn(Lt, Rt), 10)
+        cpu = bm.run(L, R, device="cpu")
+        gpu = bm.run(L, R, device=dev)
+        bm_share[label] = float(np.mean(cpu.view(np.int32)
+                                        == gpu.view(np.int32)))
+        _require(bm_share[label] >= BM_SHARE_FLOOR,
+                 f"TpuBlockMatching {label}: card and CPU equal on "
+                 f"{bm_share[label]:.6f} of the pixels")
+        print(f"TpuBlockMatching {label}: {bm_ms[label]:.3f} ms per call on "
+              f"{smi}; card vs CPU bitwise on {bm_share[label]:.6f} of the "
+              "pixels")
+    print(f"app phase: {time.perf_counter() - t0:.1f} s")
+    return {"device": smi, "frames": n, "eval_kitti": metrics,
+            "apps_vo_cli": cli_metrics, "path_m": path_m,
+            "launches": counts, "png_decode_ms_per_frame": decode_ms,
+            "kitti": kitti_runs, "kitti_dense": dense_runs,
+            "synthetic_stereo": syn_runs, "tsukuba_stereo": tsu_runs,
+            "block_matching_ms": bm_ms,
+            "block_matching_card_cpu_equal_share": bm_share}
+
+
 def _probe_entry(smi, name, source, replaces, launches, step, var, shape):
     """One probe kernel's entry of the kernels line, from the probe runner's
     result: ``var`` holds the kernel's check against its plain version and
@@ -1200,6 +1550,7 @@ def main() -> int:
     print(f"VO intensity: {fps:.2f} frames/s, per-frame p50 {p50:.3f} ms "
           f"on {smi}")
     del vo, frames
+    _lap(t_start, "intensity phases")
 
     # stereo Bit-Planes: conf/kitti_bitplanes.cfg
     ref_s = dict(np.load(REF_STEREO_NPZ))
@@ -1228,6 +1579,7 @@ def main() -> int:
                  f"{name} launched {counts_s[name]} times, expected {n}")
 
     del vo_bp
+    _lap(t_start, "stereo phases")
 
     # dense VO at KITTI shape: L0 and L1 through gauss_newton.run, L2 and L3
     # (K = 8192/2048) through level_gn, checked here at C=1 and C=8
@@ -1250,10 +1602,13 @@ def main() -> int:
               f"{p50_d:.3f} ms p90 {p90_d:.3f} ms on {smi}")
     _require(dense["intensity"]["irls_reduce"] > 0,
              "irls_reduce never launched on the dense intensity path")
+    _lap(t_start, "dense phases")
 
-    # the compiled step: each VO path eager and graphed, bitwise equal
+    # the compiled step: each VO path eager and graphed, bitwise equal, over
+    # the first GRAPH_STEPS steps
     from bpvo_tpu_torch import VisualOdometry
-    dframes = [f[0::2] for f in sframes]
+    gframes = sframes[:1 + GRAPH_STEPS]
+    dframes = [f[0::2] for f in gframes]
     graph_res = {
         "intensity": graph_phase(
             "intensity", lambda: DeviceVO(K, baseline, shape, params,
@@ -1261,7 +1616,7 @@ def main() -> int:
         "stereo_bitplanes": graph_phase(
             "stereo Bit-Planes", lambda: DeviceVO(
                 K, baseline, shape, params_bp, device=dev,
-                stereo_fn=matcher.as_fn()), [f[:2] for f in sframes], dev,
+                stereo_fn=matcher.as_fn()), [f[:2] for f in gframes], dev,
             smi)}
     for name, desc in (("intensity", DescriptorType.INTENSITY),
                        ("bitplanes", DescriptorType.BITPLANES)):
@@ -1270,8 +1625,13 @@ def main() -> int:
                 K, baseline, shape, _dense_params(desc), device=dev),
             dframes, dev, smi)
     print(json.dumps({"graph_phase": graph_res}))
+    _lap(t_start, "graph phase")
 
     probe_entries = probe_phase(dev, smi)
+
+    # the host data layer and the apps, on the bench scene's stereo pairs
+    print(json.dumps({"app_phase": app_phase(sframes, K, baseline, dev,
+                                             smi)}))
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 

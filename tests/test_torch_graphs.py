@@ -126,6 +126,53 @@ def test_graph_cache_counts_replays_as_their_launches():
     assert mod.launch_count == 8 + 2 and len(cache) == 2 and "b" in cache
 
 
+def test_graph_cache_keeps_launches_counted_by_other_threads():
+    """A loader thread counts launches (under ``ops._build.count_lock``, as
+    the wrappers do) while this thread captures: none of its counts is
+    taken for the graph's or lost when the capture puts the counts back.
+    The capture is slowed and the switch interval shortened so the threads
+    interleave."""
+    import sys
+    import threading
+    import time
+
+    from bpvo_tpu_torch.ops import _build
+
+    mod, op = _fake_op_module()
+
+    class Slow(_CaptureRunsPython):
+        def _capture(self, fn):
+            time.sleep(0.05)
+            return super()._capture(fn)
+
+    cache = Slow("cpu", modules=(mod,))
+    stop = threading.Event()
+    other = [0]
+
+    def loader():
+        while not stop.is_set():
+            with _build.count_lock:
+                mod.launch_count += 1
+            other[0] += 1
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    thread = threading.Thread(target=loader)
+    try:
+        thread.start()
+        for k in range(20):
+            for _ in range(3):      # warm-up and capture, then 2 replays
+                cache(k, lambda: op(op(torch.zeros(1))))
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+        sys.setswitchinterval(interval)
+    assert not thread.is_alive()
+    assert other[0] > 0
+    # per key: 2 counted by the warm-up, 2 added by each replay
+    assert mod.launch_count == 20 * 6 + other[0]
+
+
 def test_graph_cache_failed_capture_raises_and_keeps_counts():
     """A capture that fails raises; the counts are put back and the key
     holds no graph, so the next call tries to capture again."""

@@ -193,10 +193,8 @@ def test_unported_paths_raise(frames):
     K, b = np.asarray(cam.K()), float(cam.baseline)
     vo = VisualOdometry(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW),
                         device="cpu")
-    for call in (lambda: vo.save("x.npz"), lambda: vo.load("x.npz"),
-                 vo.enable_bundle_adjustment):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        vo.enable_bundle_adjustment()
     with pytest.raises(ValueError):
         vo.add_frame(np.zeros((10, 10), np.float32),
                      np.zeros((10, 10), np.float32))

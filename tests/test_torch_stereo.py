@@ -179,10 +179,22 @@ def test_factory_and_config():
     cf.set("sgmP1", 3).set("sgmP2", 20)
     alg = stereo.create_stereo_algorithm(cf)
     assert (alg.p1, alg.p2) == (3.0, 20.0)
-    for name in ("BlockMatching", "SGBM", "TpuBlockMatching"):
-        with pytest.raises(NotImplementedError):
-            stereo.create_stereo_algorithm(
-                ConfigFile().set("StereoAlgorithm", name))
+    # every JAX name: OpenCV's matchers (cv2 is installed here), the
+    # device block matcher with its keys
+    for name, cls in (("BlockMatching", stereo.CvBlockMatching),
+                      ("bm", stereo.CvBlockMatching),
+                      ("SGBM", stereo.CvSGBM),
+                      ("SemiGlobalBlockMatching", stereo.CvSGBM),
+                      ("TpuBlockMatching", stereo.TpuBlockMatching),
+                      ("TpuBM", stereo.TpuBlockMatching),
+                      ("rsgm", stereo.TpuSGM)):
+        assert isinstance(stereo.create_stereo_algorithm(
+            ConfigFile().set("StereoAlgorithm", name)), cls)
+    bm = stereo.create_stereo_algorithm(
+        ConfigFile().set("StereoAlgorithm", "TpuBlockMatching")
+        .set("numberOfDisparities", 96).set("SADWindowSize", 11)
+        .set("uniquenessRatio", 10))
+    assert (bm.num_disparities, bm.radius, bm.uniqueness_ratio) == (96, 5, 10)
     with pytest.raises(ValueError):
         stereo.create_stereo_algorithm(ConfigFile().set("StereoAlgorithm",
                                                         "nope"))
