@@ -6,6 +6,8 @@ matching the photometric Jacobian in ``vo/warp.py``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _EPS = 1e-12
@@ -93,3 +95,15 @@ def inverse(T):
     Rt = T[..., :3, :3].transpose(-1, -2)
     ti = -(Rt @ T[..., :3, 3:4])[..., 0]
     return _compose_rt(Rt, ti)
+
+
+def rotation_to_euler_deg(T):
+    """Rotation of (..., 4, 4) (or 3x3) -> (x, y, z) Euler angles in degrees,
+    for the keyframing rotation-magnitude test (reference vo.cc:210-216,
+    math_utils.h:204-260)."""
+    R = torch.as_tensor(T)[..., :3, :3]
+    sy = torch.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2)
+    x = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    y = torch.atan2(-R[..., 2, 0], torch.clamp(sy, min=_EPS))
+    z = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([x, y, z], dim=-1) * (180.0 / math.pi)

@@ -1,7 +1,7 @@
-"""Image-processing ops on (..., H, W) float32 tensors: saliency, strict local
-maxima, separable Gaussian smoothing, pyrDown and the level-strided disparity
-(counterpart of the parts of ``bpvo_tpu/ops/imgproc.py`` that the intensity
-and Bit-Planes paths run)."""
+"""Image-processing ops on (..., H, W) float32 tensors: central-difference
+gradients, saliency, strict local maxima, separable Gaussian smoothing,
+pyrDown and the level-strided disparity (counterpart of
+``bpvo_tpu/ops/imgproc.py``)."""
 from __future__ import annotations
 
 import functools
@@ -9,6 +9,26 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def xgradient(I, scale=0.5):
+    """Horizontal central difference times ``scale``, one-sided at the left
+    and right borders (reference imgproc.h:216-240)."""
+    g = torch.empty_like(I)
+    g[..., :, 1:-1] = scale * (I[..., :, 2:] - I[..., :, :-2])
+    g[..., :, 0] = scale * (I[..., :, 1] - I[..., :, 0])
+    g[..., :, -1] = scale * (I[..., :, -1] - I[..., :, -2])
+    return g
+
+
+def ygradient(I, scale=0.5):
+    """Vertical central difference times ``scale``, one-sided at the top and
+    bottom borders (reference imgproc.h:242-265)."""
+    g = torch.empty_like(I)
+    g[..., 1:-1, :] = scale * (I[..., 2:, :] - I[..., :-2, :])
+    g[..., 0, :] = scale * (I[..., 1, :] - I[..., 0, :])
+    g[..., -1, :] = scale * (I[..., -1, :] - I[..., -2, :])
+    return g
 
 
 def gradient_absolute_magnitude(I):
@@ -75,6 +95,23 @@ def _sep_conv2d(I, ky: np.ndarray, kx: np.ndarray):
     out = rows[..., :, 0:W] * float(kx[0])
     for j in range(1, len(kx)):
         out = out + rows[..., :, j:j + W] * float(kx[j])
+    return out
+
+
+def conv2d_same(I, k: np.ndarray):
+    """2D correlation of (..., H, W) with the small kernel ``k`` and
+    reflect-101 borders, as shifted slice-and-accumulate (taps in row-major
+    order; zero taps skipped)."""
+    ry, rx = k.shape[0] // 2, k.shape[1] // 2
+    Ip = _reflect_pad(I, ry, rx)
+    H, W = I.shape[-2], I.shape[-1]
+    out = None
+    for i in range(k.shape[0]):
+        for j in range(k.shape[1]):
+            if k[i, j] == 0:
+                continue
+            term = Ip[..., i:i + H, j:j + W] * float(k[i, j])
+            out = term if out is None else out + term
     return out
 
 

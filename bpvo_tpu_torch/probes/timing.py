@@ -38,17 +38,43 @@ def events_ms(fn, reps=20):
 
 
 def device_kernels(fn) -> list:
-    """Names of the device kernels that one call of ``fn()`` runs, counted
-    by torch.profiler after one warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
+    """Names of the device kernels that one call of ``fn()`` launches,
+    after one warm-up call: the kernel nodes of a CUDA graph that captures
+    the call, read through the driver.  (Not torch.profiler: its device
+    records went missing in some sessions on the H100 host.)"""
+    import ctypes
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
         fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    torch.cuda.synchronize()
+    driver = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        rc = getattr(driver, name)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name} failed ({rc})")
+
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    call("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:               # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: the CUfunction is its first field
+        params = (ctypes.c_void_p * 16)()
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), params)
+        name = ctypes.c_char_p()
+        call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params[0]))
+        names.append(name.value.decode())
+    g.reset()
+    return names
 
 
 def host_ms(fn, reps=3):

@@ -14,12 +14,14 @@ Flow per iteration (inverse compositional, template Jacobians fixed):
 ``run_level`` runs a level's whole loop in the CUDA kernel ``ops.level_gn``
 (16-step bisection median).  ``run`` drives the loop from the host, with the
 linearization in the CUDA kernels ``ops.fused_linearize`` and
-``ops.irls``; it reads the device once per iteration (converged, solver ok,
-and whether sigma is still moving) and keeps everything else, sigma
-included, on the device.  Given a ``RunGraphs`` (the entry points hold one
-per level on CUDA) each of its iterations is one CUDA-graph replay; the
-eager loop stays as the route verbose runs take and the graphs are held
-to.  Levenberg-Marquardt is not ported yet.
+``ops.irls`` (CUBIC, CUBIC_HERMITE and DisparitySpace levels take the
+gather route: plain sampling, ``irls_reduce_w`` at C > 1); it reads the
+device once per iteration (converged, solver ok, and whether sigma is still
+moving) and keeps everything else, sigma included, on the device.  Given a
+``RunGraphs`` (the entry points hold one per level on CUDA) each of its
+iterations is one CUDA-graph replay; the eager loop stays as the route
+verbose runs take and the graphs are held to.  Levenberg-Marquardt is in
+``solver/levenberg_marquardt.py``.
 """
 from __future__ import annotations
 
@@ -167,8 +169,10 @@ def _sigma_unstable(delta_scale, scale, opts: GNOptions):
 
 def _linearize(tdata, channels, cam, T, scale, delta_scale, do_est: bool,
                opts: GNOptions):
-    """The plain linearization (JAX's jnp route): residuals by
-    ``compute_residuals``, sigma from channel 0, weights, normal equations.
+    """The gather route (JAX gauss_newton.py:374-428), taken by the levels
+    the fused kernel does not take (CUBIC or CUBIC_HERMITE sampling, or the
+    DisparitySpace warp): residuals by ``compute_residuals``, sigma from
+    channel 0, weights and normal equations by ``reduce_w``.
     Returns (H, g, f, sigma, delta_scale, w)."""
     r, valid = td_mod.compute_residuals(tdata, channels, cam, T, opts.interp,
                                         warp=opts.warp)
@@ -178,8 +182,7 @@ def _linearize(tdata, channels, cam, T, scale, delta_scale, do_est: bool,
         delta_scale = torch.abs(sigma - scale)
     else:
         sigma = scale
-    w = mestimator.compute_weights(opts.loss, r, valid[None, :], sigma)
-    H, g, f_sq = linear_system.build(tdata.jacobians, r, w)
+    H, g, f_sq, w = reduce_w(tdata.jacobians, r, valid, sigma, opts.loss)
     return H, g, torch.sqrt(f_sq), sigma, delta_scale, w
 
 
@@ -370,10 +373,26 @@ def _result(st: _LoopState, it: int, converged: bool,
                                              device=dev))
 
 
+def reduce_w(jacobians, r, valid, sigma, loss):
+    """Weights of the residuals ``r`` (C, K) at ``sigma`` and the normal
+    equations, split as JAX's gather route splits them
+    (gauss_newton.py:393-424): the plain weights and ``build`` at C = 1,
+    ``ops.irls.irls_reduce_w`` at C > 1 (the CUDA kernel on the card, its
+    plain version, bit for bit the C = 1 arithmetic, on the CPU).  Returns
+    (H, g, f_sq, w (C, K))."""
+    C, K = r.shape
+    if C == 1:
+        w = mestimator.compute_weights(loss, r, valid[None, :], sigma)
+        return (*linear_system.build(jacobians, r, w), w)
+    H, g, f_sq, w = irls_mod.irls_reduce_w(
+        jacobians.reshape(C * K, 6), r.reshape(-1),
+        valid.expand(C, K).reshape(-1), sigma, loss)
+    return H, g, f_sq, w.view(C, K)
+
+
 def _default_linearize_fn(tdata, channels, cam, opts: GNOptions):
-    """RigidBody levels with LINEAR or COSINE sampling take the CUDA
-    kernels (their plain versions on the CPU), others the plain
-    ``_linearize``."""
+    """RigidBody levels with LINEAR or COSINE sampling take the fused CUDA
+    kernels (their plain versions on the CPU), others ``_linearize``."""
     if opts.warp == "RigidBody" and opts.interp in (
             InterpolationType.LINEAR, InterpolationType.COSINE):
         return _fused_linearize_fn(tdata, channels.contiguous(), cam, opts)
@@ -396,8 +415,8 @@ def run(tdata, channels, cam, T_init, opts: GNOptions, linearize_fn=None,
     delta_scale, do_est) -> (H, g, f, sigma, delta_scale, w)`` may replace
     the linearization; the host bool ``do_est`` says whether sigma is still
     moving.  By default RigidBody levels with LINEAR or COSINE sampling take
-    the CUDA kernels (their plain versions on the CPU), others the plain
-    ``_linearize``.
+    the fused CUDA kernels, others the gather route (``irls_reduce_w`` at
+    C > 1); on the CPU their plain versions.
 
     ``graphs`` (a ``RunGraphs``, held per level by the caller) replays each
     iteration from a CUDA graph; without it every op is issued from here.

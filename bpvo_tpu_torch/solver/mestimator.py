@@ -13,6 +13,8 @@ Each route is held to the estimator of the JAX code it replaces.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from bpvo_tpu_torch.types import LossFunctionType
@@ -36,6 +38,33 @@ def tukey_weight(u, t: float = TUKEY_T):
 
 def l2_weight(u):
     return torch.ones_like(u)
+
+
+# the rest of the reference's robust_loss.h zoo (robust_loss.h:80-115); no
+# LossFunctionType selects them, as in the JAX package
+def cauchy_weight(u, c: float = 2.3849):
+    x = u / c
+    return 1.0 / (1.0 + x * x)
+
+
+def fair_weight(u, c: float = 1.3998):
+    return 1.0 / (1.0 + torch.abs(u) / c)
+
+
+def andrews_weight(u, c: float = 1.339):
+    # the normalized sinc of u / c, sin(pi u/c) / (pi u/c), as the JAX
+    # package computes it
+    return torch.where(torch.abs(u) < c * math.pi, torch.sinc(u / c), 0.0)
+
+
+def geman_mcclure_weight(u):
+    d = 1.0 + u * u
+    return 1.0 / (d * d)
+
+
+def welsch_weight(u, c: float = 2.9846):
+    x = u / c
+    return torch.exp(-x * x)
 
 
 _WEIGHT_FNS = {

@@ -116,15 +116,15 @@ def _build_templates(channels_pyr, disparity, cams, p, capacities):
 
 def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
               max_test_level, good_threshold, min_points: int,
-              start_level=-1, run_graphs=None):
-    """Coarse-to-fine GN from ``start_level`` (default: coarsest) down to
-    ``max_test_level`` (``pose_estimator._estimate_all``).  Returns (T,
+              solver: str = "GaussNewton", start_level=-1, run_graphs=None):
+    """Coarse-to-fine GN or LM from ``start_level`` (default: coarsest) down
+    to ``max_test_level`` (``pose_estimator._estimate_all``).  Returns (T,
     iters (L,), f_norm (L,), frac_good, H, finest weights,
     band_overflow)."""
     T, iters, fs, _, _, frac, H, w, bo = pe._estimate_all(
         templates, channels_pyr, cams, T_init, opts_per_level,
-        max_test_level, good_threshold, min_points, start_level=start_level,
-        run_graphs=run_graphs)
+        max_test_level, good_threshold, min_points, solver=solver,
+        start_level=start_level, run_graphs=run_graphs)
     return T, iters, fs, frac, H, w, bo
 
 
@@ -186,7 +186,7 @@ def _make_front(p: AlgorithmParameters, cams, opts_per_level, stereo: bool,
         T_est, iters, fs, frac, H, w_fine, boverflow = _estimate(
             templates, channels, cams, T_init, opts_per_level,
             p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
-            run_graphs=run_graphs)
+            p.poseEstimator, run_graphs=run_graphs)
         reason = _keyframe_reason(T_est, frac, p)
         pose_kf = T_est @ _rigid_inverse(T_kf)
         return _Front(channels=channels, store=store, T_est=T_est,
@@ -251,7 +251,7 @@ def _make_commit(p: AlgorithmParameters, cams, capacities, opts_per_level,
             T2, it2, fs2, _frac2, _H2, w2_fine, _bo2 = _estimate(
                 templates, channels, cams, T2_init, opts_per_level,
                 p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
-                start_level=start2, run_graphs=run_graphs)
+                p.poseEstimator, start_level=start2, run_graphs=run_graphs)
             if state.has_prev:
                 pose, T_kf_new, it_out, fs_out = T2, T2, it2, fs2
             else:
@@ -328,9 +328,12 @@ class DeviceVO:
       one wrote survive the other's replay; each reads the pose state the
       other left.
     - CUDA with a level on ``gauss_newton.run`` (more than
-      ``MAX_LEVEL_KERNEL_POINTS`` points): the eager step, with those
-      levels' iterations replayed from ``gauss_newton.RunGraphs``.  A whole
-      step with a data-dependent loop in it awaits CUDA conditional nodes.
+      ``MAX_LEVEL_KERNEL_POINTS`` points, CUBIC or CUBIC_HERMITE sampling,
+      the DisparitySpace warp): the eager step, with those levels'
+      iterations replayed from ``gauss_newton.RunGraphs``.  A whole step
+      with a data-dependent loop in it awaits CUDA conditional nodes.
+    - CUDA with Levenberg-Marquardt: the eager step (LM never takes the
+      level kernel; its host loop reads the device once per iteration).
 
     ``add_frames`` replays once per frame and reads the keyframe decision
     each time; JAX's ``lax.scan`` needs no read per frame.  On the graphed
@@ -342,9 +345,6 @@ class DeviceVO:
                  params: AlgorithmParameters = None, device="cuda",
                  stereo_fn=None):
         p = params or AlgorithmParameters()
-        if p.poseEstimator != "GaussNewton":
-            raise NotImplementedError(
-                f"poseEstimator {p.poseEstimator} is not ported yet")
         rows, cols = image_size
         if p.numPyramidLevels <= 0:
             p = p.replace(numPyramidLevels=p.num_pyramid_levels_for(rows, cols))
@@ -364,7 +364,8 @@ class DeviceVO:
                            for l in range(p.numPyramidLevels))
         self._stereo_fn = stereo_fn
         C = descriptors.num_channels(p.descriptor, p)
-        on_kernel = all(
+        gauss_newton = p.poseEstimator == "GaussNewton"
+        on_kernel = gauss_newton and all(
             gn.level_kernel_supported(self._opts[l], C, *shapes[l],
                                       self._capacities[l])
             for l in range(p.maxTestLevel, p.numPyramidLevels))
@@ -373,7 +374,7 @@ class DeviceVO:
         self._graphs = graphs.GraphCache(self.device) if (
             cuda and on_kernel) else None
         self._run_graphs = tuple(gn.RunGraphs() for _ in shapes) if (
-            cuda and not on_kernel) else None
+            cuda and gauss_newton and not on_kernel) else None
         self._step = make_vo_step(p, self._cams, self._capacities, self._opts,
                                   stereo_fn=stereo_fn,
                                   run_graphs=self._run_graphs)

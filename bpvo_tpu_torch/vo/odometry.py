@@ -256,12 +256,16 @@ class VisualOdometry:
         p = self._p
         if not self._ref.has_template:
             return None
-        if p.warpType != "RigidBody":
-            raise NotImplementedError(f"point cloud of the {p.warpType} warp "
-                                      f"is not ported yet")
         td = self._ref.templates[p.maxTestLevel]
         valid = td.valid.cpu().numpy()
         pts = td.points.cpu().numpy()[valid]
+        if p.warpType == "DisparitySpace":
+            # the template holds (x-cx, y-cy, d): back-project for the cloud
+            cam = self._cams[p.maxTestLevel]
+            xyd = torch.from_numpy(pts)
+            pts = warp_mod.make_points(
+                cam, xyd[:, 0] + cam.cx, xyd[:, 1] + cam.cy,
+                torch.clamp(xyd[:, 2], min=1e-3)).numpy()
         w = self._pose_estimator.last_weights()
         if w is not None and w.shape[1] == td.capacity:
             weights = w[0].cpu().numpy()[valid]

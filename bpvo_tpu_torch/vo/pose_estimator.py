@@ -1,13 +1,14 @@
 """Coarse-to-fine pose estimation over the pyramid (counterpart of
 ``bpvo_tpu/vo/pose_estimator.py``; reference vo_pose_estimator.cc:63-107).
 
-Each level is solved by ``gauss_newton.solve_level``: the one-launch level
-kernel on levels it takes, ``gauss_newton.run`` on the others, whose
-iterations ``PoseEstimator`` replays from CUDA graphs on CUDA (one
-``gauss_newton.RunGraphs`` per level).  The level chain stays on the
-device; ``PoseEstimator.estimate`` reads its results back in one copy.
-Levenberg-Marquardt and the ``coarseInitOffsetPx`` multi-start are not
-ported yet.
+Each Gauss-Newton level is solved by ``gauss_newton.solve_level``: the
+one-launch level kernel on levels it takes, ``gauss_newton.run`` on the
+others, whose iterations ``PoseEstimator`` replays from CUDA graphs on CUDA
+(one ``gauss_newton.RunGraphs`` per level).  Levenberg-Marquardt levels run
+``levenberg_marquardt.run`` (never the level kernel, as in the JAX
+package).  With ``coarseInitOffsetPx`` > 0 a multi-start probe picks the
+start among five candidates.  The level chain stays on the device;
+``PoseEstimator.estimate`` reads its results back in one copy.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import torch
 
 from bpvo_tpu_torch.config import AlgorithmParameters
 from bpvo_tpu_torch.solver import gauss_newton as gn
+from bpvo_tpu_torch.solver import levenberg_marquardt as lm
+from bpvo_tpu_torch.solver import mestimator
 from bpvo_tpu_torch.types import OptimizerStatistics
 from bpvo_tpu_torch.vo import template_data as td_mod
 
@@ -47,6 +50,41 @@ def _gated_warm_start(templates, channels_pyr, cams, T_warm, T_cold, opts,
     return torch.where(c_warm <= c_cold, T_warm, T_cold)
 
 
+def _multistart(templates, channels, cams, T, opts_per_level,
+                start_level: int, max_test_level: int, multistart_px: float):
+    """The alias-recovery multi-start (config coarseInitOffsetPx,
+    bpvo_tpu/vo/pose_estimator.py:85-130): the robust cost (mean |r| over
+    valid points) of T and of T shifted by +-multistart_px full-resolution
+    pixels in x and in y, metricized by the median template depth, at the
+    level midway between the start and the finest solved level (the
+    coarsest cannot resolve one texture period).  The centred candidate
+    wins ties by a 0.999 margin.  Returns (the cheapest candidate, its
+    index)."""
+    pl = min(max((start_level + max_test_level) // 2, max_test_level),
+             start_level)
+    td, o = templates[pl], opts_per_level[pl]
+    zmed = mestimator.masked_median_sort(td.points[:, 2], td.valid)
+    step = multistart_px * zmed / cams[0].fx
+
+    def robust_cost(Tp):
+        r, valid = td_mod.compute_residuals(td, channels[pl], cams[pl], Tp,
+                                            o.interp, warp=o.warp)
+        n = torch.clamp(torch.sum(valid), min=1).to(torch.float32)
+        return torch.sum(torch.abs(torch.where(valid[None, :], r, 0.0))) / n
+
+    def shifted(row, d):
+        Ts = T.clone()
+        Ts[row, 3] += d
+        return Ts
+
+    cands = torch.stack([T, shifted(0, step), shifted(0, -step),
+                         shifted(1, step), shifted(1, -step)])
+    costs = torch.stack([robust_cost(Tc) for Tc in cands])
+    costs = torch.cat([costs[:1] * 0.999, costs[1:]])
+    best = torch.argmin(costs)
+    return cands[best], best
+
+
 def _estimate_all(templates, channels, cams, T_init, opts_per_level,
                   max_test_level: int, good_threshold: float,
                   min_points: int = 0, solver: str = "GaussNewton",
@@ -56,16 +94,15 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
     down to ``max_test_level``.  ``alt_init`` is taken instead of ``T_init``
     when its photometric cost at the start level is not higher.
     ``run_graphs`` (one ``gauss_newton.RunGraphs`` per level) replays the
-    iterations of levels that take ``gauss_newton.run``.
+    iterations of levels that take ``gauss_newton.run``.  ``solver`` is
+    "GaussNewton" or "LevenbergMarquardt"; ``multistart_px`` > 0 runs the
+    multi-start probe (``_multistart``) first.
 
     Returns (T, iters (L,), f_norm (L,), g (L, 6), status (L,), frac_good,
     H (6,6), finest weights, band_overflow ()), all on the device; levels
     not solved keep zeros and STATUS_MAX_ITERATIONS."""
-    if solver != "GaussNewton":
-        raise NotImplementedError(f"poseEstimator {solver} is not ported yet")
-    if multistart_px > 0:
-        raise NotImplementedError("coarseInitOffsetPx > 0 (the multi-start "
-                                  "probe) is not ported yet")
+    if solver not in ("GaussNewton", "LevenbergMarquardt"):
+        raise ValueError(f"unknown poseEstimator {solver!r}")
     n_levels = len(channels)
     if start_level < 0:
         start_level = n_levels - 1
@@ -75,6 +112,9 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
         T = _gated_warm_start(templates, channels, cams,
                               alt_init.to(torch.float32), T,
                               opts_per_level[start_level], level=start_level)
+    if multistart_px > 0:
+        T, _ = _multistart(templates, channels, cams, T, opts_per_level,
+                           start_level, max_test_level, multistart_px)
     iters = [torch.zeros((), dtype=torch.int32, device=dev)] * n_levels
     fs = [torch.zeros((), dtype=torch.float32, device=dev)] * n_levels
     gs = [torch.zeros(6, dtype=torch.float32, device=dev)] * n_levels
@@ -82,9 +122,13 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
                          device=dev)] * n_levels
     finest = None
     for level in range(start_level, max_test_level - 1, -1):
-        st = gn.solve_level(templates[level], channels[level], cams[level], T,
-                            opts_per_level[level],
-                            graphs=run_graphs and run_graphs[level])
+        if solver == "LevenbergMarquardt":
+            st = lm.run(templates[level], channels[level], cams[level], T,
+                        opts_per_level[level])
+        else:
+            st = gn.solve_level(templates[level], channels[level],
+                                cams[level], T, opts_per_level[level],
+                                graphs=run_graphs and run_graphs[level])
         enough = templates[level].num_valid >= min_points
         T = torch.where(enough, st.T, T)
         iters[level] = torch.where(enough, st.num_iters, 0).to(torch.int32)
@@ -93,9 +137,11 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
     td = templates[max_test_level]
     frac = gn.fraction_of_good_points(finest.weights, td.num_channels,
                                       td.num_valid, good_threshold)
+    # LM has no band_overflow: no kernel samples in bands on its route
+    bo = getattr(finest, "band_overflow",
+                 torch.zeros((), dtype=torch.int32, device=dev))
     return (T, torch.stack(iters), torch.stack(fs), torch.stack(gs),
-            torch.stack(status), frac, finest.H, finest.weights,
-            finest.band_overflow)
+            torch.stack(status), frac, finest.H, finest.weights, bo)
 
 
 class PoseEstimator:
@@ -110,8 +156,9 @@ class PoseEstimator:
 
     def _level_graphs(self, channels_pyr):
         """One ``gauss_newton.RunGraphs`` per level on CUDA (the graphed
-        route of ``gauss_newton.run``), None on the CPU."""
-        if self._run_graphs is None and channels_pyr[0].device.type == "cuda":
+        route of ``gauss_newton.run``), None on the CPU and for LM."""
+        if (self._run_graphs is None and self._p.poseEstimator == "GaussNewton"
+                and channels_pyr[0].device.type == "cuda"):
             self._run_graphs = tuple(gn.RunGraphs()
                                      for _ in range(len(channels_pyr)))
         return self._run_graphs

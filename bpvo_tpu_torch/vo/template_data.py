@@ -64,16 +64,11 @@ def _channel_gradients(channels, rows, cols, method: GradientEstimationType):
     return gx, gy
 
 
-def _require_rigid_body(warp: str):
-    if warp != "RigidBody":
-        raise NotImplementedError(f"the {warp} warp is not ported yet")
-
-
 def set_data(channels, disparity, cam: warp_mod.CameraModel,
              p: AlgorithmParameters, capacity: int, level: int) -> TemplateData:
     """Build a template from descriptor channels (C, H, W) and the
     level-strided disparity (H, W) (``imgproc.disparity_at_level``)."""
-    _require_rigid_body(p.warpType)
+    disparity_space = p.warpType == "DisparitySpace"
     # stage 1: selection, back-projection, Hartley normalization
     C, H, W = channels.shape
     sel = selection.select_pixels(
@@ -83,23 +78,33 @@ def set_data(channels, disparity, cam: warp_mod.CameraModel,
         min_disparity=p.minValidDisparity, max_disparity=p.maxValidDisparity,
         border=max(p.nonMaxSuppRadius, 3))
     d_safe = torch.where(sel.valid, sel.disparity, 1.0)
-    points = warp_mod.make_points(cam, sel.cols.to(torch.float32),
-                                  sel.rows.to(torch.float32), d_safe)
-    # padding slots get the finite dummy point (0, 0, 1): Z must stay nonzero
-    # or 1/Z puts inf/NaN into the Jacobians that masking cannot remove
-    dummy = torch.tensor([0.0, 0.0, 1.0], dtype=points.dtype,
-                         device=points.device)
-    points = torch.where(sel.valid[:, None], points, dummy)
-    if p.withNormalization:
-        s, c = warp_mod.hartley_normalization(points, sel.valid)
-    else:
+    xf, yf = sel.cols.to(torch.float32), sel.rows.to(torch.float32)
+    if disparity_space:
+        # points (x-cx, y-cy, d), no normalization (reference
+        # disparity_space_warp.h:86-89)
+        points = warp_mod.disparity_space_make_points(cam, xf, yf, d_safe)
         s, c = warp_mod.identity_normalization(points.dtype, points.device)
+    else:
+        points = warp_mod.make_points(cam, xf, yf, d_safe)
+        # padding slots get the finite dummy point (0, 0, 1): Z must stay
+        # nonzero or 1/Z puts inf/NaN into the Jacobians that masking
+        # cannot remove
+        dummy = torch.tensor([0.0, 0.0, 1.0], dtype=points.dtype,
+                             device=points.device)
+        points = torch.where(sel.valid[:, None], points, dummy)
+        if p.withNormalization:
+            s, c = warp_mod.hartley_normalization(points, sel.valid)
+        else:
+            s, c = warp_mod.identity_normalization(points.dtype,
+                                                   points.device)
 
     # stage 2: per-point descriptor values, gradients, Jacobians
     pixels = _gather_at(channels, sel.rows, sel.cols)
     gx, gy = _channel_gradients(channels, sel.rows, sel.cols,
                                 p.gradientEstimation)
-    J = warp_mod.jacobian(cam, points, gx, gy, s, c)   # (C, K, 6)
+    J = (warp_mod.disparity_space_jacobian(cam, points, gx, gy)
+         if disparity_space
+         else warp_mod.jacobian(cam, points, gx, gy, s, c))   # (C, K, 6)
     pixels = torch.where(sel.valid[None, :], pixels, 0.0)
     J = torch.where(sel.valid[None, :, None], J, 0.0)
     return TemplateData(points=points, pixels=pixels, jacobians=J,
@@ -111,12 +116,14 @@ def set_data(channels, disparity, cam: warp_mod.CameraModel,
 def compute_residuals(tdata: TemplateData, channels,
                       cam: warp_mod.CameraModel, T,
                       method: InterpolationType, warp: str = "RigidBody"):
-    """r = I1(warp(x)) - I0(x) for all channels: project the K points by T,
-    mask out-of-view points, sample, subtract the template pixels.
+    """r = I1(warp(x)) - I0(x) for all channels: project the K points by T
+    (``warp`` "RigidBody" or "DisparitySpace"), mask out-of-view points,
+    sample, subtract the template pixels.
     Returns (r (C, K), valid (K,)) with invalid entries zeroed."""
-    _require_rigid_body(warp)
     _, H, W = channels.shape
-    u, v, Z = warp_mod.project(cam, T, tdata.points)
+    project = (warp_mod.disparity_space_project if warp == "DisparitySpace"
+               else warp_mod.project)
+    u, v, Z = project(cam, T, tdata.points)
     ok = tdata.valid & (Z > 1e-6) & interp.valid_mask(u, v, H, W, method)
     I1 = interp.sample(channels, u, v, ok, method)
     return (I1 - tdata.pixels) * ok[None, :], ok

@@ -1,8 +1,7 @@
 """Rigid-body SE(3) warp: stereo back-projection, analytic photometric
-Jacobians and Hartley normalization (counterpart of the RigidBody part of
-``bpvo_tpu/vo/warp.py``; the derivation of the Jacobian is in that file).
-
-The DisparitySpace warp is not ported yet.
+Jacobians and Hartley normalization, and the disparity-space warp
+(counterpart of ``bpvo_tpu/vo/warp.py``, where the Jacobians are derived;
+reference rigid_body_warp.h, disparity_space_warp.{h,cc}).
 """
 from __future__ import annotations
 
@@ -119,3 +118,70 @@ def jacobian(cam: CameraModel, points, gx, gy, s, c):
     j_v2 = b * zi * inv_s
     j_v3 = -q * inv_s
     return torch.stack([j_w1, j_w2, j_w3, j_v1, j_v2, j_v3], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the disparity-space warp (reference bpvo/disparity_space_warp.{h,cc})
+# ---------------------------------------------------------------------------
+
+def disparity_space_G(cam: CameraModel, device=None):
+    """G maps the homogeneous 3D point to the centred disparity-space point
+    q = (x-cx, y-cy, d, 1) up to scale (disparity_space_warp.cc:36-46); a
+    rigid pose T acts on q as G T G^-1."""
+    fx, fy, b = cam.fx, cam.fy, cam.baseline
+    return torch.tensor([[fx, 0.0, 0.0, 0.0], [0.0, fy, 0.0, 0.0],
+                         [0.0, 0.0, 0.0, fx * b], [0.0, 0.0, 1.0, 0.0]],
+                        dtype=torch.float32, device=device)
+
+
+def disparity_space_G_inv(cam: CameraModel, device=None):
+    fx, fy, b = cam.fx, cam.fy, cam.baseline
+    f32 = np.float32
+    return torch.tensor([[float(f32(1) / f32(fx)), 0.0, 0.0, 0.0],
+                         [0.0, float(f32(1) / f32(fy)), 0.0, 0.0],
+                         [0.0, 0.0, 0.0, 1.0],
+                         [0.0, 0.0, float(f32(1) / (f32(fx) * f32(b))), 0.0]],
+                        dtype=torch.float32, device=device)
+
+
+def disparity_space_make_points(cam: CameraModel, x, y, d):
+    """Template points of the disparity-space warp: (x-cx, y-cy, d)."""
+    return torch.stack([x - cam.cx, y - cam.cy, d], dim=-1)
+
+
+def disparity_space_project(cam: CameraModel, T, points):
+    """Warp disparity-space points (N, 3) by the rigid pose T and project:
+    pw = (G T G^-1) (p, 1), (u, v) = pw[:2] / pw[3] + (cx, cy).  Returns
+    (u, v, w), w = pw[3] > 0 iff the point is in front of the camera."""
+    dev = points.device
+    H = (disparity_space_G(cam, dev) @ T.to(torch.float32)
+         @ disparity_space_G_inv(cam, dev))
+    q = torch.cat([points, torch.ones_like(points[:, :1])], dim=-1)
+    pw = q @ H.T
+    wi = 1.0 / pw[:, 3]
+    return pw[:, 0] * wi + cam.cx, pw[:, 1] * wi + cam.cy, pw[:, 3]
+
+
+def disparity_space_jacobian(cam: CameraModel, points, gx, gy):
+    """Batched 1x6 photometric Jacobian of the disparity-space warp at the
+    identity, twist order (w1 w2 w3 v1 v2 v3): ``points`` (N, 3), ``gx``/
+    ``gy`` (..., N) -> (..., N, 6)."""
+    x, y, d = points[:, 0], points[:, 1], points[:, 2]
+    fx, fy = cam.fx, cam.fy
+    k = d / (fx * cam.baseline)
+    t4 = gx * x + gy * y
+    j_w1 = -gy * fy - t4 * y / fy
+    j_w2 = gx * fx + t4 * x / fx
+    j_w3 = gy * fy * x / fx - gx * fx * y / fy
+    j_v1 = gx * fx * k
+    j_v2 = gy * fy * k
+    j_v3 = -t4 * k
+    return torch.stack([j_w1, j_w2, j_w3, j_v1, j_v2, j_v3], dim=-1)
+
+
+def disparity_space_warp_points(cam: CameraModel, T, xyd):
+    """(x, y, d) points warped by the rigid pose T -> (x', y', d'):
+    back-project, move, project."""
+    x, y, d = xyd[:, 0], xyd[:, 1], xyd[:, 2]
+    u, v, Z = project(cam, T, make_points(cam, x, y, d))
+    return torch.stack([u, v, cam.fx * cam.baseline / Z], dim=-1)

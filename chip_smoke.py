@@ -51,7 +51,8 @@
    and ``irls_reduce_w`` / ``irls_reduce`` at M = K and 8K the same way
    (``irls_reduce``'s sums bit for bit those of ``irls_reduce_w``; each
    timed on its own, with its own bound); one wrapper call of each must run
-   exactly one device kernel (torch.profiler).
+   exactly one device kernel (the kernel nodes of a CUDA graph of the
+   call, ``probes.timing.device_kernels``).
    Phases 2 and 5 add one line each: ``gauss_newton.run`` against
    ``level_gn`` at the bench L0 (K = 16384): both times and the pose
    difference.
@@ -107,6 +108,30 @@
    with ``TpuBlockMatching`` (D=128 / 96, 1+10 frames); TpuBlockMatching's
    ms per call at both sizes and its card-vs-CPU equal share (at least
    BM_SHARE_FLOOR).  One ``{"app_phase": ...}`` JSON line.
+12. Zoo phase (the single-device options: the six other descriptors, LM,
+   the multi-start, cubic sampling, the DisparitySpace warp), on
+   conf/eval_corridor.cfg's corridor at 240x320: ``level_gn`` against its
+   plain version at C = 3, 5, 10 and 48 (IntensityAndGradient,
+   DescriptorFields1/2, CentralDifference) on the finest level (phase 2's
+   checks and prints); ``fused_linearize`` at C = 3, 5 and 10 on a dense
+   finest level (65536 points, NMS off) and ``irls_reduce_w`` /
+   ``irls_reduce`` on the gather route (Bit-Planes, CUBIC_HERMITE, M = 8K)
+   with phase 7's checks; LATCH's comparison bits card vs CPU (at most
+   LATCH_FLIP_BOUND flipped); then, with the counts at 0,
+   ``apps.eval_descriptors`` over 1+8 frames for all 8 descriptors with GN
+   and LM (the main path: level_gn and irls_reduce must launch): poses
+   finite, within ZOO_ATOL_C1 (C = 1) or ZOO_ATOL of the JAX package's
+   (tests/data/torch_port_zoo_ref.npz; JAX's level route for the cells of
+   ZOO_JAX_LEVEL_ROUTE), ATE within JAX's own plus ZOO_ATE_MARGIN,
+   iterations per frame within ZOO_ITERS_CELL of JAX's per cell and within
+   ZOO_ITERS_POOLED of JAX's summed over each solver's cells, ms and
+   iterations per frame printed per cell; the gather
+   route (Bit-Planes, CUBIC_HERMITE: irls_reduce inside gauss_newton.run's
+   CUDA graphs) and dense DescriptorFields1 (fused_linearize at C = 5) over
+   1+4 frames, counted, within ZOO_GT_BOUND of the ground truth; ``python -m
+   bpvo_tpu_torch.apps.vo`` on conf/tsukuba.cfg over the app phase's
+   NewTsukuba tree in a process of its own, within ZOO_ATOL_C1 of JAX's
+   poses.  One ``{"zoo_phase": ...}`` JSON line.
 
 Any failure exits non-zero.  The line before the last is a JSON object with
 the kernels' launches (summed over the VO phases that run each; for the
@@ -120,7 +145,8 @@ replayed from a CUDA graph of 10 calls, per shape (``replayed_ms_by_shape``:
 per call of a 10-call graph; earlier versions of this script replayed one
 call per graph, which also timed the host's graph launches, so their
 readings do not compare), the device kernels one
-call runs (``kernels_per_call``) and, for irls_reduce, the call without
+call runs (``kernels_per_call``; the zoo phase's shapes are keyed "zoo ...")
+and, for irls_reduce, the call without
 the weight store (``no_weights_*``); for the probes "ms" is the replayed
 device time), the least time the card could take for the same work (``bound_ms``:
 the larger of the bytes moved over 3.35 TB/s and the f32 operations over
@@ -129,7 +155,9 @@ distinct pixels this run's points read; ``level_gn`` counts the median
 search only on the iterations that re-estimate sigma, as its plain version
 runs them) and the library call's time where there is one (``level_gn``'s
 "ms", "plain_ms" and "bound_ms" sum the 8 bench level shapes; its
-``*_by_path`` and ``*_by_level`` keys add the dense L2 and L3); the
+``*_by_path`` and ``*_by_level`` keys add the dense L2 and L3 and the
+zoo's corridor L0 at C = 3, 5, 10, 48, ``launches_by_path`` the zoo's
+three counted runs); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -207,6 +235,37 @@ APP_SHORT_FRAMES = 11            # synthetic_stereo and Tsukuba: 1+10 frames
 # argmins (accepted delta g; 0.912 of the pixels equal at 376x1241x128 in
 # the first chip run)
 BM_SHARE_FLOOR = 0.85
+# zoo phase: conf/eval_corridor.cfg (240x320) cut to 1+8 frames per cell,
+# every descriptor with GN and LM, against tests/data/torch_port_zoo_ref.npz
+# (scripts/make_torch_port_ref.py zoo); conf/tsukuba.cfg on the app phase's
+# NewTsukuba tree
+REF_ZOO_NPZ = os.path.join(HERE, "tests", "data", "torch_port_zoo_ref.npz")
+ZOO_FRAMES = 9
+ZOO_DESCRIPTORS = ("Intensity", "BitPlanes", "IntensityAndGradient",
+                   "DescriptorFields1", "DescriptorFields2",
+                   "CentralDifference", "Laplacian", "Latch")
+ZOO_SOLVERS = ("GaussNewton", "LevenbergMarquardt")
+# poses against the JAX CPU route: the card runs the level kernel
+# (bisection median) at every GN level where JAX runs gauss_newton.run
+# (histogram median), and LM's sums in the kernel's order
+ZOO_ATOL_C1, ZOO_ATOL = 5e-4, 2e-3
+ZOO_ATE_MARGIN = 1e-3
+# cells held to JAX's level route (its level kernel forced, interpret mode
+# on the CPU: the ``_level_`` keys of the reference) where JAX's CPU route
+# parts from it: Laplacian with GN on the corridor, from frame 2 on (1.65e-2
+# in pose; the port's plain versions on the CPU are 4.1e-4 from JAX's level
+# route, delta j)
+ZOO_JAX_LEVEL_ROUTE = ("Laplacian+GaussNewton",)
+# iterations per frame (frames 5-8, as eval_descriptors averages them)
+# against JAX's: LM stops only on an accepted step, and at the noise floor
+# one package may accept where the other runs on to maxIterations (100;
+# delta i), which moves a cell's mean by up to 25 per level solve; so a
+# cell is held within 2 such solves, and each solver's sum over the 8
+# cells within 25% of JAX's sum
+ZOO_ITERS_CELL = 50.0
+ZOO_ITERS_POOLED = 0.25
+ZOO_GT_BOUND = 0.05      # zoo_gather / zoo_dense: 1+4 frames, world pose
+LATCH_FLIP_BOUND = 1e-3  # LATCH comparison bits flipped, card vs CPU
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bandwidth and the f32
 # rate outside the tensor cores; bound_ms is the larger of bytes / the one
 # and operations / the other
@@ -326,6 +385,27 @@ def write_tsukuba_tree(root, n_frames, rows=480, cols=640, z0=3.0):
         imageio.imwrite(os.path.join(
             gt, f"tsukuba_disparity_L_{i + 1:05d}.png"), u8(frame.disparity))
     return root
+
+
+def write_zoo_configs(root, tsukuba_root):
+    """The zoo phase's two configs under ``root``: conf/eval_corridor.cfg
+    with ZOO_FRAMES frames, and conf/tsukuba.cfg reading the NewTsukuba
+    tree at ``tsukuba_root``.  Returns their paths."""
+    os.makedirs(root, exist_ok=True)
+    out = []
+    for name, edit in (
+            ("eval_corridor.cfg", {"SyntheticNumFrames": ZOO_FRAMES}),
+            ("tsukuba.cfg", {"DataSetRootDirectory": tsukuba_root})):
+        path = os.path.join(root, name)
+        with open(os.path.join(HERE, "conf", name)) as src, \
+                open(path, "w") as f:
+            for line in src:
+                if line.split("=")[0].strip() not in edit:
+                    f.write(line)
+            for key, value in edit.items():
+                f.write(f"{key} = {value}\n")
+        out.append(path)
+    return tuple(out)
 
 
 def _require(cond, msg):
@@ -1352,6 +1432,343 @@ def app_phase(sframes, K, baseline, dev, smi):
             "block_matching_card_cpu_equal_share": bm_share}
 
 
+def _fused_zoo_check(label, td, ch, cam, opts):
+    """fused_linearize against its plain version on one template level at
+    the identity pose (phase 7's checks).  Returns (max |dw|, (ms, plain
+    ms, replayed ms, plain replayed ms), (bound ms, bound by), device
+    kernels per call)."""
+    import torch
+    from bpvo_tpu_torch.ops import fused_linearize as fl
+    from bpvo_tpu_torch.ops import interp
+    from bpvo_tpu_torch.probes import timing
+    from bpvo_tpu_torch.solver import mestimator
+    from bpvo_tpu_torch.vo import template_data, warp
+    T0 = torch.eye(4, dtype=torch.float32, device=ch.device)
+    C, K = td.pixels.shape
+    u, v, Z = warp.project(cam, T0, td.points)
+    ok = td.valid & (Z > 1e-6) & interp.valid_mask(
+        u, v, ch.shape[1], ch.shape[2], opts.interp)
+    r, _ = template_data.compute_residuals(td, ch, cam, T0, opts.interp)
+    sigma = mestimator.estimate_scale(r[0], ok)
+    a = (u, v, ok, ch, td.pixels, td.jacobians, sigma, opts.loss,
+         opts.interp)
+    got = fl.fused_linearize(*a)
+    want = fl.fused_linearize_reference(*a)
+    torch.cuda.synchronize()
+    r0_same = torch.equal(got[3].view(torch.int32), want[3].view(torch.int32))
+    t_k = _cuda_ms(lambda: fl.fused_linearize(*a), KERNEL_REPS)
+    t_p = _cuda_ms(lambda: fl.fused_linearize_reference(*a), PLAIN_REPS)
+    d_k = timing.graph_ms(lambda: fl.fused_linearize(*a), KERNEL_REPS,
+                          GN_PER_GRAPH)
+    d_p = timing.graph_ms(lambda: fl.fused_linearize_reference(*a),
+                          KERNEL_REPS, GN_PER_GRAPH)
+    n_k = len(timing.device_kernels(lambda: fl.fused_linearize(*a)))
+    print(f"  {label}: K={K}, {int(ok.sum())} points in view, r0 bitwise "
+          f"{r0_same}; kernel {t_k:.4f} ms through the wrapper, {d_k:.4f} "
+          f"ms replayed, {n_k} device kernel(s) per call; plain {t_p:.4f} "
+          f"ms, {d_p:.4f} ms replayed")
+    _require(r0_same, f"{label}: r0 differs from the plain version")
+    _require(n_k == 1, f"{label}: {n_k} device kernels per call")
+    dw = _gn_check(label, got, want)
+    bound = _bound(_nbytes(*a[:3], *a[4:7], *got) + _tap_bytes(
+        ch, _taps(u, v, ok, ch.shape[1], ch.shape[2])),
+        K * (OPS_LIN_POINT + C * OPS_LIN_CHANNEL))
+    return dw, (t_k, t_p, d_k, d_p), bound, n_k
+
+
+def _irls_zoo_check(label, td, ch, cam, opts):
+    """irls_reduce_w (and irls_reduce) against the plain version on the
+    gather route: the template's residuals sampled by ``opts.interp`` at
+    the identity pose, sigma from channel 0.  Returns (max |dw|, (ms,
+    plain ms, replayed ms, plain replayed ms, no-weights ms, no-weights
+    replayed ms), (bound ms, by, no-weights bound ms, by), device kernels
+    per call)."""
+    import torch
+    from bpvo_tpu_torch.ops import irls
+    from bpvo_tpu_torch.probes import timing
+    from bpvo_tpu_torch.solver import mestimator
+    from bpvo_tpu_torch.vo import template_data
+    T0 = torch.eye(4, dtype=torch.float32, device=ch.device)
+    C, K = td.pixels.shape
+    r, ok = template_data.compute_residuals(td, ch, cam, T0, opts.interp,
+                                            warp=opts.warp)
+    sigma = mestimator.estimate_scale(r[0], ok)
+    b = (td.jacobians.reshape(-1, 6), r.reshape(-1),
+         ok.expand(C, K).reshape(-1), sigma, opts.loss)
+    got = irls.irls_reduce_w(*b)
+    got3 = irls.irls_reduce(*b)
+    want = irls.irls_reduce_reference(*b)
+    torch.cuda.synchronize()
+    _require(all(torch.equal(x, y) for x, y in zip(got3, got[:3])),
+             f"{label}: irls_reduce and irls_reduce_w differ")
+    t_k = _cuda_ms(lambda: irls.irls_reduce_w(*b), KERNEL_REPS)
+    t_p = _cuda_ms(lambda: irls.irls_reduce_reference(*b), PLAIN_REPS)
+    d_k = timing.graph_ms(lambda: irls.irls_reduce_w(*b), KERNEL_REPS,
+                          GN_PER_GRAPH)
+    d_p = timing.graph_ms(lambda: irls.irls_reduce_reference(*b),
+                          KERNEL_REPS, GN_PER_GRAPH)
+    t_3 = _cuda_ms(lambda: irls.irls_reduce(*b), KERNEL_REPS)
+    d_3 = timing.graph_ms(lambda: irls.irls_reduce(*b), KERNEL_REPS,
+                          GN_PER_GRAPH)
+    n_k = max(len(timing.device_kernels(fn)) for fn in (
+        lambda: irls.irls_reduce_w(*b), lambda: irls.irls_reduce(*b)))
+    print(f"  {label}: M={C * K}, {int(ok.sum())} points in view; "
+          f"irls_reduce_w {t_k:.4f} ms through the wrapper, {d_k:.4f} ms "
+          f"replayed; irls_reduce {t_3:.4f} / {d_3:.4f} ms; {n_k} device "
+          f"kernel(s) per call; plain {t_p:.4f} ms, {d_p:.4f} ms replayed")
+    _require(n_k == 1, f"{label}: {n_k} device kernels per call")
+    dw = _gn_check(label, got, want)
+    ops = C * K * OPS_IRLS_TERM
+    bound = (_bound(_nbytes(*b[:4], *got), ops)
+             + _bound(_nbytes(*b[:4], *got3), ops))
+    return dw, (t_k, t_p, d_k, d_p, t_3, d_3), bound, n_k
+
+
+def _world_of(run):
+    """World poses (n, 4, 4) of a KITTI-format trajectory file."""
+    import numpy as np
+    rows = np.loadtxt(run, ndmin=2).reshape(-1, 3, 4)
+    bottom = np.broadcast_to([0.0, 0.0, 0.0, 1.0], (len(rows), 1, 4))
+    return np.concatenate([rows, bottom], axis=1)
+
+
+def _zoo_corridor(dev, root):
+    """(corridor config path, its parameters, dataset, K, baseline, image
+    size) of the zoo phase, its configs written under ``root``."""
+    from bpvo_tpu_torch import AlgorithmParameters, ConfigFile
+    from bpvo_tpu_torch.data.dataset import create_dataset
+    corridor_cfg = write_zoo_configs(root, os.path.join(
+        HERE, "build", "app_phase", "tsukuba"))[0]
+    ds = create_dataset(ConfigFile(corridor_cfg), device=dev)
+    return (corridor_cfg, AlgorithmParameters.from_config(
+        ConfigFile(corridor_cfg)), ds, ds.calibration.K,
+        ds.calibration.baseline, ds.image_size)
+
+
+def zoo_kernel_phase(dev):
+    """The option zoo's kernel checks on the corridor at 240x320 (see the
+    module docstring, phase 12): level_gn at C = 3, 5, 10, 48;
+    fused_linearize at C = 3, 5, 10 above 16384 points; irls_reduce_w on
+    the gather route; LATCH's bits card vs CPU.  Returns ({"C=<n>":
+    kernel_phase result}, {shape: fused check}, {shape: irls check},
+    (flipped bits, bits))."""
+    import torch
+    from bpvo_tpu_torch import DescriptorType, InterpolationType
+    from bpvo_tpu_torch.ops import descriptors
+    from bpvo_tpu_torch.vo import device_vo
+
+    t0 = time.perf_counter()
+    _, base, ds, K, b, shape = _zoo_corridor(
+        dev, os.path.join(HERE, "build", "zoo_phase"))
+    f0, f1 = ds.get_frame(0), ds.get_frame(1)
+
+    def params(desc, **kw):
+        return base.replace(descriptor=DescriptorType(desc), **kw)
+
+    # level_gn at C = 3, 5, 10, 48 on the corridor's finest level
+    lg_zoo = {}
+    for desc in ("IntensityAndGradient", "DescriptorFields1",
+                 "DescriptorFields2", "CentralDifference"):
+        p = params(desc)
+        C = descriptors.num_channels(p.descriptor, p)
+        print(f"zoo level_gn {desc} C={C}:")
+        vo = device_vo.DeviceVO(K, b, shape, p, device=dev)
+        lg_zoo[f"C={C}"] = kernel_phase(vo, (f0.image, f0.disparity),
+                                        f1.image, dev, levels=(0,))
+        del vo
+
+    # fused_linearize at C = 3, 5, 10 above 16384 points (NMS off): the
+    # finest level of a dense corridor template
+    fused, irls_ = {}, {}
+    for desc in ("IntensityAndGradient", "DescriptorFields1",
+                 "DescriptorFields2"):
+        p = params(desc, pointCapacity=65536,
+                   minNumPixelsForNonMaximaSuppression=10 ** 9)
+        vo = device_vo.DeviceVO(K, b, shape, p, device=dev)
+        vo.init(f0.image, f0.disparity)
+        ch = device_vo._compute_channels_pyr(
+            torch.as_tensor(f1.image).to(dev), p, p.numPyramidLevels)[0]
+        C = ch.shape[0]
+        fused[f"zoo dense L0 C={C}"] = _fused_zoo_check(
+            f"fused_linearize zoo dense L0 C={C}", vo.state.templates[0], ch,
+            vo._cams[0], vo._opts[0])
+        del vo
+
+    # irls_reduce_w on the gather route: Bit-Planes (C = 8) under
+    # CUBIC_HERMITE at the corridor's finest level
+    p = params("BitPlanes", interp=InterpolationType.CUBIC_HERMITE)
+    vo = device_vo.DeviceVO(K, b, shape, p, device=dev)
+    vo.init(f0.image, f0.disparity)
+    ch = device_vo._compute_channels_pyr(
+        torch.as_tensor(f1.image).to(dev), p, p.numPyramidLevels)[0]
+    irls_["zoo gather L0 M=8K"] = _irls_zoo_check(
+        "irls_reduce zoo gather (Bit-Planes, CUBIC_HERMITE) L0 M=8K",
+        vo.state.templates[0], ch, vo._cams[0], vo._opts[0])
+    del vo
+
+    # LATCH's comparison bits, card against CPU, on corridor frame 0
+    img = torch.as_tensor(f0.image, dtype=torch.float32)
+    bits_gpu = descriptors.latch(img.to(dev), base.latchNumBytes,
+                                 base.latchHalfSsdSize, sigma_post=0.0).cpu()
+    bits_cpu = descriptors.latch(img, base.latchNumBytes,
+                                 base.latchHalfSsdSize, sigma_post=0.0)
+    flips = int((bits_gpu != bits_cpu).sum())
+    print(f"LATCH bits card vs CPU: {flips} of {bits_cpu.numel()} flipped")
+    _require(flips <= LATCH_FLIP_BOUND * bits_cpu.numel(),
+             f"LATCH: {flips} bits flipped between card and CPU")
+    _lap(t0, "zoo kernel checks")
+    return lg_zoo, fused, irls_, (flips, bits_cpu.numel())
+
+
+def zoo_phase(dev, smi, tsukuba_root, latch_bits):
+    """The option zoo's VO runs on the card (see the module docstring,
+    phase 12): eval_descriptors against the JAX reference (the main path,
+    counted), the gather and dense zoo routes, conf/tsukuba.cfg through
+    apps.vo on the NewTsukuba tree at ``tsukuba_root``.  ``latch_bits``:
+    zoo_kernel_phase's (flipped, bits).  Returns (the ``zoo_phase`` JSON
+    object, {path: launch counts})."""
+    import shutil
+
+    import numpy as np
+    from bpvo_tpu_torch import (DescriptorType, InterpolationType,
+                                VisualOdometry)
+    from bpvo_tpu_torch.apps import eval_descriptors
+    from bpvo_tpu_torch.ops import descriptors
+    from bpvo_tpu_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    ref = dict(np.load(REF_ZOO_NPZ))
+    _require(int(ref["frames"]) == ZOO_FRAMES,
+             f"{REF_ZOO_NPZ} holds {int(ref['frames'])} frames per cell, "
+             f"this script runs {ZOO_FRAMES}")
+    root = os.path.join(HERE, "build", "zoo_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    corridor_cfg, base, ds, K, b, shape = _zoo_corridor(dev, root)
+    tsukuba_cfg = write_zoo_configs(root, tsukuba_root)[1]
+
+    def params(desc, **kw):
+        return base.replace(descriptor=DescriptorType(desc), **kw)
+
+    # the main path: apps.eval_descriptors, all 8 descriptors with GN and
+    # LM, with the counts at 0
+    launches = {}
+    traj = {}
+    _reset_counts()
+    t = time.perf_counter()
+    cells = eval_descriptors.run(corridor_cfg, os.path.join(root, "eval"),
+                                 -1, None, ZOO_SOLVERS, device=dev,
+                                 trajectories=traj)
+    wall = time.perf_counter() - t
+    launches["zoo_eval_descriptors"] = _counts()
+    print(f"eval_descriptors: {len(cells)} cells x {ZOO_FRAMES} frames in "
+          f"{wall:.1f} s, launches {launches['zoo_eval_descriptors']}")
+    _require(launches["zoo_eval_descriptors"]["level_gn"] > 0,
+             "eval_descriptors: level_gn never ran")
+    _require(launches["zoo_eval_descriptors"]["irls_reduce"] > 0,
+             "eval_descriptors: irls_reduce never ran (LM at C > 1)")
+    table = {}
+    pooled = {solver: [0.0, 0.0] for solver in ZOO_SOLVERS}
+    for desc in ZOO_DESCRIPTORS:
+        p = params(desc)
+        C = descriptors.num_channels(p.descriptor, p)
+        for solver in ZOO_SOLVERS:
+            tag, key = f"{desc}+{solver}", f"{desc}_{solver}"
+            if tag in ZOO_JAX_LEVEL_ROUTE:
+                key += "_level"
+            atol = ZOO_ATOL_C1 if C == 1 else ZOO_ATOL
+            got, want = traj[tag], ref[f"{key}_world"]
+            err = float(np.abs(got - want).max())
+            cell = dict(cells[tag], max_pose_diff=err,
+                        jax_ate_rmse_m=float(ref[f"{key}_ate"]),
+                        jax_mean_iters=float(np.mean(
+                            ref[f"{key}_iters"][5:])),
+                        jax_route="level" if key.endswith("_level")
+                        else "cpu")
+            table[tag] = cell
+            pooled[solver][0] += cell["mean_iters"]
+            pooled[solver][1] += cell["jax_mean_iters"]
+            print(f"  {tag:40s} C={C:2d}: {cell['mean_ms']:8.3f} ms/frame, "
+                  f"{cell['mean_iters']:6.1f} iterations/frame (JAX "
+                  f"{cell['jax_mean_iters']:.1f}, {cell['jax_route']} "
+                  f"route), ATE {cell['ate_rmse_m']:.5f} m (JAX "
+                  f"{cell['jax_ate_rmse_m']:.5f}), max |pose - JAX| "
+                  f"{err:.3e} on {smi}")
+            _require(np.isfinite(got).all() and got.shape == want.shape,
+                     f"eval_descriptors {tag}: poses not finite or "
+                     f"{got.shape} frames")
+            _require(err <= atol, f"eval_descriptors {tag}: pose differs "
+                     f"from JAX's by {err} > {atol}")
+            _require(cell["ate_rmse_m"] <= cell["jax_ate_rmse_m"]
+                     + ZOO_ATE_MARGIN, f"eval_descriptors {tag}: ATE "
+                     f"{cell['ate_rmse_m']} > JAX's + {ZOO_ATE_MARGIN}")
+            _require(abs(cell["mean_iters"] - cell["jax_mean_iters"])
+                     <= ZOO_ITERS_CELL, f"eval_descriptors {tag}: "
+                     f"{cell['mean_iters']} iterations/frame, JAX "
+                     f"{cell['jax_mean_iters']}")
+    for solver, (n_port, n_jax) in pooled.items():
+        print(f"  {solver}: {n_port:.2f} iterations/frame summed over the "
+              f"{len(ZOO_DESCRIPTORS)} descriptors (JAX {n_jax:.2f})")
+        _require(abs(n_port - n_jax) <= ZOO_ITERS_POOLED * n_jax,
+                 f"eval_descriptors {solver}: {n_port} iterations/frame "
+                 f"summed over the cells, JAX {n_jax}")
+    _lap(t0, "zoo eval_descriptors")
+
+    # the gather route (Bit-Planes, CUBIC_HERMITE: every level on
+    # gauss_newton.run, irls_reduce_w inside its CUDA graphs) and dense
+    # DescriptorFields1 (C = 5 on fused_linearize at L0 and L1), 1+4
+    # frames each, with the counts at 0
+    frames = [ds.get_frame(i) for i in range(5)]
+    for name, p in (
+            ("zoo_gather", params("BitPlanes",
+                                  interp=InterpolationType.CUBIC_HERMITE)),
+            ("zoo_dense", params("DescriptorFields1", pointCapacity=65536,
+                                 minNumPixelsForNonMaximaSuppression=10 ** 9))):
+        vo = VisualOdometry(K, b, shape, p, device=dev)
+        _reset_counts()
+        replays = graphs.replay_count
+        poses = [vo.add_frame(f.image, f.disparity).pose for f in frames]
+        launches[name] = dict(_counts(),
+                              graph_replays=graphs.replay_count - replays)
+        gt = np.stack([ds.gt_world_pose(i) for i in range(5)])
+        err = float(np.abs(np.stack(vo.trajectory.poses) - gt).max())
+        print(f"{name}: launches {launches[name]} over {len(frames) - 1} "
+              f"frames, max |world pose - ground truth| {err:.3e}")
+        _require(np.isfinite(np.stack(poses)).all(), f"{name}: poses")
+        _require(err <= ZOO_GT_BOUND, f"{name}: {err} from ground truth")
+        kernel = "irls_reduce" if name == "zoo_gather" else "fused_linearize"
+        _require(launches[name][kernel] > 0, f"{name}: {kernel} never ran")
+        _require(launches[name]["graph_replays"] > 0,
+                 f"{name}: no CUDA graph replayed")
+        del vo
+
+    # conf/tsukuba.cfg (CD5, CUBIC_HERMITE) through the command line in a
+    # process of its own, on the app phase's NewTsukuba tree
+    out = os.path.join(root, "tsukuba", "out")
+    os.makedirs(os.path.dirname(out))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bpvo_tpu_torch.apps.vo", "--config",
+         tsukuba_cfg, "--output", out, "--device", str(dev)], cwd=HERE,
+        capture_output=True, text=True, timeout=600)
+    _require(proc.returncode == 0, "apps.vo --config tsukuba.cfg failed:\n"
+             f"{proc.stderr[-3000:]}")
+    world = _world_of(out + "_kitti.txt")
+    want = ref["tsukuba_world"]
+    err = float(np.abs(world - want).max()) if world.shape == want.shape \
+        else math.inf
+    print(f"apps.vo --config conf/tsukuba.cfg: {len(world)} frames in "
+          f"{time.perf_counter() - t:.1f} s, max |pose - JAX| {err:.3e}; "
+          f"{(proc.stderr.strip().splitlines() or [''])[-1]}")
+    _require(np.isfinite(world).all() and err <= ZOO_ATOL_C1,
+             f"apps.vo tsukuba: poses differ from JAX's by {err}")
+    _lap(t0, "zoo phase")
+    return ({"device": smi, "frames": ZOO_FRAMES, "cells": table,
+             "eval_descriptors_s": wall, "launches": launches,
+             "latch_flipped_bits": latch_bits[0],
+             "latch_bits": latch_bits[1], "tsukuba_max_pose_diff": err},
+            launches)
+
+
 def _probe_entry(smi, name, source, replaces, launches, step, var, shape):
     """One probe kernel's entry of the kernels line, from the probe runner's
     result: ``var`` holds the kernel's check against its plain version and
@@ -1633,13 +2050,30 @@ def main() -> int:
     print(json.dumps({"app_phase": app_phase(sframes, K, baseline, dev,
                                              smi)}))
 
+    # the option zoo: its kernel checks, eval_descriptors over the
+    # corridor, the gather and dense zoo routes, conf/tsukuba.cfg on the
+    # app phase's tree
+    lg_zoo, fused_zoo, irls_zoo, latch_bits = zoo_kernel_phase(dev)
+    zoo_json, zoo_counts = zoo_phase(
+        dev, smi, os.path.join(HERE, "build", "app_phase", "tsukuba"),
+        latch_bits)
+    print(json.dumps({"zoo_phase": zoo_json}))
+    for kernel, extra in (("fused_linearize", fused_zoo),
+                          ("irls_reduce", irls_zoo)):
+        err, times, bounds, per_call = gnk[kernel]
+        for shape, (dw, t, bnd, n_k) in extra.items():
+            times[shape], bounds[shape], per_call[shape] = t, bnd, n_k
+        gnk[kernel] = (max([err] + [v[0] for v in extra.values()]), times,
+                       bounds, per_call)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     def by_path(kernel):
         return {"intensity": counts_i[kernel],
                 "stereo_bitplanes": counts_s[kernel],
                 "dense_intensity": dense["intensity"][kernel],
-                "dense_bitplanes": dense["bitplanes"][kernel]}
+                "dense_bitplanes": dense["bitplanes"][kernel],
+                **{path: c[kernel] for path, c in zoo_counts.items()}}
 
     def gn_entry(kernel, source, replaces, shape):
         err, times, bounds, per_call = gnk[kernel]
@@ -1669,7 +2103,8 @@ def main() -> int:
     lg_paths = {"intensity": (err_i, ms_i, plain_i, bound_i, levels_i),
                 "stereo_bitplanes": (err_b, ms_b, plain_b, bound_b, levels_b),
                 "dense_intensity": lg_dense["intensity"],
-                "dense_bitplanes": lg_dense["bitplanes"]}
+                "dense_bitplanes": lg_dense["bitplanes"],
+                **{f"zoo_corridor_{c}": r for c, r in lg_zoo.items()}}
 
     def by_level(key):
         return {path: {lvl: v[key] for lvl, v in r[4].items()}
@@ -1697,7 +2132,8 @@ def main() -> int:
         {"name": "census_planes", "route": "cuda",
          "source": "bpvo_tpu_torch/csrc/census.cu",
          "replaces": "bpvo_tpu/ops/pallas/census_kernel.py:46",
-         "launches": counts_s["census_planes"], "max_abs_err": err_c,
+         "launches": sum(by_path("census_planes").values()),
+         "launches_by_path": by_path("census_planes"), "max_abs_err": err_c,
          "ms": ms_c, "plain_ms": plain_c, "bound_ms": bound_c[0],
          "bound_by": bound_c[1], "library_ms": None},
         {"name": "sgm_aggregate", "route": "cuda",

@@ -18,7 +18,22 @@ tests hold the PyTorch port to:
   level), for the intensity descriptor (``intensity_*`` keys) and for
   Bit-Planes (``bitplanes_*`` keys).
 
-Each stores per frame the relative pose, the keyframe flag, the per-level
+- ``tests/data/torch_port_zoo_ref.npz``: JAX ``VisualOdometry`` on the CPU
+  over conf/eval_corridor.cfg (the synthetic corridor at 240x320, cut to
+  chip_smoke.ZOO_FRAMES frames) for each of the 8 descriptors with
+  Gauss-Newton and Levenberg-Marquardt (``<descriptor>_<solver>_world``:
+  world poses, ``_iters``: iterations per frame, ``_ate``: ATE RMSE
+  against the ground truth), as ``apps.eval_descriptors`` runs them; and
+  conf/tsukuba.cfg's settings (CD5 gradients, CUBIC_HERMITE sampling) over
+  the NewTsukuba tree that chip_smoke.py's app phase writes
+  (``tsukuba_world``, ``tsukuba_iters``).  The cells of
+  chip_smoke.ZOO_JAX_LEVEL_ROUTE are run a second time with JAX's level
+  kernel forced (``BPVO_LEVEL_KERNEL=force``: the Pallas kernel in
+  interpret mode, the route the port's ``level_gn`` takes on the card;
+  ``<descriptor>_<solver>_level_world``, ``_level_iters``, ``_level_ate``),
+  in a process of its own (``zoo_level``, which adds them to the file).
+
+The first three store per frame the relative pose, the keyframe flag, the per-level
 GN iterations and the ground-truth error max|se3.log(pose @ step^-1)| (the
 ``DeviceVO`` files also the world pose); the stereo file also stores the
 frame-0 disparity's valid count and mean |d - GT| over the valid pixels
@@ -32,7 +47,9 @@ Bit-Planes also with other per-level iteration counts), so the port is held
 to these poses by a cross-route tolerance, not by bitwise equality.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py \
-        [bench|stereo|dense]
+        [bench|stereo|dense|zoo]
+    JAX_PLATFORMS=cpu BPVO_LEVEL_KERNEL=force \
+        python scripts/make_torch_port_ref.py zoo_level
 """
 from __future__ import annotations
 
@@ -47,6 +64,7 @@ OUT = os.path.join(ROOT, "tests", "data", "torch_port_bench_ref.npz")
 OUT_STEREO = os.path.join(ROOT, "tests", "data",
                           "torch_port_bitplanes_sgm_ref.npz")
 OUT_DENSE = os.path.join(ROOT, "tests", "data", "torch_port_dense_ref.npz")
+OUT_ZOO = os.path.join(ROOT, "tests", "data", "torch_port_zoo_ref.npz")
 CONF = os.path.join(ROOT, "conf", "kitti_bitplanes.cfg")
 # dense VO at KITTI shape: NMS off as conf/tunnel.cfg sets it, and a point
 # capacity that every level fills
@@ -213,18 +231,122 @@ def dense_ref():
                         **out)
 
 
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _odometry_run(cf, params):
+    """The loop of apps.eval_descriptors: (world poses, iterations per
+    frame, ATE RMSE or NaN without ground truth)."""
+    from bpvo_tpu import VisualOdometry
+    from bpvo_tpu.data.dataset import create_dataset
+    from bpvo_tpu.eval import kitti_eval
+    dataset = create_dataset(cf)
+    calib = dataset.calibration
+    vo = VisualOdometry(calib.K, calib.baseline, dataset.image_size, params)
+    iters = [sum(s.num_iterations for s in vo.add_frame(
+        f.image, f.disparity).optimizer_statistics) for f in dataset]
+    world = np.stack(vo.trajectory.poses).astype(np.float64)
+    ate = np.nan
+    if hasattr(dataset, "gt_world_pose"):
+        gt = [dataset.gt_world_pose(i) for i in range(len(world))]
+        ate = float(kitti_eval.ate_rmse(gt, list(world)))
+    return world, np.asarray(iters, np.int32), ate
+
+
+def zoo_ref():
+    import tempfile
+    import time
+
+    from bpvo_tpu import AlgorithmParameters
+    from bpvo_tpu.config import ConfigFile
+    from bpvo_tpu.types import DescriptorType
+
+    cs = _chip_smoke()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tsukuba = cs.write_tsukuba_tree(os.path.join(tmp, "tsukuba"),
+                                        cs.APP_SHORT_FRAMES)
+        corridor_cfg, tsukuba_cfg = cs.write_zoo_configs(tmp, tsukuba)
+        cf = ConfigFile(corridor_cfg)
+        base = AlgorithmParameters.from_config(cf)
+        for desc in cs.ZOO_DESCRIPTORS:
+            for solver in cs.ZOO_SOLVERS:
+                t0 = time.perf_counter()
+                key = f"{desc}_{solver}"
+                world, iters, ate = _odometry_run(cf, base.replace(
+                    descriptor=DescriptorType(desc), poseEstimator=solver))
+                out.update({f"{key}_world": world, f"{key}_iters": iters,
+                            f"{key}_ate": ate})
+                print(f"{key}: {len(world)} frames, ATE {ate:.5f} m, "
+                      f"iterations/frame {iters[1:].mean():.1f} "
+                      f"({time.perf_counter() - t0:.1f} s)")
+        cf = ConfigFile(tsukuba_cfg)
+        world, iters, _ = _odometry_run(cf, AlgorithmParameters.from_config(
+            cf))
+        out.update(tsukuba_world=world, tsukuba_iters=iters)
+        print(f"tsukuba: {len(world)} frames, iterations/frame "
+              f"{iters[1:].mean():.1f}")
+    np.savez_compressed(OUT_ZOO, frames=cs.ZOO_FRAMES, **out)
+    print(f"wrote {OUT_ZOO}")
+    import subprocess
+    subprocess.run([sys.executable, os.path.abspath(__file__), "zoo_level"],
+                   env=dict(os.environ, BPVO_LEVEL_KERNEL="force"),
+                   check=True)
+
+
+def zoo_level_ref():
+    """Adds to OUT_ZOO the cells of chip_smoke.ZOO_JAX_LEVEL_ROUTE run with
+    JAX's level kernel (the caller sets BPVO_LEVEL_KERNEL=force)."""
+    import tempfile
+
+    from bpvo_tpu import AlgorithmParameters
+    from bpvo_tpu.config import ConfigFile
+    from bpvo_tpu.types import DescriptorType
+
+    if os.environ.get("BPVO_LEVEL_KERNEL") != "force":
+        raise SystemExit("zoo_level needs BPVO_LEVEL_KERNEL=force")
+    cs = _chip_smoke()
+    out = dict(np.load(OUT_ZOO))
+    with tempfile.TemporaryDirectory() as tmp:
+        cf = ConfigFile(cs.write_zoo_configs(tmp, tmp)[0])
+        base = AlgorithmParameters.from_config(cf)
+        for tag in cs.ZOO_JAX_LEVEL_ROUTE:
+            desc, solver = tag.split("+")
+            key = f"{desc}_{solver}_level"
+            world, iters, ate = _odometry_run(cf, base.replace(
+                descriptor=DescriptorType(desc), poseEstimator=solver))
+            out.update({f"{key}_world": world, f"{key}_iters": iters,
+                        f"{key}_ate": ate})
+            cpu_route = out[f"{desc}_{solver}_world"]
+            print(f"{key}: ATE {ate:.5f} m, iterations {iters.tolist()}, "
+                  f"max |pose - CPU route| "
+                  f"{np.abs(world - cpu_route).max():.3e}")
+    np.savez_compressed(OUT_ZOO, **out)
+    print(f"added the level-route cells to {OUT_ZOO}")
+
+
 def main():
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, ROOT)
     import jax
     jax.config.update("jax_platforms", "cpu")
-    which = sys.argv[1:] or ["bench", "stereo", "dense"]
+    which = sys.argv[1:] or ["bench", "stereo", "dense", "zoo"]
     if "bench" in which:
         bench_ref()
     if "stereo" in which:
         stereo_ref()
     if "dense" in which:
         dense_ref()
+    if "zoo" in which:
+        zoo_ref()
+    if "zoo_level" in which:
+        zoo_level_ref()
 
 
 if __name__ == "__main__":

@@ -153,5 +153,7 @@ def test_descriptor_compute_and_num_channels():
                                                                     0.5))
     assert descriptors.num_channels(DescriptorType.BITPLANES, p) == 8
     assert descriptors.num_channels(DescriptorType.INTENSITY, p) == 1
-    with pytest.raises(NotImplementedError):
-        descriptors.num_channels(DescriptorType.LATCH, p)
+    # LATCH, once refused: 8 channels per latchNumBytes
+    assert descriptors.num_channels(DescriptorType.LATCH, p) == 8
+    assert descriptors.num_channels(
+        DescriptorType.LATCH, p.replace(latchNumBytes=4)) == 32

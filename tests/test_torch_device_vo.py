@@ -108,11 +108,25 @@ def test_add_frames_recovers_motion(frames):
     assert float(err) < 2e-3, err
 
 
-def test_unported_solver_raises():
-    with pytest.raises(NotImplementedError):
-        DeviceVO(np.eye(3), 0.1, (64, 96),
-                 AlgorithmParameters(poseEstimator="LevenbergMarquardt"),
-                 device="cpu")
+def test_unported_solver_raises(frames):
+    """Levenberg-Marquardt, once refused, runs the eager step (no CUDA
+    graphs, no level kernel) and follows JAX's ``DeviceVO`` with LM: the
+    same keyframes, poses at atol 5e-4."""
+    cam = make_cam()
+    kw = dict(KW, poseEstimator="LevenbergMarquardt")
+    K, b = np.asarray(cam.K()), float(cam.baseline)
+    jvo = JDeviceVO(K, b, (H_IMG, W_IMG), JParams(**kw))
+    tvo = DeviceVO(K, b, (H_IMG, W_IMG), AlgorithmParameters(**kw),
+                   device="cpu")
+    assert tvo._graphs is None and tvo._run_graphs is None
+    for I, D in frames:
+        oj, ot = jvo.add_frame(I, D), tvo.add_frame(I, D)
+        if oj is None:
+            assert ot is None
+            continue
+        assert bool(ot.is_keyframe) == bool(oj.is_keyframe)
+        np.testing.assert_allclose(ot.pose.numpy(), np.asarray(oj.pose),
+                                   atol=5e-4)
 
 
 def test_synthetic_sequence_matches_bench():

@@ -79,17 +79,21 @@ def test_disparity_at_level():
 
 
 def test_descriptor_compute_intensity_only():
+    """Intensity and Bit-Planes through the factory; LATCH, once refused,
+    too: bitwise JAX's on this image (the comparison bits have no tie
+    here; tests/test_torch_zoo.py holds the bits to 99.9% in general)."""
     img = _t(synthetic_image())
     p = AlgorithmParameters()
-    """Intensity and Bit-Planes are ported; the rest of the zoo raises."""
     assert descriptors.compute(img, p).shape == (1, 120, 160)
     bp = descriptors.compute(img, p.replace(
         descriptor=DescriptorType.BITPLANES))
     np.testing.assert_array_equal(bp.numpy(), np.asarray(jdesc.bitplanes(
         jnp.asarray(img.numpy()), p.sigmaPriorToCensusTransform,
         p.sigmaBitPlanes)))
-    with pytest.raises(NotImplementedError):
-        descriptors.compute(img, p.replace(descriptor=DescriptorType.LATCH))
+    latch = descriptors.compute(img, p.replace(
+        descriptor=DescriptorType.LATCH))
+    np.testing.assert_array_equal(latch.numpy(), np.asarray(jdesc.latch(
+        jnp.asarray(img.numpy()), p.latchNumBytes, p.latchHalfSsdSize)))
 
 
 def _raster(rows, cols, valid, W):

@@ -333,12 +333,25 @@ def test_linearize_fn_override():
 @pytest.mark.parametrize("change", [
     {"interp": InterpolationType.CUBIC}, {"warp": "DisparitySpace"}])
 def test_run_unported_options_raise(change):
-    td, ch, cam, _ = _gn_problem(1)
-    ttd = template_from_numpy(_np_template(td), "cpu")
-    opts = dataclasses.replace(gn.GNOptions(), **change)
-    with pytest.raises(NotImplementedError):
-        gn.run(ttd, torch.as_tensor(np.array(ch)), camera_from_numpy(cam),
-               torch.eye(4), opts)
+    """CUBIC sampling and the DisparitySpace warp, once refused, now take
+    ``run``'s gather route: pose at atol 1e-5 of JAX's jnp route, the same
+    iterations and exit status (the DisparitySpace case builds its template
+    with that warp)."""
+    I0, I1, D, cam, _ = render_pair(TWIST)
+    jp = JParams(minSaliency=2.0, warpType=change.get("warp", "RigidBody"))
+    td, _ = build_template(I0, D, cam, p=jp)
+    jopts = dataclasses.replace(
+        jgn.GNOptions(function_tolerance=1e-4, parameter_tolerance=1e-6),
+        **{k: JInterp(v.value) if k == "interp" else v
+           for k, v in change.items()})
+    ch = jnp.asarray(I1)[None]
+    st_j = jgn.run(td, ch, cam, jnp.eye(4), jopts)
+    st_t = gn.run(template_from_numpy(_np_template(td), "cpu"),
+                  torch.as_tensor(np.array(ch)), camera_from_numpy(cam),
+                  torch.eye(4), gn_options_from_jax(jopts))
+    np.testing.assert_allclose(st_t.T.numpy(), np.asarray(st_j.T), atol=1e-5)
+    assert int(st_t.num_iters) == int(st_j.num_iters) >= 2
+    assert int(st_t.status) == int(st_j.status)
 
 
 @pytest.mark.parametrize("change,K,want", [

@@ -786,7 +786,8 @@ def test_gn_kernels_on_two_streams_at_once(dense_bitplanes, dense_intensity):
 @pytest.mark.gpu
 def test_gn_kernels_one_device_kernel_per_call(dense_bitplanes,
                                                dense_intensity):
-    """torch.profiler sees one device kernel per wrapper call."""
+    """One device kernel per wrapper call: a CUDA graph of the call holds
+    one kernel node, the wrapper's kernel."""
     from bpvo_tpu_torch.probes import timing
     for name, call in _gn_calls(dense_bitplanes, dense_intensity).items():
         kernels = timing.device_kernels(call)
@@ -986,3 +987,112 @@ def test_probe_runner_on_cuda(cuda):
            for v in [step, *step.values()]
            if isinstance(v, dict) and "ok" in v]
     assert len(oks) == 27 and all(oks)
+
+
+# ---------------------------------------------------------------------------
+# the option zoo's new paths: level_gn at C = 3, 5, 10, 48 on the corridor's
+# finest level, fused_linearize at C = 3, 5, 10 above 16384 points, and
+# irls_reduce_w on the gather route (Bit-Planes under CUBIC_HERMITE)
+# ---------------------------------------------------------------------------
+
+CORRIDOR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "conf", "eval_corridor.cfg")
+ZOO_C = {3: DescriptorType.INTENSITY_AND_GRADIENT,
+         5: DescriptorType.DESCRIPTOR_FIELDS_FIRST_ORDER,
+         10: DescriptorType.DESCRIPTOR_FIELDS_SECOND_ORDER,
+         48: DescriptorType.CENTRAL_DIFFERENCE}
+
+
+def _corridor_level0(cuda, **change):
+    """(DeviceVO initialised on corridor frame 0 at 240x320, the finest
+    level's channels of frame 1) for conf/eval_corridor.cfg's settings with
+    ``change``."""
+    from bpvo_tpu_torch.data.synthetic import SyntheticCorridorDataset
+    p = AlgorithmParameters.from_config(ConfigFile(CORRIDOR)).replace(
+        **change)
+    ds = SyntheticCorridorDataset(n_frames=2)
+    f0, f1 = ds.get_frame(0), ds.get_frame(1)
+    vo = device_vo.DeviceVO(ds.calibration.K, ds.calibration.baseline,
+                            ds.image_size, p, device=cuda)
+    vo.init(f0.image, f0.disparity)
+    ch = device_vo._compute_channels_pyr(
+        torch.as_tensor(f1.image).to(cuda), p, p.numPyramidLevels)
+    return vo, ch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", sorted(ZOO_C))
+def test_level_gn_zoo_channels_match_plain(cuda, C):
+    """level_gn at the zoo's channel counts (C = 48 takes the scratch path)
+    on the corridor's finest level (K = 16384): the first linearization's
+    sigma equal, H and the weights tight; converged, the pose at atol 1e-4,
+    the same iterations and status."""
+    vo, ch = _corridor_level0(cuda, descriptor=ZOO_C[C])
+    args = _level_args((vo, ch), 0)
+    assert args[3].shape == (C, 16384)
+    _, sk, Hk, _, wk, _ = lg.level_gn(*_one_iteration(args))
+    _, sp, Hp, _, wp, _ = lg.level_gn_reference(*_one_iteration(args))
+    assert sk[4].item() == sp[4].item()
+    np.testing.assert_allclose(Hk.cpu(), Hp.cpu(), rtol=1e-3,
+                               atol=1e-4 * float(Hp.abs().max()))
+    np.testing.assert_allclose(wk.cpu(), wp.cpu(), atol=1e-3)
+    Tk, sk, _, _, _, _ = lg.level_gn(*args)
+    Tp, sp, _, _, _, _ = lg.level_gn_reference(*args)
+    np.testing.assert_allclose(Tk.cpu(), Tp.cpu(), atol=1e-4)
+    sk, sp = sk.cpu().numpy(), sp.cpu().numpy()
+    assert sk[0] == sp[0] and sk[3] == sp[3] and sk[7] == sp[7] == 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", (3, 5, 10))
+def test_fused_linearize_zoo_channels_match_plain(cuda, C):
+    """fused_linearize at C = 3, 5, 10 (channel groups of 4 with a
+    remainder) on a dense corridor finest level of 65536 points."""
+    from bpvo_tpu_torch.ops import interp
+    from bpvo_tpu_torch.solver import mestimator
+    from bpvo_tpu_torch.vo import template_data, warp
+    vo, ch = _corridor_level0(cuda, descriptor=ZOO_C[C], pointCapacity=65536,
+                              minNumPixelsForNonMaximaSuppression=10 ** 9)
+    td, cam, opts = vo.state.templates[0], vo._cams[0], vo._opts[0]
+    assert td.pixels.shape == (C, 65536)
+    T0 = torch.eye(4, device=cuda)
+    u, v, Z = warp.project(cam, T0, td.points)
+    ok = td.valid & (Z > 1e-6) & interp.valid_mask(
+        u, v, ch[0].shape[1], ch[0].shape[2], opts.interp)
+    r, _ = template_data.compute_residuals(td, ch[0], cam, T0, opts.interp)
+    sigma = mestimator.estimate_scale(r[0], ok)
+    _check_fused(td, ch[0], opts, u, v, ok, sigma)
+
+
+@pytest.mark.gpu
+def test_irls_reduce_gather_route_matches_plain(cuda):
+    """The gather route's reduction (Bit-Planes, CUBIC_HERMITE, M = 8K) and
+    ``gauss_newton.run`` on it: the kernel against its plain version, and
+    the run eager against the run replayed from ``RunGraphs``, bit for
+    bit, with irls_reduce launched once per iteration."""
+    from bpvo_tpu_torch.ops import irls
+    from bpvo_tpu_torch.solver import gauss_newton as gn
+    from bpvo_tpu_torch.solver import mestimator
+    from bpvo_tpu_torch.vo import template_data
+    vo, ch = _corridor_level0(cuda, descriptor=DescriptorType.BITPLANES,
+                              interp=InterpolationType.CUBIC_HERMITE)
+    td, cam, opts = vo.state.templates[0], vo._cams[0], vo._opts[0]
+    T0 = torch.eye(4, device=cuda)
+    r, ok = template_data.compute_residuals(td, ch[0], cam, T0, opts.interp)
+    sigma = mestimator.estimate_scale(r[0], ok)
+    b = (td.jacobians.reshape(-1, 6), r.reshape(-1),
+         ok.expand(8, -1).reshape(-1), sigma, opts.loss)
+    H, g, f, w = irls.irls_reduce_w(*b)
+    Hp, gp, fp, wp = irls.irls_reduce_reference(*b)
+    assert float((w - wp).abs().max()) <= 1e-6
+    for a, c in ((H, Hp), (g, gp), (f, fp)):
+        _close(a, c, 1e-4)
+    before = irls.launch_count
+    eager = gn.run(td, ch[0], cam, T0, opts)
+    n_eager = irls.launch_count - before
+    assert n_eager == int(eager.num_iters) >= 2
+    graphs = gn.RunGraphs()
+    for _ in range(2):       # warm-up and capture, then replays
+        replayed = gn.run(td, ch[0], cam, T0, opts, graphs=graphs)
+    for a, c in zip(eager, replayed):
+        assert torch.equal(a, c)
