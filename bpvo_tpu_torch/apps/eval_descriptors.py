@@ -11,8 +11,9 @@ Prints one JSON object: per cell the frames, the mean ms and iterations per
 frame (the first 5 frames left out) and, where the dataset has ground truth,
 the ATE RMSE.  A cell's tag, and the prefix of its files, is the
 descriptor's name, or ``<descriptor>+<solver>`` when more than one solver
-runs (both by default; ``--solvers GaussNewton`` writes what the JAX
-package's command writes).
+runs.  Gauss-Newton alone by default, so the default command writes the
+cells and files of the JAX package's command; LM is opt-in
+(``--solvers GaussNewton,LevenbergMarquardt``).
 """
 from __future__ import annotations
 
@@ -107,8 +108,10 @@ def main(argv=None):
     ap.add_argument("--config", "-c", required=True)
     ap.add_argument("--out", "-o", default="")
     ap.add_argument("--numframes", "-n", type=int, default=-1)
-    ap.add_argument("--solvers", default=",".join(SOLVERS),
-                    help="comma-separated poseEstimator values")
+    ap.add_argument("--solvers", default="GaussNewton",
+                    help="comma-separated poseEstimator values (default "
+                         "GaussNewton, as the JAX package's command; "
+                         "GaussNewton,LevenbergMarquardt for both)")
     ap.add_argument("--device", default="cuda",
                     help="where the VO runs (cuda, or cpu for the plain "
                          "versions)")

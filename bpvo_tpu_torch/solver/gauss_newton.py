@@ -167,49 +167,63 @@ def _sigma_unstable(delta_scale, scale, opts: GNOptions):
                                      min=opts.scale_tolerance)
 
 
+def _no_reduce(H, g, f_sq):
+    return H, g, f_sq
+
+
+def _sigma_fn(opts: GNOptions):
+    """``gauss_newton.run``'s sigma: ``estimate_scale`` of channel 0's
+    residuals (the histogram or the sorted median)."""
+    def sigma_fn(r0, valid):
+        return mestimator.estimate_scale(r0, valid, opts.use_histogram_median)
+    return sigma_fn
+
+
 def _linearize(tdata, channels, cam, T, scale, delta_scale, do_est: bool,
-               opts: GNOptions):
+               opts: GNOptions, sigma_fn=None, reduce=_no_reduce):
     """The gather route (JAX gauss_newton.py:374-428), taken by the levels
     the fused kernel does not take (CUBIC or CUBIC_HERMITE sampling, or the
     DisparitySpace warp): residuals by ``compute_residuals``, sigma from
-    channel 0, weights and normal equations by ``reduce_w``.
+    channel 0 (``sigma_fn(r0, valid)``, default ``_sigma_fn``), weights and
+    normal equations by ``reduce_w``, then ``reduce(H, g, f_sq)``.
     Returns (H, g, f, sigma, delta_scale, w)."""
     r, valid = td_mod.compute_residuals(tdata, channels, cam, T, opts.interp,
                                         warp=opts.warp)
     if do_est:
-        sigma = mestimator.estimate_scale(r[0], valid,
-                                          opts.use_histogram_median)
+        sigma = (sigma_fn or _sigma_fn(opts))(r[0], valid)
         delta_scale = torch.abs(sigma - scale)
     else:
         sigma = scale
     H, g, f_sq, w = reduce_w(tdata.jacobians, r, valid, sigma, opts.loss)
+    H, g, f_sq = reduce(H, g, f_sq)
     return H, g, torch.sqrt(f_sq), sigma, delta_scale, w
 
 
-def _fused_linearize_fn(tdata, channels, cam, opts: GNOptions):
+def _fused_linearize_fn(tdata, channels, cam, opts: GNOptions, sigma_fn=None,
+                        reduce=_no_reduce):
     """The kernel route (JAX gauss_newton.py:278-373, at f32 for every C):
 
     - C = 1: one fused pass at the incoming sigma; while sigma is still
-      moving, the new sigma is the histogram median of that pass's
-      residuals, and the weights and normal equations are rebuilt at it by
+      moving, the new sigma is ``sigma_fn`` of that pass's residuals, and
+      the weights and normal equations are rebuilt at it by
       ``irls_reduce_w`` from those residuals and J.
     - C > 1: while sigma is still moving, a fused pass over channel 0 alone
       gives the residuals for sigma; then one fused pass over all channels
       runs at the new sigma.
+
+    ``sigma_fn(r0, valid)`` defaults to ``_sigma_fn``; ``reduce(H, g,
+    f_sq)`` is applied last (the distributed layer sums over the ranks).
     """
     C, rows, cols = channels.shape
     pixels, jacobians = tdata.pixels, tdata.jacobians
     loss, interp = opts.loss, opts.interp
+    sigma_fn = sigma_fn or _sigma_fn(opts)
 
     def project(T):
         u, v, Z = warp_mod.project(cam, T, tdata.points)
         ok = tdata.valid & (Z > 1e-6) & interp_mod.valid_mask(
             u, v, rows, cols, interp)
         return u, v, ok
-
-    def new_sigma(r0, ok, scale):
-        sigma = mestimator.estimate_scale(r0, ok, opts.use_histogram_median)
-        return sigma, torch.abs(sigma - scale)
 
     if C == 1:
         J = jacobians.reshape(-1, 6)
@@ -218,11 +232,14 @@ def _fused_linearize_fn(tdata, channels, cam, opts: GNOptions):
             u, v, ok = project(T)
             H, g, f_sq, r0, w = fused_mod.fused_linearize(
                 u, v, ok, channels, pixels, jacobians, scale, loss, interp)
-            if not do_est:
-                return H, g, torch.sqrt(f_sq), scale, delta_scale, w
-            sigma, delta_scale = new_sigma(r0, ok, scale)
-            H, g, f_sq, w = irls_mod.irls_reduce_w(J, r0, ok, sigma, loss)
-            return H, g, torch.sqrt(f_sq), sigma, delta_scale, w[None, :]
+            sigma = scale
+            if do_est:
+                sigma = sigma_fn(r0, ok)
+                delta_scale = torch.abs(sigma - scale)
+                H, g, f_sq, w = irls_mod.irls_reduce_w(J, r0, ok, sigma, loss)
+                w = w[None, :]
+            H, g, f_sq = reduce(H, g, f_sq)
+            return H, g, torch.sqrt(f_sq), sigma, delta_scale, w
         return linearize
 
     ch0, px0, J0 = channels[:1], pixels[:1], jacobians[:1]
@@ -233,9 +250,11 @@ def _fused_linearize_fn(tdata, channels, cam, opts: GNOptions):
         if do_est:
             r0 = fused_mod.fused_linearize(u, v, ok, ch0, px0, J0, scale, loss,
                                            interp)[3]
-            sigma, delta_scale = new_sigma(r0, ok, scale)
+            sigma = sigma_fn(r0, ok)
+            delta_scale = torch.abs(sigma - scale)
         H, g, f_sq, _, w = fused_mod.fused_linearize(
             u, v, ok, channels, pixels, jacobians, sigma, loss, interp)
+        H, g, f_sq = reduce(H, g, f_sq)
         return H, g, torch.sqrt(f_sq), sigma, delta_scale, w
     return linearize
 
@@ -390,16 +409,19 @@ def reduce_w(jacobians, r, valid, sigma, loss):
     return H, g, f_sq, w.view(C, K)
 
 
-def _default_linearize_fn(tdata, channels, cam, opts: GNOptions):
+def _default_linearize_fn(tdata, channels, cam, opts: GNOptions,
+                          sigma_fn=None, reduce=_no_reduce):
     """RigidBody levels with LINEAR or COSINE sampling take the fused CUDA
-    kernels (their plain versions on the CPU), others ``_linearize``."""
+    kernels (their plain versions on the CPU), others ``_linearize``.
+    ``sigma_fn`` and ``reduce`` as in ``_fused_linearize_fn``."""
     if opts.warp == "RigidBody" and opts.interp in (
             InterpolationType.LINEAR, InterpolationType.COSINE):
-        return _fused_linearize_fn(tdata, channels.contiguous(), cam, opts)
+        return _fused_linearize_fn(tdata, channels.contiguous(), cam, opts,
+                                   sigma_fn, reduce)
 
     def linearize_fn(T, scale, delta_scale, do_est):
         return _linearize(tdata, channels, cam, T, scale, delta_scale,
-                          do_est, opts)
+                          do_est, opts, sigma_fn, reduce)
     return linearize_fn
 
 
@@ -526,8 +548,13 @@ class RunGraphs:
         return _result(st, it, converged, copy=True)
 
 
-def fraction_of_good_points(weights, num_channels, num_valid, threshold):
-    """count(w > threshold) / (C * N) (reference vo_pose_estimator.cc:101-107)."""
+def fraction_of_good_points(weights, num_channels, num_valid, threshold,
+                            count_reduce=None):
+    """count(w > threshold) / (C * N) (reference vo_pose_estimator.cc:101-107);
+    ``count_reduce`` sums the count over ranks (N is then the global
+    count)."""
     n_good = torch.sum(weights > threshold)
+    if count_reduce is not None:
+        n_good = count_reduce(n_good)
     denom = torch.clamp(num_channels * num_valid, min=1)
     return n_good.to(torch.float32) / denom.to(torch.float32)

@@ -61,7 +61,8 @@ def _tensor(a, device, dtype=None):
 
 def template_from_numpy(d: Mapping[str, Any], device="cuda") -> TemplateData:
     """``TemplateData`` from a mapping of its fields (e.g. ``_asdict()`` of
-    the JAX template, as numpy arrays)."""
+    the JAX template, as numpy arrays); a window of templates stacked along
+    leading axes (JAX ``stack_templates``) stays stacked."""
     f32, i64 = torch.float32, torch.int64
     return TemplateData(
         points=_tensor(d["points"], device, f32),
@@ -92,3 +93,39 @@ def state_from_numpy(d: Mapping[str, Any], device="cuda") -> VOState:
         pose_world=_tensor(d["pose_world"], device, f32),
         T_delta=_tensor(d["T_delta"], device, f32),
         last_weights=_tensor(d["last_weights"], device, f32))
+
+
+def ba_options_from_jax(opts):
+    """The port's ``BAOptions`` from the JAX package's (or a mapping of its
+    fields); the sampling mode is converted by value."""
+    from bpvo_tpu_torch.parallel.bundle_adjustment import BAOptions
+    from bpvo_tpu_torch.types import InterpolationType
+    d = opts._asdict() if hasattr(opts, "_asdict") else dict(opts)
+    d["interp"] = InterpolationType(getattr(d["interp"], "value",
+                                            d["interp"]))
+    return BAOptions(**{k: d[k] for k in BAOptions._fields if k in d})
+
+
+def pose_graph_options_from_jax(opts):
+    """The port's ``PoseGraphOptions`` from the JAX package's (or a mapping
+    of its fields)."""
+    from bpvo_tpu_torch.parallel.pose_graph import PoseGraphOptions
+    d = opts._asdict() if hasattr(opts, "_asdict") else dict(opts)
+    return PoseGraphOptions(**{k: d[k] for k in PoseGraphOptions._fields
+                               if k in d})
+
+
+def state_shard_from_numpy(d: Mapping[str, Any], rank: int, world: int,
+                           device="cuda") -> VOState:
+    """Rank ``rank``'s part of a whole VOState (a mapping as for
+    ``state_from_numpy``, e.g. a JAX sharded VO's state read back whole):
+    every template sliced by ``sharded.shard_template``, the finest
+    weights by the same contiguous slice; the rest whole."""
+    from bpvo_tpu_torch.parallel import sharded
+    st = state_from_numpy(d, device)
+    w = st.last_weights
+    k = w.shape[-1] // world
+    return st._replace(
+        templates=tuple(sharded.shard_template(t, rank, world)
+                        for t in st.templates),
+        last_weights=w[..., rank * k:(rank + 1) * k].contiguous())

@@ -21,7 +21,7 @@ the keyframe branch and at ``init``, on the frame that becomes the keyframe
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +91,20 @@ def _eye4(device):
     return torch.eye(4, dtype=torch.float32, device=device)
 
 
+class StepHooks(NamedTuple):
+    """The distributed layer's hooks into the step (JAX
+    bpvo_tpu/vo/device_vo.py:113-172, :224-247), all optional:
+    ``linearize_factory(level, tdata, channels, cam, opts)`` gives each
+    level's ``gauss_newton.run`` linearization (the sharded one reduces
+    over the ranks); ``count_reduce(t)`` sums ``t`` over the ranks (the
+    good-point count and the warm-start gate's cost); ``build_templates_fn(
+    channels_pyr, disparity)`` builds the keyframe's templates (the sharded
+    one keeps this rank's slice of the points)."""
+    linearize_factory: Optional[Callable] = None
+    count_reduce: Optional[Callable] = None
+    build_templates_fn: Optional[Callable] = None
+
+
 _rigid_inverse = se3.inverse
 
 
@@ -116,15 +130,19 @@ def _build_templates(channels_pyr, disparity, cams, p, capacities):
 
 def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
               max_test_level, good_threshold, min_points: int,
-              solver: str = "GaussNewton", start_level=-1, run_graphs=None):
+              solver: str = "GaussNewton", start_level=-1, run_graphs=None,
+              hooks: StepHooks = StepHooks()):
     """Coarse-to-fine GN or LM from ``start_level`` (default: coarsest) down
-    to ``max_test_level`` (``pose_estimator._estimate_all``).  Returns (T,
+    to ``max_test_level`` (``pose_estimator._estimate_all``, with the
+    ``StepHooks``' linearization and count reduction).  Returns (T,
     iters (L,), f_norm (L,), frac_good, H, finest weights,
     band_overflow)."""
     T, iters, fs, _, _, frac, H, w, bo = pe._estimate_all(
         templates, channels_pyr, cams, T_init, opts_per_level,
         max_test_level, good_threshold, min_points, solver=solver,
-        start_level=start_level, run_graphs=run_graphs)
+        start_level=start_level, run_graphs=run_graphs,
+        linearize_factory=hooks.linearize_factory,
+        count_reduce=hooks.count_reduce)
     return T, iters, fs, frac, H, w, bo
 
 
@@ -167,7 +185,7 @@ class _Front(NamedTuple):
 
 
 def _make_front(p: AlgorithmParameters, cams, opts_per_level, stereo: bool,
-                run_graphs=None):
+                run_graphs=None, hooks: StepHooks = StepHooks()):
     """front(templates, T_kf, T_delta, pose_world, image, aux) -> _Front:
     the pyramid, the gated warm start, the coarse-to-fine estimate, the
     keyframe reason and the no-keyframe state update."""
@@ -181,12 +199,13 @@ def _make_front(p: AlgorithmParameters, cams, opts_per_level, stereo: bool,
                  else aux.to(torch.float32))
         T_init = (pe._gated_warm_start(templates, channels, cams,
                                        T_delta @ T_kf, T_kf,
-                                       opts_per_level[n_levels - 1])
+                                       opts_per_level[n_levels - 1],
+                                       count_reduce=hooks.count_reduce)
                   if p.withMotionModel else T_kf)
         T_est, iters, fs, frac, H, w_fine, boverflow = _estimate(
             templates, channels, cams, T_init, opts_per_level,
             p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
-            p.poseEstimator, run_graphs=run_graphs)
+            p.poseEstimator, run_graphs=run_graphs, hooks=hooks)
         reason = _keyframe_reason(T_est, frac, p)
         pose_kf = T_est @ _rigid_inverse(T_kf)
         return _Front(channels=channels, store=store, T_est=T_est,
@@ -199,12 +218,16 @@ def _make_front(p: AlgorithmParameters, cams, opts_per_level, stereo: bool,
 
 
 def _make_commit(p: AlgorithmParameters, cams, capacities, opts_per_level,
-                 stereo_fn=None, run_graphs=None):
+                 stereo_fn=None, run_graphs=None,
+                 hooks: StepHooks = StepHooks()):
     """commit(state, front, is_kf) -> (state, out): the step after its one
     host read.  No keyframe: the frame becomes the candidate.  Keyframe:
     the matcher (with a ``stereo_fn``), the template build and the
     re-estimate against the new keyframe."""
     n_levels = p.numPyramidLevels
+    build_templates = hooks.build_templates_fn or (
+        lambda channels_pyr, disparity: _build_templates(
+            channels_pyr, disparity, cams, p, capacities))
 
     def commit(state: VOState, fr: _Front, is_kf: bool):
         if not is_kf:
@@ -226,8 +249,7 @@ def _make_commit(p: AlgorithmParameters, cams, capacities, opts_per_level,
             # frame becoming the keyframe
             src_disp = (src_store if stereo_fn is None
                         else stereo_fn(src_store[0], src_store[1]))
-            templates = _build_templates(src_channels, src_disp, cams, p,
-                                         capacities)
+            templates = build_templates(src_channels, src_disp)
             # re-estimate against the new keyframe.  When the keyframe IS the
             # current frame this converges to ~identity and only its weights
             # are kept.  It solves single-frame motion, so with
@@ -238,20 +260,22 @@ def _make_commit(p: AlgorithmParameters, cams, capacities, opts_per_level,
             if p.keyframeReestimateStartLevel >= 0:
                 start2 = min(max(p.keyframeReestimateStartLevel,
                                  p.maxTestLevel), n_levels - 1)
-                T2_init = pe._gated_warm_start(templates, channels, cams,
-                                               fr.pose_kf, eye,
-                                               opts_per_level[start2],
-                                               level=start2)
+                T2_init = pe._gated_warm_start(
+                    templates, channels, cams, fr.pose_kf, eye,
+                    opts_per_level[start2], level=start2,
+                    count_reduce=hooks.count_reduce)
             else:
                 start2 = n_levels - 1
-                T2_init = (pe._gated_warm_start(templates, channels, cams,
-                                                state.T_delta, eye,
-                                                opts_per_level[n_levels - 1])
+                T2_init = (pe._gated_warm_start(
+                    templates, channels, cams, state.T_delta, eye,
+                    opts_per_level[n_levels - 1],
+                    count_reduce=hooks.count_reduce)
                            if p.withMotionModel else eye)
             T2, it2, fs2, _frac2, _H2, w2_fine, _bo2 = _estimate(
                 templates, channels, cams, T2_init, opts_per_level,
                 p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
-                p.poseEstimator, start_level=start2, run_graphs=run_graphs)
+                p.poseEstimator, start_level=start2, run_graphs=run_graphs,
+                hooks=hooks)
             if state.has_prev:
                 pose, T_kf_new, it_out, fs_out = T2, T2, it2, fs2
             else:
@@ -275,18 +299,26 @@ def _make_commit(p: AlgorithmParameters, cams, capacities, opts_per_level,
 
 def make_vo_step(p: AlgorithmParameters, cams, capacities,
                  opts_per_level: Tuple[gn.GNOptions, ...], stereo_fn=None,
-                 run_graphs=None):
+                 run_graphs=None, hooks: StepHooks = StepHooks()):
     """Build the eager step function (state, image, aux) -> (state, out):
     ``_make_front``, the one host read of the keyframe decision, then
     ``_make_commit``.  ``aux`` is the disparity, or the right image when
     ``stereo_fn`` is given.  ``run_graphs`` (one ``gauss_newton.RunGraphs``
     per level) replays the iterations of levels that take
-    ``gauss_newton.run``."""
+    ``gauss_newton.run``.
+
+    ``hooks`` are the distributed layer's (``StepHooks``;
+    ``parallel/sharded_vo.py``).  A hooked step is eager: a level with a
+    custom linearization runs ``gauss_newton.run`` op by op, and hooks
+    together with ``run_graphs`` raise a ``ValueError``."""
     cams = tuple(cams)
+    if run_graphs is not None and hooks != StepHooks():
+        raise ValueError("make_vo_step: a hooked step has no graphed route; "
+                         "pass run_graphs=None")
     front = _make_front(p, cams, opts_per_level, stereo_fn is not None,
-                        run_graphs)
+                        run_graphs, hooks)
     commit = _make_commit(p, cams, tuple(capacities), opts_per_level,
-                          stereo_fn, run_graphs)
+                          stereo_fn, run_graphs, hooks)
 
     def step(state: VOState, image, aux):
         fr = front(state.templates, state.T_kf, state.T_delta,

@@ -90,6 +90,7 @@ class VisualOdometry:
         self._trajectory = Trajectory()
         self._T_kf = np.eye(4, dtype=np.float32)
         self._ref, self._cur, self._prev = _Frame(), _Frame(), _Frame()
+        self._ba_window = None   # enable_bundle_adjustment()
 
     @property
     def params(self) -> AlgorithmParameters:
@@ -106,9 +107,39 @@ class VisualOdometry:
             return 0
         return int(self._ref.templates[level].num_valid)
 
-    def enable_bundle_adjustment(self, *args, **kwargs):
-        raise NotImplementedError("windowed bundle adjustment is not ported "
-                                  "yet")
+    def enable_bundle_adjustment(self, window_size: int = 8, group=None,
+                                 ba_options=None):
+        """Refine the last ``window_size`` keyframe poses by windowed
+        photometric BA after every new keyframe
+        (``parallel/bundle_adjustment.py``; JAX odometry.py:141-152).
+        ``group``: a ``parallel.collectives.Reducer`` to split the points
+        over its ranks (each rank runs this VisualOdometry on the same
+        frames), or None."""
+        from bpvo_tpu_torch.parallel.bundle_adjustment import (BAOptions,
+                                                               KeyframeWindow)
+        self._ba_window = KeyframeWindow(
+            window_size, self._cams[self._p.maxTestLevel],
+            ba_options or BAOptions(), reducer=group, device=self.device)
+
+    def refined_keyframe_poses(self) -> np.ndarray:
+        """(N_kf, 4, 4) camera-to-world poses of the keyframes in the BA
+        window, after the latest optimization."""
+        if self._ba_window is None or len(self._ba_window) == 0:
+            return np.zeros((0, 4, 4))
+        return np.stack([np.linalg.inv(T) for T in self._ba_window._poses])
+
+    def _ba_on_keyframe(self, T_world: np.ndarray):
+        """Push the keyframe (its template and channels at maxTestLevel,
+        its camera-from-world pose) and optimize the window (JAX
+        odometry.py:202-211)."""
+        if self._ba_window is None or not self._ref.has_template:
+            return
+        lvl = self._p.maxTestLevel
+        self._ba_window.push(self._ref.templates[lvl],
+                             self._ref.channels[lvl],
+                             np.linalg.inv(T_world).astype(np.float32))
+        if len(self._ba_window) >= 2:
+            self._ba_window.optimize()
 
     def save(self, path: str) -> None:
         """Checkpoint the state in the JAX package's format
@@ -182,6 +213,7 @@ class VisualOdometry:
         is_kf = reason != KeyFramingReason.NO_KEYFRAMING
 
         point_cloud = None
+        used_candidate = False
         if not is_kf:
             # keep cur as a future keyframe candidate (vo.cc:148-153)
             self._prev, self._cur = self._cur, self._prev
@@ -201,6 +233,7 @@ class VisualOdometry:
                 # re-estimated against it (vo.cc:178-188), from
                 # keyframeReestimateStartLevel, warm-started by the measured
                 # candidate->current motion behind the cost gate
+                used_candidate = True
                 self._prev, self._ref = self._ref, self._prev
                 self._prev.clear()
                 self._ref.set_template(self._cams, p, self._capacities)
@@ -222,6 +255,11 @@ class VisualOdometry:
         self._trajectory.push(pose)
         if point_cloud is not None:
             point_cloud.pose = self._trajectory.back()
+        if is_kf and self._ba_window is not None:
+            # the new keyframe's world pose: this frame's, or the
+            # candidate's (one step back) when the candidate became it
+            idx = len(self._trajectory) - (2 if used_candidate else 1)
+            self._ba_on_keyframe(self._trajectory[max(idx, 0)])
         return Result(pose=np.asarray(pose),
                       covariance=self._pose_estimator.last_covariance(),
                       is_keyframe=is_kf, keyframing_reason=reason,

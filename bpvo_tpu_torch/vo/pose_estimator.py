@@ -30,23 +30,31 @@ from bpvo_tpu_torch.vo import template_data as td_mod
 _MIN_POINTS_PER_LEVEL = 8
 
 
-def _coarse_cost(templates, channels_pyr, cams, T, opts, level=None):
+def _coarse_cost(templates, channels_pyr, cams, T, opts, level=None,
+                 count_reduce=None):
     """Mean squared residual over valid points at a coarse level (default:
-    the coarsest): the probe of the warm-start acceptance gate."""
+    the coarsest): the probe of the warm-start acceptance gate.  With
+    ``count_reduce`` (the sharded step's sum over ranks) the sum and the
+    count are global, so every rank takes the same start."""
     lvl = len(channels_pyr) - 1 if level is None else level
     r, valid = td_mod.compute_residuals(templates[lvl], channels_pyr[lvl],
                                         cams[lvl], T, opts.interp,
                                         warp=opts.warp)
-    n = torch.clamp(torch.sum(valid), min=1).to(torch.float32)
-    return torch.sum(torch.where(valid[None, :], r, 0.0) ** 2) / n
+    sq = torch.sum(torch.where(valid[None, :], r, 0.0) ** 2)
+    n = torch.sum(valid)
+    if count_reduce is not None:
+        sq, n = count_reduce(torch.stack([sq, n.to(sq.dtype)]))
+    return sq / torch.clamp(n, min=1).to(torch.float32)
 
 
 def _gated_warm_start(templates, channels_pyr, cams, T_warm, T_cold, opts,
-                      level=None):
+                      level=None, count_reduce=None):
     """Take the warm prediction only when its photometric cost at the probe
     level does not exceed the cold start's."""
-    c_warm = _coarse_cost(templates, channels_pyr, cams, T_warm, opts, level)
-    c_cold = _coarse_cost(templates, channels_pyr, cams, T_cold, opts, level)
+    c_warm = _coarse_cost(templates, channels_pyr, cams, T_warm, opts, level,
+                          count_reduce)
+    c_cold = _coarse_cost(templates, channels_pyr, cams, T_cold, opts, level,
+                          count_reduce)
     return torch.where(c_warm <= c_cold, T_warm, T_cold)
 
 
@@ -89,7 +97,8 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
                   max_test_level: int, good_threshold: float,
                   min_points: int = 0, solver: str = "GaussNewton",
                   start_level: int = -1, alt_init=None,
-                  multistart_px: float = 0.0, run_graphs=None):
+                  multistart_px: float = 0.0, run_graphs=None,
+                  linearize_factory=None, count_reduce=None):
     """Coarse-to-fine estimation from ``start_level`` (default: coarsest)
     down to ``max_test_level``.  ``alt_init`` is taken instead of ``T_init``
     when its photometric cost at the start level is not higher.
@@ -98,11 +107,23 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
     "GaussNewton" or "LevenbergMarquardt"; ``multistart_px`` > 0 runs the
     multi-start probe (``_multistart``) first.
 
+    The distributed hooks (JAX bpvo_tpu/vo/device_vo.py:113-172):
+    ``linearize_factory(level, tdata, channels, cam, opts)`` returns the
+    ``linearize_fn`` of a level, which then always takes the eager
+    ``gauss_newton.run`` (never the level kernel, never ``run_graphs``);
+    ``count_reduce`` sums a tensor over the ranks (the good-point count).
+
     Returns (T, iters (L,), f_norm (L,), g (L, 6), status (L,), frac_good,
     H (6,6), finest weights, band_overflow ()), all on the device; levels
     not solved keep zeros and STATUS_MAX_ITERATIONS."""
     if solver not in ("GaussNewton", "LevenbergMarquardt"):
         raise ValueError(f"unknown poseEstimator {solver!r}")
+    if linearize_factory is not None and (
+            solver != "GaussNewton" or run_graphs is not None
+            or multistart_px > 0):
+        raise ValueError("a custom linearization runs Gauss-Newton on the "
+                         "eager gauss_newton.run only: no LM, no run_graphs,"
+                         " no multi-start")
     n_levels = len(channels)
     if start_level < 0:
         start_level = n_levels - 1
@@ -122,7 +143,13 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
                          device=dev)] * n_levels
     finest = None
     for level in range(start_level, max_test_level - 1, -1):
-        if solver == "LevenbergMarquardt":
+        if linearize_factory is not None:
+            st = gn.run(templates[level], channels[level], cams[level], T,
+                        opts_per_level[level],
+                        linearize_fn=linearize_factory(
+                            level, templates[level], channels[level],
+                            cams[level], opts_per_level[level]))
+        elif solver == "LevenbergMarquardt":
             st = lm.run(templates[level], channels[level], cams[level], T,
                         opts_per_level[level])
         else:
@@ -136,7 +163,8 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
         finest = st
     td = templates[max_test_level]
     frac = gn.fraction_of_good_points(finest.weights, td.num_channels,
-                                      td.num_valid, good_threshold)
+                                      td.num_valid, good_threshold,
+                                      count_reduce)
     # LM has no band_overflow: no kernel samples in bands on its route
     bo = getattr(finest, "band_overflow",
                  torch.zeros((), dtype=torch.int32, device=dev))

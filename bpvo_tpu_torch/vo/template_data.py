@@ -64,12 +64,13 @@ def _channel_gradients(channels, rows, cols, method: GradientEstimationType):
     return gx, gy
 
 
-def set_data(channels, disparity, cam: warp_mod.CameraModel,
-             p: AlgorithmParameters, capacity: int, level: int) -> TemplateData:
-    """Build a template from descriptor channels (C, H, W) and the
-    level-strided disparity (H, W) (``imgproc.disparity_at_level``)."""
-    disparity_space = p.warpType == "DisparitySpace"
-    # stage 1: selection, back-projection, Hartley normalization
+def select_and_backproject(channels, disparity, cam: warp_mod.CameraModel,
+                           p: AlgorithmParameters, capacity: int):
+    """Stage 1 of the template build: pixel selection, back-projection and
+    Hartley normalization (JAX bpvo_tpu/vo/template_data.py:80-128).  The
+    sharded VO runs it on every rank and slices its output, so each rank
+    keeps the single-device selection.  Returns (sel, points (K, 3),
+    norm_scale, norm_center)."""
     C, H, W = channels.shape
     sel = selection.select_pixels(
         descriptors.saliency(channels), disparity, capacity,
@@ -79,7 +80,7 @@ def set_data(channels, disparity, cam: warp_mod.CameraModel,
         border=max(p.nonMaxSuppRadius, 3))
     d_safe = torch.where(sel.valid, sel.disparity, 1.0)
     xf, yf = sel.cols.to(torch.float32), sel.rows.to(torch.float32)
-    if disparity_space:
+    if p.warpType == "DisparitySpace":
         # points (x-cx, y-cy, d), no normalization (reference
         # disparity_space_warp.h:86-89)
         points = warp_mod.disparity_space_make_points(cam, xf, yf, d_safe)
@@ -97,20 +98,35 @@ def set_data(channels, disparity, cam: warp_mod.CameraModel,
         else:
             s, c = warp_mod.identity_normalization(points.dtype,
                                                    points.device)
+    return sel, points, s, c
 
-    # stage 2: per-point descriptor values, gradients, Jacobians
-    pixels = _gather_at(channels, sel.rows, sel.cols)
-    gx, gy = _channel_gradients(channels, sel.rows, sel.cols,
-                                p.gradientEstimation)
+
+def build_from_selection(channels, cam: warp_mod.CameraModel,
+                         p: AlgorithmParameters, rows, cols, valid,
+                         num_valid, points, s, c) -> TemplateData:
+    """Stage 2 of the template build: per-point descriptor values, CD3/CD5
+    gradients and Jacobians (JAX template_data.py:131-149).  The point-axis
+    inputs may be one rank's slice of the selection."""
+    pixels = _gather_at(channels, rows, cols)
+    gx, gy = _channel_gradients(channels, rows, cols, p.gradientEstimation)
     J = (warp_mod.disparity_space_jacobian(cam, points, gx, gy)
-         if disparity_space
+         if p.warpType == "DisparitySpace"
          else warp_mod.jacobian(cam, points, gx, gy, s, c))   # (C, K, 6)
-    pixels = torch.where(sel.valid[None, :], pixels, 0.0)
-    J = torch.where(sel.valid[None, :, None], J, 0.0)
+    pixels = torch.where(valid[None, :], pixels, 0.0)
+    J = torch.where(valid[None, :, None], J, 0.0)
     return TemplateData(points=points, pixels=pixels, jacobians=J,
-                        valid=sel.valid, num_valid=sel.num_valid,
-                        norm_scale=s, norm_center=c, rows=sel.rows,
-                        cols=sel.cols)
+                        valid=valid, num_valid=num_valid, norm_scale=s,
+                        norm_center=c, rows=rows, cols=cols)
+
+
+def set_data(channels, disparity, cam: warp_mod.CameraModel,
+             p: AlgorithmParameters, capacity: int, level: int) -> TemplateData:
+    """Build a template from descriptor channels (C, H, W) and the
+    level-strided disparity (H, W) (``imgproc.disparity_at_level``)."""
+    sel, points, s, c = select_and_backproject(channels, disparity, cam, p,
+                                               capacity)
+    return build_from_selection(channels, cam, p, sel.rows, sel.cols,
+                                sel.valid, sel.num_valid, points, s, c)
 
 
 def compute_residuals(tdata: TemplateData, channels,

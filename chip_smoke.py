@@ -133,6 +133,32 @@
    NewTsukuba tree in a process of its own, within ZOO_ATOL_C1 of JAX's
    poses.  One ``{"zoo_phase": ...}`` JSON line.
 
+13. Distributed phase (``bpvo_tpu_torch.parallel``): in this process a
+   world-1 ``nccl`` group; the sharded GN at 376x1241 (K = 16384) bit for
+   bit the same route with no reducer, at LINEAR and at CUBIC sampling
+   (the gather route: no ``fused_linearize`` launch); the sharded VO, intensity and
+   Bit-Planes, with the dry run's parameters over 1+4 frames in 2
+   ``scan_fn`` chunks (counted: ``fused_linearize`` and ``irls_reduce``
+   must launch, ``level_gn`` never; census for Bit-Planes): bit for bit the
+   no-reducer route, within SHARDED_ATOL_JAX of JAX's sharded VO with its
+   keyframe flags (tests/data/torch_port_sharded_ref.npz), intensity
+   within SHARDED_ATOL_DEVICE_VO of ``DeviceVO`` on the card (Bit-Planes'
+   gap is printed: open fault C.13); the rule witness: the step hooked
+   with the sharded linearization at ``DeviceVO``'s own sigma rule bit for
+   bit ``DeviceVO`` with ``gauss_newton.run`` at every level, its gaps to
+   the sharded VO and to the default ``DeviceVO`` printed;
+   ``fused_linearize`` against plain at its L0; then ``python -m
+   bpvo_tpu_torch.parallel.dryrun``'s checks with 2 gloo ranks on cuda:0
+   (host-staged); ``VisualOdometry.enable_bundle_adjustment(8)`` over
+   1+30 frames (counted): every keyframe event's refined window within
+   BA_ATOL_JAX of JAX's, the ms of each optimize, ``irls_reduce``
+   launched 2(M-1) times an iteration, checked against plain at the edge
+   shape; ``ba_solve_with_depth`` at M = 4, K = 16384 (counted) within
+   BA_DEPTH_ATOL of the CPU's plain run; the collective calls and bytes
+   per step beside JAX's count; ``apps.scaling_bench`` at world 1 (nccl)
+   and world 2 (gloo, host-staged).  One ``{"distributed_phase": ...}``
+   JSON line.
+
 Any failure exits non-zero.  The line before the last is a JSON object with
 the kernels' launches (summed over the VO phases that run each; for the
 probes, the probe groups' run), errors, CUDA-event times (mean ms per call
@@ -1922,6 +1948,368 @@ def probe_phase(dev, smi):
     return entries
 
 
+REF_SHARDED_NPZ = os.path.join(HERE, "tests", "data",
+                               "torch_port_sharded_ref.npz")
+# sharded VO vs DeviceVO on the card: JAX's dry run's bound, gated for
+# intensity; Bit-Planes misses it (open fault C.13: the sharded sigma rule,
+# shown by the rule witness) and is bounded by SHARDED_ATOL_JAX instead
+SHARDED_ATOL_DEVICE_VO = 1e-3
+SHARDED_ATOL_JAX = 5e-4        # sharded VO vs JAX's sharded VO
+BA_ATOL_JAX = 5e-4             # BA keyframe windows vs JAX's
+BA_DEPTH_ATOL = 1e-3           # ba_solve_with_depth, card vs CPU
+BA_DEPTH_M, BA_DEPTH_ITERS = 4, 4
+# JAX's 8-device dry run: all-reduces in the compiled per-frame step (its
+# while-loop bodies counted once each) and their bytes (MULTICHIP_r05.json)
+JAX_STEP_ALL_REDUCES, JAX_STEP_ALL_REDUCE_BYTES = 19, 25468
+
+
+def distributed_phase(dev, smi):
+    """Phase 13 (see the module docstring): the distributed layer on the
+    card.  Returns (the ``distributed_phase`` JSON object, {path: launch
+    counts}, {shape: fused_linearize check}, {shape: irls_reduce
+    check})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from bpvo_tpu_torch import AlgorithmParameters, DescriptorType
+    from bpvo_tpu_torch import VisualOdometry
+    from bpvo_tpu_torch.apps import scaling_bench
+    from bpvo_tpu_torch.data import synthetic
+    from bpvo_tpu_torch.ops import fused_linearize
+    from bpvo_tpu_torch.parallel import bundle_adjustment as ba
+    from bpvo_tpu_torch.parallel import dryrun, multihost, sharded
+    from bpvo_tpu_torch.parallel import sharded_vo
+    from bpvo_tpu_torch.solver import gauss_newton as gn
+    from bpvo_tpu_torch.types import InterpolationType
+    from bpvo_tpu_torch.vo import device_vo
+
+    t0 = time.perf_counter()
+    ref = dict(np.load(REF_SHARDED_NPZ))
+    shape = (synthetic.ROWS, synthetic.COLS)
+    out, launches, fused_x, irls_x = {}, {}, {}, {}
+    K, baseline, frames = synthetic.synthesize_sequence(
+        dryrun.CHUNKS[-1][1])
+    images = [torch.as_tensor(f[0]).to(dev) for f in frames]
+    disps = [torch.as_tensor(f[1]).to(dev) for f in frames]
+    reducer = multihost.initialize(
+        "nccl", 1, 0, f"tcp://127.0.0.1:{multihost.free_port()}",
+        device=dev)
+    try:
+        # 1. world 1, nccl, in this process: the sharded GN
+        tdata, ch, cam, _ = dryrun.synthetic_problem(*shape, 16384,
+                                                     device=dev)
+        opts = gn.GNOptions(function_tolerance=1e-4,
+                            parameter_tolerance=1e-6)
+        T0 = torch.eye(4, dtype=torch.float32, device=dev)
+        reducer.reset()
+        st = sharded.make_sharded_gn(reducer, opts)(tdata, ch, cam, T0)
+        gn_stats = reducer.stats()     # one solve's
+        st_none = sharded.make_sharded_gn(None, opts)(tdata, ch, cam, T0)
+        st_run = gn.run(tdata, ch, cam, T0, opts)
+        same = all(torch.equal(a, b) for a, b in zip(st, st_none))
+        d_run = float((st.T - st_run.T).abs().max())
+        gn_ms = _host_ms(lambda: sharded.make_sharded_gn(reducer, opts)(
+            tdata, ch, cam, T0))
+        gn_ms_none = _host_ms(lambda: sharded.make_sharded_gn(None, opts)(
+            tdata, ch, cam, T0))
+        out["sharded_gn"] = {"iterations": int(st.num_iters),
+                             "ms": gn_ms, "ms_no_reducer": gn_ms_none,
+                             "nccl_equals_no_reducer": same,
+                             "max_abs_vs_gauss_newton_run": d_run,
+                             "collectives_per_solve": gn_stats}
+        print(f"sharded GN 376x1241 K=16384 (nccl, world 1): "
+              f"{int(st.num_iters)} iterations, {gn_ms:.3f} ms a solve "
+              f"({gn_ms_none:.3f} with no reducer) on {smi}; bitwise the "
+              f"no-reducer route: {same}; max |T - "
+              f"gauss_newton.run T| {d_run:.3e}; collectives per solve "
+              f"{gn_stats}")
+        _require(same, "sharded GN: world-1 nccl differs from no reducer")
+        _require(bool(torch.isfinite(st.T).all()), "sharded GN: non-finite")
+        # CUBIC sampling: the gather route, no fused_linearize launch
+        cubic = dataclasses.replace(opts, interp=InterpolationType.CUBIC)
+        n_fused = fused_linearize.launch_count
+        st_c = sharded.make_sharded_gn(reducer, cubic)(tdata, ch, cam, T0)
+        st_c_none = sharded.make_sharded_gn(None, cubic)(tdata, ch, cam, T0)
+        same_c = all(torch.equal(a, b) for a, b in zip(st_c, st_c_none))
+        d_lin = float((st_c.T - st.T).abs().max())
+        out["sharded_gn_cubic"] = {
+            "iterations": int(st_c.num_iters),
+            "nccl_equals_no_reducer": same_c,
+            "fused_linearize_launches": fused_linearize.launch_count
+            - n_fused, "max_abs_vs_linear": d_lin}
+        print(f"sharded GN CUBIC (gather route, nccl, world 1): "
+              f"{int(st_c.num_iters)} iterations; bitwise the no-reducer "
+              f"route: {same_c}; max |T - LINEAR T| {d_lin:.3e}")
+        _require(same_c and fused_linearize.launch_count == n_fused
+                 and bool(torch.isfinite(st_c.T).all()),
+                 f"sharded GN CUBIC: {out['sharded_gn_cubic']}")
+
+        # the sharded VO, intensity and Bit-Planes, 1+4 frames, 2 chunks
+        for name, desc in (("sharded_vo", DescriptorType.INTENSITY),
+                           ("sharded_vo_bitplanes",
+                            DescriptorType.BITPLANES)):
+            c1 = desc == DescriptorType.INTENSITY
+            key = "intensity" if c1 else "bitplanes"
+            p = AlgorithmParameters(**dryrun.DRYRUN_PARAMS, descriptor=desc)
+
+            def run_sharded(red):
+                init_fn, _, scan_fn = sharded_vo.make_sharded_vo(
+                    red, K, baseline, shape, p, device=dev)
+                state = init_fn(images[0], disps[0])
+                if red is not None:
+                    red.reset()
+                outs, ms = [], []
+                for lo, hi in dryrun.CHUNKS:
+                    t = time.perf_counter()
+                    state, o = scan_fn(state, images[lo:hi], disps[lo:hi])
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3 / (hi - lo))
+                    outs.append(o)
+                return (torch.cat([o.pose_world for o in outs]),
+                        torch.cat([o.is_keyframe for o in outs]), ms,
+                        state)
+
+            run_sharded(reducer)                   # warm-up
+            _reset_counts()
+            world, kf, ms, state = run_sharded(reducer)
+            launches[name] = _counts()
+            stats = reducer.stats()
+            world_none, kf_none, _, _ = run_sharded(None)
+            single = device_vo.DeviceVO(K, baseline, shape, p, device=dev)
+            want = single.add_frames(images, disps).pose_world
+            # the rule witness: DeviceVO with gauss_newton.run at every
+            # level, and the step hooked with the sharded linearization at
+            # DeviceVO's own sigma rule (scale_tolerance_rel kept)
+            saved = gn.MAX_LEVEL_KERNEL_POINTS
+            gn.MAX_LEVEL_KERNEL_POINTS = 0
+            try:
+                want_run = device_vo.DeviceVO(
+                    K, baseline, shape, p,
+                    device=dev).add_frames(images, disps).pose_world
+            finally:
+                gn.MAX_LEVEL_KERNEL_POINTS = saved
+            hooked = device_vo.make_vo_step(
+                single._p, single._cams, single._capacities, single._opts,
+                hooks=device_vo.StepHooks(
+                    linearize_factory=lambda _l, td, c, cam, o:
+                    sharded.linearize_sharded(td, c, cam, o, None)))
+            h_state = sharded_vo.make_sharded_vo(
+                None, K, baseline, shape, p, device=dev)[0](images[0],
+                                                            disps[0])
+            h_world = []
+            for image, disp in zip(images[1:], disps[1:]):
+                h_state, h_out = hooked(h_state, image, disp)
+                h_world.append(h_out.pose_world)
+            h_world = torch.stack(h_world)
+            del h_state
+            world_np = world.cpu().numpy()
+            n_steps = len(world_np)
+            res = {
+                "keyframes": kf.cpu().numpy().astype(int).tolist(),
+                "ms_per_step_by_chunk": ms,
+                "nccl_equals_no_reducer": bool(
+                    torch.equal(world, world_none)
+                    and torch.equal(kf, kf_none)),
+                "max_abs_vs_device_vo": float(
+                    (world - want).abs().max()),
+                "rule_witness": {
+                    "equals_device_vo_gn_run": bool(
+                        torch.equal(h_world, want_run)),
+                    "max_abs_sharded_vs_device_vo_gn_run": float(
+                        (world - want_run).abs().max()),
+                    "max_abs_device_vo_gn_run_vs_default": float(
+                        (want_run - want).abs().max())},
+                "max_abs_vs_jax": float(np.abs(
+                    world_np - ref[f"sharded_{key}_world"]).max()),
+                "keyframes_as_jax": bool(np.array_equal(
+                    kf.cpu().numpy(), ref[f"sharded_{key}_keyframe"])),
+                "collective_calls_per_step": stats["calls"] / n_steps,
+                "collective_bytes_per_step": stats["bytes"] / n_steps,
+                "launches": launches[name]}
+            out[name] = res
+            print(f"{name} 376x1241 (nccl, world 1): keyframes "
+                  f"{res['keyframes']}, ms per step by chunk "
+                  f"{[round(m, 3) for m in ms]} on {smi}; bitwise the "
+                  f"no-reducer route: {res['nccl_equals_no_reducer']}; max "
+                  f"|pose - DeviceVO| {res['max_abs_vs_device_vo']:.3e} "
+                  f"(atol {SHARDED_ATOL_DEVICE_VO}"
+                  f"{'' if c1 else ', not gated: open fault C.13'}), max "
+                  f"|pose - JAX sharded| {res['max_abs_vs_jax']:.3e} (atol "
+                  f"{SHARDED_ATOL_JAX}); collectives per step "
+                  f"{res['collective_calls_per_step']:.2f} calls, "
+                  f"{res['collective_bytes_per_step']:.0f} B; launches "
+                  f"{launches[name]}")
+            w = res["rule_witness"]
+            print(f"{name} rule witness: hooked at DeviceVO's sigma rule "
+                  f"bitwise DeviceVO on gauss_newton.run "
+                  f"{w['equals_device_vo_gn_run']}; max |sharded - DeviceVO"
+                  f" on gauss_newton.run| "
+                  f"{w['max_abs_sharded_vs_device_vo_gn_run']:.3e}, max "
+                  f"|DeviceVO on gauss_newton.run - DeviceVO| "
+                  f"{w['max_abs_device_vo_gn_run_vs_default']:.3e}")
+            _require(res["nccl_equals_no_reducer"],
+                     f"{name}: world-1 nccl differs from no reducer")
+            _require(bool(kf.any()), f"{name}: no keyframe event")
+            _require(not c1 or res["max_abs_vs_device_vo"]
+                     <= SHARDED_ATOL_DEVICE_VO,
+                     f"{name}: {res['max_abs_vs_device_vo']} from DeviceVO")
+            _require(w["equals_device_vo_gn_run"],
+                     f"{name}: the step hooked with the sharded "
+                     f"linearization at DeviceVO's sigma rule differs from "
+                     f"DeviceVO on gauss_newton.run")
+            _require(res["max_abs_vs_jax"] <= SHARDED_ATOL_JAX
+                     and res["keyframes_as_jax"],
+                     f"{name}: {res['max_abs_vs_jax']} from JAX's sharded "
+                     f"VO, keyframes {res['keyframes']}")
+            # a custom linearization takes fused_linearize, never level_gn;
+            # at C = 1 irls_reduce_w re-weighs at each new sigma, at C > 1
+            # a channel-0 fused_linearize pass gives sigma's residuals
+            c = launches[name]
+            _require(c["fused_linearize"] > 0 and c["level_gn"] == 0
+                     and (c["irls_reduce"] > 0) == c1
+                     and (c["census_planes"] > 0) != c1,
+                     f"{name}: launches {c}")
+            # the kernels at this path's finest shapes, against plain
+            ch1 = device_vo._compute_channels_pyr(images[1], p, 1)[0]
+            o0 = gn.GNOptions.from_params(p, coarse=False)
+            fused_x[f"{name} L0"] = _fused_zoo_check(
+                f"fused_linearize {name} L0", state.templates[0], ch1,
+                single._cams[0], o0)
+            del single, state
+        _lap(t0, "distributed: world 1")
+    finally:
+        multihost.shutdown()
+
+    # 2. world 2, gloo, two processes on cuda:0 (host-staged)
+    res2 = dryrun.run(2, "gloo", "cuda", *shape)
+    _require(res2["ok"], f"dryrun world 2 gloo: {res2}")
+    out["dryrun_gloo_world2"] = res2
+    print(f"dryrun 2 ranks gloo on cuda:0 (host-staged, not a collective on "
+          f"the card): ranks bitwise equal {res2['ranks_bitwise_equal']}, "
+          f"{res2['keyframe_events']} keyframe events, max |pose - DeviceVO|"
+          f" {res2['max_abs_vs_device_vo']:.3e}; ms per step by rank "
+          f"{[round(m, 1) for m in res2['vo_ms_per_step']]}; collectives "
+          f"per step {res2['collectives_per_step']} on {smi}")
+    _lap(t0, "distributed: world 2")
+
+    # 3. BA: VisualOdometry with enable_bundle_adjustment(8), 1+30 frames
+    K, baseline, frames = synthetic.synthesize_sequence(1 + N_STEPS)
+    params = AlgorithmParameters(**BENCH, descriptor=DescriptorType.INTENSITY)
+    vo = VisualOdometry(K, baseline, shape, params, device=dev)
+    window = int(ref["ba_window"])
+    vo.enable_bundle_adjustment(window)
+    win = vo._ba_window
+    opt_ms, sizes = [], []
+    optimize = win.optimize
+
+    def timed_optimize():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = optimize()
+        opt_ms.append((time.perf_counter() - t) * 1e3)
+        sizes.append(len(r))
+        return r
+    win.optimize = timed_optimize
+    ref_windows = np.split(ref["ba_windows"],
+                           np.cumsum(ref["ba_window_sizes"])[:-1])
+    _reset_counts()
+    got, at = [], []
+    for i, (image, disp) in enumerate(frames):
+        if vo.add_frame(image, disp).is_keyframe and i > 0:
+            got.append(vo.refined_keyframe_poses())
+            at.append(i)
+    launches["ba"] = _counts()
+    _require(at == ref["ba_frames"].tolist(),
+             f"BA: keyframe events at {at}, JAX's at "
+             f"{ref['ba_frames'].tolist()}")
+    ba_err = max(float(np.abs(g - w).max()) for g, w in zip(got, ref_windows))
+    opts_ba = ba.BAOptions()
+    want_irls = sum(opts_ba.max_iterations * 2 * (m - 1) for m in sizes)
+    out["ba"] = {"keyframe_events": at, "window_sizes": sizes,
+                 "optimize_ms": opt_ms, "max_abs_vs_jax": ba_err,
+                 "irls_reduce_per_optimize_iteration": [2 * (m - 1)
+                                                        for m in sizes],
+                 "launches": launches["ba"]}
+    print(f"BA (VisualOdometry, window {window}, 1+{N_STEPS} frames): "
+          f"keyframe events {at}, windows {sizes}, ms per optimize "
+          f"{[round(m, 2) for m in opt_ms]} on {smi}; max |refined - JAX| "
+          f"{ba_err:.3e} (atol {BA_ATOL_JAX}); irls_reduce launches "
+          f"{launches['ba']['irls_reduce']} (expected {want_irls}: 2(M-1) "
+          f"an iteration)")
+    _require(ba_err <= BA_ATOL_JAX, f"BA: {ba_err} from JAX's windows")
+    _require(launches["ba"]["irls_reduce"] == want_irls,
+             f"BA: irls_reduce launched {launches['ba']['irls_reduce']} "
+             f"times, expected {want_irls}")
+    # the edge reduction at its shape (K = 16384, C = 1), against plain
+    irls_x["ba edge M=16384"] = _irls_zoo_check(
+        "irls_reduce ba edge", win._templates[0], win._channels[1],
+        vo._cams[0], gn.GNOptions())
+
+    # ba_solve_with_depth at M = 4, K = 16384: card vs the CPU's plain run
+    M = BA_DEPTH_M
+    stacked = ba.stack_templates(win._templates[:M])
+    chans = torch.stack(win._channels[:M])
+    poses0 = torch.from_numpy(np.stack(win._poses[:M])).to(dev)
+    d_opts = ba.BAOptions(max_iterations=BA_DEPTH_ITERS, refine_depth=True)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pd, td_d, cost_d = ba.ba_solve_with_depth(stacked, chans, vo._cams[0],
+                                              poses0, d_opts)
+    torch.cuda.synchronize()
+    depth_ms = (time.perf_counter() - t) * 1e3
+    launches["ba_depth"] = _counts()
+    cpu = [ba.TemplateData(*(x.cpu() for x in stacked)), chans.cpu()]
+    pc, _, cost_c = ba.ba_solve_with_depth(cpu[0], cpu[1], vo._cams[0],
+                                           poses0.cpu(), d_opts)
+    d_err = float((pd.cpu() - pc).abs().max())
+    want_d = BA_DEPTH_ITERS * 2 * (M - 1)
+    out["ba_depth"] = {"M": M, "K": int(stacked.points.shape[1]),
+                       "iterations": BA_DEPTH_ITERS, "ms": depth_ms,
+                       "max_abs_vs_cpu": d_err, "cost": float(cost_d),
+                       "launches": launches["ba_depth"]}
+    print(f"ba_solve_with_depth M={M} K={stacked.points.shape[1]} "
+          f"{BA_DEPTH_ITERS} iterations: {depth_ms:.2f} ms on {smi}; max "
+          f"|poses - CPU plain run| {d_err:.3e} (atol {BA_DEPTH_ATOL}); "
+          f"cost {float(cost_d):.6g} (CPU {float(cost_c):.6g}); launches "
+          f"{launches['ba_depth']}")
+    _require(d_err <= BA_DEPTH_ATOL and bool(torch.isfinite(pd).all()),
+             f"ba_solve_with_depth: {d_err} from the CPU run")
+    _require(launches["ba_depth"]["irls_reduce"] == want_d,
+             f"ba_solve_with_depth: irls_reduce launched "
+             f"{launches['ba_depth']['irls_reduce']}, expected {want_d}")
+    del vo, win, stacked, chans
+    _lap(t0, "distributed: BA")
+
+    # 4. collectives against JAX's count; the scaling bench
+    sc = {"world1_nccl": scaling_bench.run_scaling(
+        (1,), backend="nccl", device="cuda", reps=10),
+        "world2_gloo": scaling_bench.run_scaling(
+        (1, 2), backend="gloo", device="cuda", reps=10)}
+    out["scaling_bench"] = sc
+    for name in ("sharded_vo", "sharded_vo_bitplanes"):
+        print(f"collectives per step, {name}: "
+              f"{out[name]['collective_calls_per_step']:.2f} all-reduces, "
+              f"{out[name]['collective_bytes_per_step']:.0f} B (world 1, "
+              f"every iteration counted); JAX 8 devices: "
+              f"{JAX_STEP_ALL_REDUCES} all-reduces, "
+              f"{JAX_STEP_ALL_REDUCE_BYTES} B in the compiled step "
+              f"(MULTICHIP_r05.json)")
+    for name, r in sc.items():
+        print(f"scaling_bench {name} ({r['points']} points, "
+              f"{'host-staged' if r['staged'] else 'on the card'}): " + ", ".join(
+                  f"world {n}: {v['ms_per_solve']:.3f} ms a solve, "
+                  f"efficiency {v['efficiency']:.3f}"
+                  for n, v in r["by_world"].items()) + f" on {smi}")
+    out["jax_compiled_step"] = {"all_reduces": JAX_STEP_ALL_REDUCES,
+                                "bytes": JAX_STEP_ALL_REDUCE_BYTES,
+                                "devices": 8}
+    out["seconds"] = time.perf_counter() - t0
+    _lap(t0, "distributed phase")
+    return out, launches, fused_x, irls_x
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2066,6 +2454,21 @@ def main() -> int:
         gnk[kernel] = (max([err] + [v[0] for v in extra.values()]), times,
                        bounds, per_call)
 
+    _lap(t_start, "the phases through the zoo phase")
+
+    # the distributed layer: sharded GN and VO (world 1 nccl, world 2 gloo),
+    # BA through VisualOdometry, the depth Schur complement, collectives
+    dist_json, dist_counts, dist_fused, dist_irls = distributed_phase(dev,
+                                                                      smi)
+    print(json.dumps({"distributed_phase": dist_json}))
+    for kernel, extra in (("fused_linearize", dist_fused),
+                          ("irls_reduce", dist_irls)):
+        err, times, bounds, per_call = gnk[kernel]
+        for shape, (dw, t, bnd, n_k) in extra.items():
+            times[shape], bounds[shape], per_call[shape] = t, bnd, n_k
+        gnk[kernel] = (max([err] + [v[0] for v in extra.values()]), times,
+                       bounds, per_call)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     def by_path(kernel):
@@ -2073,7 +2476,8 @@ def main() -> int:
                 "stereo_bitplanes": counts_s[kernel],
                 "dense_intensity": dense["intensity"][kernel],
                 "dense_bitplanes": dense["bitplanes"][kernel],
-                **{path: c[kernel] for path, c in zoo_counts.items()}}
+                **{path: c[kernel] for path, c in zoo_counts.items()},
+                **{path: c[kernel] for path, c in dist_counts.items()}}
 
     def gn_entry(kernel, source, replaces, shape):
         err, times, bounds, per_call = gnk[kernel]

@@ -33,6 +33,17 @@ tests hold the PyTorch port to:
   ``<descriptor>_<solver>_level_world``, ``_level_iters``, ``_level_ate``),
   in a process of its own (``zoo_level``, which adds them to the file).
 
+- ``tests/data/torch_port_sharded_ref.npz``: JAX ``make_sharded_vo`` on
+  the CPU on a 2-device mesh over 1+4 frames of the port's synthetic
+  376x1241 sequence in two ``scan_fn`` chunks, with the dry run's
+  parameters (``bpvo_tpu_torch.parallel.dryrun.DRYRUN_PARAMS``, JAX
+  __graft_entry__.py:127-130), intensity (``sharded_intensity_*``) and
+  Bit-Planes (``sharded_bitplanes_*``): world poses and keyframe flags; and
+  JAX ``VisualOdometry`` with ``enable_bundle_adjustment(8)`` over 1+30
+  frames with bench.py's intensity settings: after each keyframe event the
+  refined keyframe poses of the window (``ba_windows``, stacked, with
+  ``ba_window_sizes``) and the frame index (``ba_frames``).  Poses only.
+
 The first three store per frame the relative pose, the keyframe flag, the per-level
 GN iterations and the ground-truth error max|se3.log(pose @ step^-1)| (the
 ``DeviceVO`` files also the world pose); the stereo file also stores the
@@ -47,7 +58,7 @@ Bit-Planes also with other per-level iteration counts), so the port is held
 to these poses by a cross-route tolerance, not by bitwise equality.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py \
-        [bench|stereo|dense|zoo]
+        [bench|stereo|dense|zoo|sharded]
     JAX_PLATFORMS=cpu BPVO_LEVEL_KERNEL=force \
         python scripts/make_torch_port_ref.py zoo_level
 """
@@ -65,6 +76,10 @@ OUT_STEREO = os.path.join(ROOT, "tests", "data",
                           "torch_port_bitplanes_sgm_ref.npz")
 OUT_DENSE = os.path.join(ROOT, "tests", "data", "torch_port_dense_ref.npz")
 OUT_ZOO = os.path.join(ROOT, "tests", "data", "torch_port_zoo_ref.npz")
+OUT_SHARDED = os.path.join(ROOT, "tests", "data",
+                           "torch_port_sharded_ref.npz")
+SHARDED_DEVICES = 2
+BA_WINDOW = 8
 CONF = os.path.join(ROOT, "conf", "kitti_bitplanes.cfg")
 # dense VO at KITTI shape: NMS off as conf/tunnel.cfg sets it, and a point
 # capacity that every level fills
@@ -331,8 +346,70 @@ def zoo_level_ref():
     print(f"added the level-route cells to {OUT_ZOO}")
 
 
+def sharded_ref():
+    import time
+
+    import jax.numpy as jnp
+    from bpvo_tpu import AlgorithmParameters, VisualOdometry
+    from bpvo_tpu.parallel import sharded
+    from bpvo_tpu.parallel.sharded_vo import make_sharded_vo
+    from bpvo_tpu.types import DescriptorType
+    from bpvo_tpu_torch.data import synthetic
+    from bpvo_tpu_torch.parallel.dryrun import CHUNKS, DRYRUN_PARAMS
+    import bench
+
+    out = {}
+    K, baseline, frames = synthetic.synthesize_sequence(CHUNKS[-1][1])
+    images = jnp.asarray(np.stack([f[0] for f in frames]))
+    disps = jnp.asarray(np.stack([f[1] for f in frames]))
+    mesh = sharded.make_mesh(SHARDED_DEVICES)
+    for name, desc in (("intensity", DescriptorType.INTENSITY),
+                       ("bitplanes", DescriptorType.BITPLANES)):
+        t0 = time.perf_counter()
+        p = AlgorithmParameters(**DRYRUN_PARAMS, descriptor=desc)
+        init_fn, _, scan_fn = make_sharded_vo(
+            mesh, K, baseline, (synthetic.ROWS, synthetic.COLS), p)
+        state = init_fn(images[0], disps[0])
+        world, kf = [], []
+        for lo, hi in CHUNKS:
+            state, o = scan_fn(state, images[lo:hi], disps[lo:hi])
+            world.append(np.asarray(o.pose_world))
+            kf.append(np.asarray(o.is_keyframe))
+        out[f"sharded_{name}_world"] = np.concatenate(world).astype(
+            np.float32)
+        out[f"sharded_{name}_keyframe"] = np.concatenate(kf)
+        print(f"sharded {name}: keyframes "
+              f"{out[f'sharded_{name}_keyframe'].tolist()} "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    K, baseline, frames = synthetic.synthesize_sequence(1 + N_STEPS)
+    vo = VisualOdometry(K, baseline, (synthetic.ROWS, synthetic.COLS),
+                        bench._make_params("Intensity"))
+    vo.enable_bundle_adjustment(BA_WINDOW)
+    windows, sizes, at = [], [], []
+    for i, (image, disp) in enumerate(frames):
+        if vo.add_frame(image, disp).is_keyframe and i > 0:
+            w = vo.refined_keyframe_poses()
+            windows.append(w.astype(np.float32))
+            sizes.append(len(w))
+            at.append(i)
+    out.update(ba_windows=np.concatenate(windows),
+               ba_window_sizes=np.asarray(sizes, np.int32),
+               ba_frames=np.asarray(at, np.int32), ba_window=BA_WINDOW)
+    print(f"BA: keyframe events at {at}, window sizes {sizes} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    np.savez_compressed(OUT_SHARDED, rows=synthetic.ROWS,
+                        cols=synthetic.COLS, devices=SHARDED_DEVICES, **out)
+    print(f"wrote {OUT_SHARDED}")
+
+
 def main():
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    if "sharded" in sys.argv[1:]:
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "") +
+            f" --xla_force_host_platform_device_count={SHARDED_DEVICES}")
     sys.path.insert(0, ROOT)
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -347,6 +424,8 @@ def main():
         zoo_ref()
     if "zoo_level" in which:
         zoo_level_ref()
+    if "sharded" in which:
+        sharded_ref()
 
 
 if __name__ == "__main__":

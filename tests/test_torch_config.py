@@ -57,13 +57,18 @@ def test_config_file_get_and_save(tmp_path):
 
 
 def test_port_does_not_import_jax():
-    """The package must import in a process without jax."""
+    """The package, its distributed layer included, must import in a
+    process without jax."""
     import subprocess
     import sys
     code = ("import sys, bpvo_tpu_torch\n"
             "from bpvo_tpu_torch.vo import device_vo\n"
             "from bpvo_tpu_torch.utils import convert\n"
             "from bpvo_tpu_torch.data import synthetic\n"
+            "from bpvo_tpu_torch.parallel import (bundle_adjustment, "
+            "collectives, dryrun, multihost, pose_graph, sharded, "
+            "sharded_vo, worker)\n"
+            "from bpvo_tpu_torch.apps import scaling_bench\n"
             "assert 'jax' not in sys.modules and 'bpvo_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=os.path.dirname(CONF_DIR))

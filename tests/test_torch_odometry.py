@@ -189,15 +189,17 @@ def test_device_vo_verbose_runs_and_matches_jax(frames, capfd):
 
 
 def test_unported_paths_raise(frames):
-    """Bundle adjustment still raises, a wrong image size too; LM and the
-    multi-start probe (coarseInitOffsetPx), once refused, follow JAX's
-    ``VisualOdometry``: the same keyframes, poses at atol 5e-4."""
+    """A wrong image size raises.  The paths once refused now run:
+    bundle adjustment enables with an empty window (held to JAX in
+    tests/test_torch_ba.py), and LM and the multi-start probe
+    (coarseInitOffsetPx) follow JAX's ``VisualOdometry``: the same
+    keyframes, poses at atol 5e-4."""
     cam = make_cam()
     K, b = np.asarray(cam.K()), float(cam.baseline)
     vo = VisualOdometry(K, b, (H_IMG, W_IMG), AlgorithmParameters(**KW),
                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        vo.enable_bundle_adjustment()
+    vo.enable_bundle_adjustment()
+    assert vo.refined_keyframe_poses().shape == (0, 4, 4)
     with pytest.raises(ValueError):
         vo.add_frame(np.zeros((10, 10), np.float32),
                      np.zeros((10, 10), np.float32))

@@ -561,13 +561,16 @@ def test_eval_descriptors_matches_jax(name, corridor_cfg, tmp_path,
 
 def test_eval_descriptors_command_line(corridor_cfg, tmp_path, capsys,
                                        monkeypatch):
-    """The command line: all 8 descriptors with GN and LM by default,
-    JSON on stdout; ``--solvers GaussNewton`` names its cells and files as
-    the JAX package's command does; ``--device`` defaults to the card
-    (which raises without one)."""
+    """The command line: all 8 descriptors with GN alone by default, its
+    cells and files named as the JAX package's command names them, JSON on
+    stdout; ``--solvers GaussNewton,LevenbergMarquardt`` gives both
+    solvers' cells; ``--device`` defaults to the card (which raises without
+    one)."""
     monkeypatch.setattr(gn, "MAX_LEVEL_KERNEL_POINTS", 0)
     out = eval_descriptors.main(["--config", corridor_cfg, "--out",
                                  str(tmp_path / "both"), "--numframes", "2",
+                                 "--solvers", ",".join(
+                                     eval_descriptors.SOLVERS),
                                  "--device", "cpu"])
     assert set(out) == {f"{d}+{s}" for d in NAMES
                         for s in eval_descriptors.SOLVERS}
@@ -575,9 +578,9 @@ def test_eval_descriptors_command_line(corridor_cfg, tmp_path, capsys,
     assert '"Latch+LevenbergMarquardt"' in capsys.readouterr().out
     out = eval_descriptors.main(["--config", corridor_cfg, "--out",
                                  str(tmp_path / "gn"), "--numframes", "1",
-                                 "--solvers", "GaussNewton", "--device",
-                                 "cpu"])
+                                 "--device", "cpu"])
     assert set(out) == set(NAMES)
+    assert '"Latch"' in capsys.readouterr().out
     for name in NAMES:
         for suffix in ("_path.txt", "_time.txt", "_iterations.txt"):
             assert os.path.exists(tmp_path / "gn" / (name + suffix))
