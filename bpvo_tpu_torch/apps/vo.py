@@ -4,13 +4,13 @@ buffer, point clouds and timing files driving ``VoApp``.
 
 Usage: python -m bpvo_tpu_torch.apps.vo --config conf/file.cfg
        [--output prefix] [--numframes N] [--buffersize B] [--points]
-       [--dontstoretiming] [--device cuda|cpu]
+       [--dontstoretiming] [--viewer] [--device cuda|cpu]
 """
 from __future__ import annotations
 
 import argparse
 
-from bpvo_tpu_torch.apps.vo_app import VIEWER_MISSING, VoApp
+from bpvo_tpu_torch.apps.vo_app import VoApp
 from bpvo_tpu_torch.utils import debug
 
 
@@ -28,13 +28,12 @@ def main(argv=None):
                     help="store point clouds (PLY) at keyframes")
     ap.add_argument("--dontstoretiming", action="store_true")
     ap.add_argument("--viewer", "-v", action="store_true",
-                    help="display loop (not ported: raises)")
+                    help="display loop (GUI if available, else PNG dumps "
+                         "under <output>_frames/)")
     ap.add_argument("--device", default="cuda",
                     help="where the VO and the stereo matcher run (cuda, "
                          "or cpu for the plain versions)")
     args = ap.parse_args(argv)
-    if args.viewer:
-        raise NotImplementedError(VIEWER_MISSING)
 
     app = VoApp.from_config(
         args.config, device=args.device,
@@ -42,7 +41,8 @@ def main(argv=None):
         points_prefix=args.output if args.points else "",
         data_buffer_size=args.buffersize,
         max_num_frames=args.numframes,
-        store_iteration_time=not args.dontstoretiming)
+        store_iteration_time=not args.dontstoretiming,
+        viewer=args.viewer)
     result = app.run()
     debug.info("done: %d frames @ %.2f Hz", result.num_frames, result.mean_hz)
     return result

@@ -8,7 +8,10 @@ a stereo dataset's matcher on that stream; ``threaded=False`` reads each
 frame on the calling thread instead, just before its ``add_frame``.  The
 output files are the JAX package's: ``<prefix>_path.txt``,
 ``_poses.txt``, ``_kitti.txt``, ``_time.txt``, ``_iterations.txt`` and a
-``<points prefix>_NNNNN.ply`` per keyframe.
+``<points prefix>_NNNNN.ply`` per keyframe.  With ``viewer`` each frame is
+rendered by ``utils.viz.Viewer``: in a window where one opens, else every
+``viewer_dump_every``-th frame as a PNG under ``<trajectory prefix>_frames``
+(``vo_frames`` without a prefix).
 """
 from __future__ import annotations
 
@@ -23,12 +26,10 @@ from bpvo_tpu_torch.config import AlgorithmParameters, ConfigFile
 from bpvo_tpu_torch.data.dataset import Dataset
 from bpvo_tpu_torch.data.loader import DatasetLoaderThread
 from bpvo_tpu_torch.utils import debug
+from bpvo_tpu_torch.utils.viz import Viewer
 from bpvo_tpu_torch.vo.device_vo import resolve_device
 from bpvo_tpu_torch.vo.odometry import VisualOdometry
 from bpvo_tpu_torch.vo.point_cloud import write_ply
-
-VIEWER_MISSING = ("the viewer (utils/viz) needs cv2 and is not ported yet "
-                  "(ROADMAP A.3)")
 
 
 @dataclasses.dataclass
@@ -41,7 +42,10 @@ class VoAppOptions:
     store_iteration_time: bool = True
     min_point_weight: float = 0.75  # conf 'minPointWeight'
     max_point_depth: float = 10.0   # conf 'maxDepth'
-    viewer: bool = False            # not ported (VIEWER_MISSING)
+    viewer: bool = False            # display loop (vo_app.cc:42-124); GUI
+                                    # when available, else PNG dumps under
+                                    # <trajectory_prefix>_frames/
+    viewer_dump_every: int = 25
     threaded: bool = True           # frames from the loader thread
     prefetch: bool = True           # the loader copies frames to the device
 
@@ -65,8 +69,6 @@ class VoApp:
                  options: Optional[VoAppOptions] = None, device="cuda"):
         self._dataset = dataset
         self._options = options or VoAppOptions()
-        if self._options.viewer:
-            raise NotImplementedError(VIEWER_MISSING)
         self.device = resolve_device(device)
         calib = dataset.calibration
         self._vo = VisualOdometry(calib.K, calib.baseline, dataset.image_size,
@@ -97,16 +99,24 @@ class VoApp:
         iterations: List[int] = []
         t_start = time.perf_counter()
         max_frames = o.max_num_frames if o.max_num_frames > 0 else None
+        viewer = None
+        if o.viewer:
+            dump = (o.trajectory_prefix + "_frames"
+                    if o.trajectory_prefix else "vo_frames")
+            viewer = Viewer(dump_dir=dump, dump_every=o.viewer_dump_every)
         loader = DatasetLoaderThread(
             self._dataset, o.data_buffer_size, max_frames=max_frames,
             device=self.device if o.prefetch else None) if o.threaded else None
         try:
             self._loop(loader if loader is not None
                        else itertools.islice(self._dataset, max_frames),
-                       frame_times, intervals, iterations, log_every)
+                       frame_times, intervals, iterations, log_every,
+                       viewer)
         finally:
             if loader is not None:
                 loader.stop()
+            if viewer is not None:
+                viewer.close()
         total = time.perf_counter() - t_start
         self._write_outputs(frame_times, iterations)
         return VoAppResult(num_frames=len(frame_times), total_time_s=total,
@@ -114,7 +124,8 @@ class VoApp:
                            frame_interval_ms=intervals,
                            iterations=iterations, vo=self._vo)
 
-    def _loop(self, frames, frame_times, intervals, iterations, log_every):
+    def _loop(self, frames, frame_times, intervals, iterations, log_every,
+              viewer):
         o = self._options
         kf_index = 0
         t_last = time.perf_counter()
@@ -128,6 +139,13 @@ class VoApp:
             iterations.append(sum(
                 s.num_iterations for s in result.optimizer_statistics))
             n = len(frame_times)
+
+            if viewer is not None and not viewer.show(
+                    frame.image, frame.disparity,
+                    hz=1000.0 / max(frame_times[-1], 1e-9),
+                    is_keyframe=result.is_keyframe):
+                debug.info("viewer quit at frame %d", n)
+                break
 
             if result.point_cloud is not None and o.points_prefix:
                 pc = result.point_cloud.filtered(o.min_point_weight,

@@ -38,8 +38,13 @@ tests hold the PyTorch port to:
   376x1241 sequence in two ``scan_fn`` chunks, with the dry run's
   parameters (``bpvo_tpu_torch.parallel.dryrun.DRYRUN_PARAMS``, JAX
   __graft_entry__.py:127-130), intensity (``sharded_intensity_*``) and
-  Bit-Planes (``sharded_bitplanes_*``): world poses and keyframe flags; and
-  JAX ``VisualOdometry`` with ``enable_bundle_adjustment(8)`` over 1+30
+  Bit-Planes (``sharded_bitplanes_*``): world poses and keyframe flags;
+  JAX's single-device ``DeviceVO`` on the same frames and parameters, on
+  its default CPU route (``sharded_<descriptor>_device_vo_world``) and on
+  its level route (``BPVO_LEVEL_KERNEL=force``: the Pallas level kernel in
+  interpret mode, ``sharded_<descriptor>_device_vo_level_world``, added by
+  ``sharded_level`` in a process of its own), the single-device poses that
+  JAX's own sharded VO parts from; and JAX ``VisualOdometry`` with ``enable_bundle_adjustment(8)`` over 1+30
   frames with bench.py's intensity settings: after each keyframe event the
   refined keyframe poses of the window (``ba_windows``, stacked, with
   ``ba_window_sizes``) and the frame index (``ba_frames``).  Poses only.
@@ -60,7 +65,7 @@ to these poses by a cross-route tolerance, not by bitwise equality.
     JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py \
         [bench|stereo|dense|zoo|sharded]
     JAX_PLATFORMS=cpu BPVO_LEVEL_KERNEL=force \
-        python scripts/make_torch_port_ref.py zoo_level
+        python scripts/make_torch_port_ref.py zoo_level|sharded_level
 """
 from __future__ import annotations
 
@@ -378,8 +383,12 @@ def sharded_ref():
         out[f"sharded_{name}_world"] = np.concatenate(world).astype(
             np.float32)
         out[f"sharded_{name}_keyframe"] = np.concatenate(kf)
+        single = _device_vo_world(K, baseline, images, disps, p)
+        out[f"sharded_{name}_device_vo_world"] = single
         print(f"sharded {name}: keyframes "
-              f"{out[f'sharded_{name}_keyframe'].tolist()} "
+              f"{out[f'sharded_{name}_keyframe'].tolist()}, max |sharded - "
+              f"DeviceVO| "
+              f"{np.abs(out[f'sharded_{name}_world'] - single).max():.3e} "
               f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -402,6 +411,54 @@ def sharded_ref():
     np.savez_compressed(OUT_SHARDED, rows=synthetic.ROWS,
                         cols=synthetic.COLS, devices=SHARDED_DEVICES, **out)
     print(f"wrote {OUT_SHARDED}")
+    import subprocess
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "sharded_level"],
+                   env=dict(os.environ, BPVO_LEVEL_KERNEL="force"),
+                   check=True)
+
+
+def _device_vo_world(K, baseline, images, disps, p):
+    """JAX ``DeviceVO``'s world poses: init on the first frame, one
+    ``add_frame`` per later frame."""
+    from bpvo_tpu.vo.device_vo import DeviceVO
+    from bpvo_tpu_torch.data import synthetic
+    vo = DeviceVO(K, baseline, (synthetic.ROWS, synthetic.COLS), p)
+    vo.init(images[0], disps[0])
+    return np.stack([np.asarray(vo.add_frame(i, d).pose_world)
+                     for i, d in zip(images[1:], disps[1:])]).astype(
+                         np.float32)
+
+
+def sharded_level_ref():
+    """Adds to OUT_SHARDED JAX ``DeviceVO``'s world poses on its level
+    route (the caller sets BPVO_LEVEL_KERNEL=force) for both descriptors."""
+    import jax.numpy as jnp
+    from bpvo_tpu import AlgorithmParameters
+    from bpvo_tpu.types import DescriptorType
+    from bpvo_tpu_torch.data import synthetic
+    from bpvo_tpu_torch.parallel.dryrun import CHUNKS, DRYRUN_PARAMS
+
+    if os.environ.get("BPVO_LEVEL_KERNEL") != "force":
+        raise SystemExit("sharded_level needs BPVO_LEVEL_KERNEL=force")
+    out = dict(np.load(OUT_SHARDED))
+    K, baseline, frames = synthetic.synthesize_sequence(CHUNKS[-1][1])
+    images = jnp.asarray(np.stack([f[0] for f in frames]))
+    disps = jnp.asarray(np.stack([f[1] for f in frames]))
+    for name, desc in (("intensity", DescriptorType.INTENSITY),
+                       ("bitplanes", DescriptorType.BITPLANES)):
+        p = AlgorithmParameters(**DRYRUN_PARAMS, descriptor=desc)
+        world = _device_vo_world(K, baseline, images, disps, p)
+        out[f"sharded_{name}_device_vo_level_world"] = world
+        print(f"DeviceVO level route {name}: max |JAX sharded - DeviceVO "
+              f"level route| "
+              f"{np.abs(out[f'sharded_{name}_world'] - world).max():.3e}, "
+              f"max |level route - default route| "
+              f"{np.abs(out[f'sharded_{name}_device_vo_world'] - world).max():.3e}")
+    np.savez_compressed(OUT_SHARDED, **out)
+    print(f"added the DeviceVO level-route poses to {OUT_SHARDED}")
+
+
 
 
 def main():
@@ -426,6 +483,8 @@ def main():
         zoo_level_ref()
     if "sharded" in which:
         sharded_ref()
+    if "sharded_level" in which:
+        sharded_level_ref()
 
 
 if __name__ == "__main__":

@@ -137,7 +137,8 @@ def test_vo_app_threaded_prefetched_and_unthreaded_are_bitwise(sequence,
 
 def test_vo_command_line(sequence, tmp_path):
     """``python -m bpvo_tpu_torch.apps.vo`` with JAX's flags and
-    ``--device``: the files VoApp writes; ``--viewer`` is not ported."""
+    ``--device``: the files VoApp writes; ``--viewer`` dumps frames
+    headless under ``<output>_frames``."""
     prefix = str(tmp_path / "cli")
     res = vo.main(["--config", sequence, "--output", prefix, "--points",
                    "--numframes", "5", "--buffersize", "2",
@@ -146,8 +147,10 @@ def test_vo_command_line(sequence, tmp_path):
     for suffix in OUTPUTS:
         assert len(np.loadtxt(prefix + suffix)) == 5
     assert list(tmp_path.glob("cli_*.ply"))
-    with pytest.raises(NotImplementedError, match="viewer"):
-        vo.main(["--config", sequence, "--viewer", "--device", "cpu"])
+    viewed = str(tmp_path / "viewed")
+    assert vo.main(["--config", sequence, "--output", viewed, "--viewer",
+                    "--numframes", "3", "--device", "cpu"]).num_frames == 3
+    assert sorted(os.listdir(viewed + "_frames")) == ["frame_00000.png"]
     prefix2 = str(tmp_path / "notiming")
     vo.main(["--config", sequence, "--output", prefix2, "--numframes", "2",
              "--dontstoretiming", "--device", "cpu"])

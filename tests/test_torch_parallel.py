@@ -3,10 +3,12 @@ JAX package: the two template stages, ``shard_template``, the sharded sigma,
 the sharded GN (the kernel route, and the gather route at CUBIC and
 CUBIC_HERMITE sampling) and the sharded VO with no reducer against JAX's
 on a one-device mesh (atol 5e-4), the hooked ``make_vo_step`` against
-JAX's with identity hooks, a world-1 gloo group bit for bit the
+JAX's with identity hooks, the Bit-Planes gap between the sharded VO and
+``DeviceVO`` against JAX's own (C.13), a world-1 gloo group bit for bit the
 no-reducer route, the ``Reducer``, ``initialize``'s refusals and the layout of ranks.  The
 multi-process cases are in tests/test_torch_multiprocess.py."""
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -208,6 +210,59 @@ def test_sharded_vo_without_reducer_matches_jax(sequence):
     assert bool(ot.is_keyframe.any())
 
 
+# C.13, settled as delta (r): on like routes the port's Bit-Planes gap
+# between its sharded VO and DeviceVO is JAX's own (measured: 2.6695e-3
+# against 2.6624e-3); the margin is the port-vs-JAX pose tolerance of this
+# module
+GAP_MARGIN = ATOL
+SHARDED_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "data", "torch_port_sharded_ref.npz")
+
+
+def test_bitplanes_sharded_gap_to_device_vo_is_jax_s(monkeypatch):
+    """C.13: the sharded VO keeps JAX's sharded sigma rule, which parts
+    from the single-device rule in JAX too.  On the frames and parameters
+    of tests/data/torch_port_sharded_ref.npz (376x1241, 1+4 Bit-Planes
+    frames in 2 chunks), on the route both packages take on the CPU
+    (``gauss_newton.run`` at every level): the port's max |sharded -
+    DeviceVO| is within GAP_MARGIN of JAX's (the file's
+    ``sharded_bitplanes_world`` against ``_device_vo_world``), and each of
+    the port's runs is within ATOL of JAX's."""
+    from bpvo_tpu_torch import AlgorithmParameters, DescriptorType
+    from bpvo_tpu_torch.data import synthetic
+    from bpvo_tpu_torch.parallel.dryrun import CHUNKS, DRYRUN_PARAMS
+    monkeypatch.setattr(gn, "MAX_LEVEL_KERNEL_POINTS", 0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        K, b, frames = synthetic.synthesize_sequence(CHUNKS[-1][1])
+        images = np.stack([f[0] for f in frames])
+        disps = np.stack([f[1] for f in frames])
+        shape = (synthetic.ROWS, synthetic.COLS)
+        p = AlgorithmParameters(**DRYRUN_PARAMS,
+                                descriptor=DescriptorType.BITPLANES)
+        init_fn, _, scan_fn = sharded_vo.make_sharded_vo(None, K, b, shape,
+                                                         p, device="cpu")
+        state = init_fn(images[0], disps[0])
+        world = []
+        for lo, hi in CHUNKS:
+            state, out = scan_fn(state, images[lo:hi], disps[lo:hi])
+            world.append(out.pose_world.numpy())
+        world = np.concatenate(world)
+        single = device_vo.DeviceVO(K, b, shape, p, device="cpu").add_frames(
+            images, disps).pose_world.numpy()
+    finally:
+        torch.set_num_threads(threads)
+    with np.load(SHARDED_REF) as f:
+        jw, jd = f["sharded_bitplanes_world"], f[
+            "sharded_bitplanes_device_vo_world"]
+    np.testing.assert_allclose(world, jw, atol=ATOL)
+    np.testing.assert_allclose(single, jd, atol=ATOL)
+    jax_gap, port_gap = np.abs(jw - jd).max(), np.abs(world - single).max()
+    assert jax_gap > 1e-3          # the gap C.13 was opened for
+    assert abs(port_gap - jax_gap) <= GAP_MARGIN, (port_gap, jax_gap)
+
+
 def test_hooked_step_matches_jax_identity_hooks(sequence):
     """``make_vo_step`` with hooks that change nothing (the default
     linearization handed in by ``linearize_factory``, an identity
@@ -363,12 +418,10 @@ def test_state_shard_from_numpy(sequence):
 def test_sharded_reference_file():
     """tests/data/torch_port_sharded_ref.npz, which chip_smoke.py holds the
     card to: JAX's sharded VO over 4 steps at 376x1241 (intensity and
-    Bit-Planes, each with a keyframe event) and JAX's BA windows after each
-    keyframe event of 30 steps; poses only, finite, rigid."""
-    import os
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                        "torch_port_sharded_ref.npz")
-    with np.load(path) as f:
+    Bit-Planes, each with a keyframe event), JAX's DeviceVO on the same
+    frames on its default and its level route, and JAX's BA windows after
+    each keyframe event of 30 steps; poses only, finite, rigid."""
+    with np.load(SHARDED_REF) as f:
         ref = dict(f)
     assert (int(ref["rows"]), int(ref["cols"])) == (376, 1241)
     for key in ("intensity", "bitplanes"):
@@ -378,6 +431,12 @@ def test_sharded_reference_file():
         np.testing.assert_allclose(world[:, :3, :3] @ np.swapaxes(
             world[:, :3, :3], 1, 2), np.broadcast_to(np.eye(3), (4, 3, 3)),
             atol=1e-5)
+        # JAX's DeviceVO on the same frames, both routes (delta (r))
+        for route in ("device_vo", "device_vo_level"):
+            single = ref[f"sharded_{key}_{route}_world"]
+            assert single.shape == world.shape
+            assert np.isfinite(single).all()
+            assert np.abs(single - world).max() < 5e-3
     sizes = ref["ba_window_sizes"]
     assert len(sizes) == len(ref["ba_frames"]) >= 2
     assert sizes.sum() == len(ref["ba_windows"])
