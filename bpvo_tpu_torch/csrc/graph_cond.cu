@@ -1,0 +1,106 @@
+// CUDA graph IF nodes for bpvo_tpu_torch/utils/graphs.py: the port's own
+// counterpart of jax.lax.cond inside a compiled step.
+//
+// Replaces no TPU kernel.  JAX's DeviceVO step runs its keyframe branch as a
+// lax.cond inside one compiled program (bpvo_tpu/vo/device_vo.py:284-357).
+// The port captures the code around a branch into CUDA graphs with PyTorch
+// (a segment before the branch, the branch's body, a segment after it) and
+// joins them here into one graph: each segment a child-graph node, and for
+// each branch a one-thread kernel that copies the branch's predicate (a bool
+// in device memory, written by the segment before) into a conditional
+// handle, followed by an IF node whose body is the branch's segments.  The
+// graph then runs on the device with no host read of the predicate.
+//
+// Plain C entry points bound by ctypes (ops/_build.py); each returns the
+// cudaError_t of the calls it made.  The graphs are created and joined
+// outside any stream capture.
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
+                                     const bool* pred) {
+  cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+}  // namespace
+
+extern "C" int bpvo_graph_create(void** graph) {
+  return cudaGraphCreate(reinterpret_cast<cudaGraph_t*>(graph), 0);
+}
+
+extern "C" int bpvo_graph_destroy(void* graph) {
+  return cudaGraphDestroy(static_cast<cudaGraph_t>(graph));
+}
+
+extern "C" int bpvo_graph_num_nodes(void* graph, long long* count) {
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr,
+                                    &n);
+  *count = static_cast<long long>(n);
+  return e;
+}
+
+// Append a copy of `child` to `graph` as a child-graph node that depends on
+// *tail (a root when *tail is null); *tail becomes the new node.
+extern "C" int bpvo_graph_append_child(void* graph, void** tail,
+                                       void* child) {
+  cudaGraphNode_t dep = static_cast<cudaGraphNode_t>(*tail);
+  cudaGraphNode_t node;
+  cudaError_t e = cudaGraphAddChildGraphNode(
+      &node, static_cast<cudaGraph_t>(graph), dep ? &dep : nullptr,
+      dep ? 1 : 0, static_cast<cudaGraph_t>(child));
+  if (e == cudaSuccess) *tail = node;
+  return e;
+}
+
+// Append to `graph`, after *tail: a kernel node that sets a new conditional
+// handle of `graph` from the bool at device address `pred`, then an IF node
+// on that handle.  *body receives the IF node's body graph (owned by the
+// node; fill it with bpvo_graph_append_*); *tail becomes the IF node.
+extern "C" int bpvo_graph_append_if(void* graph, void** tail,
+                                    const void* pred, void** body) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  cudaGraphConditionalHandle handle;
+  cudaError_t e = cudaGraphConditionalHandleCreate(&handle, g, 0, 0);
+  if (e != cudaSuccess) return e;
+  cudaGraphNode_t dep = static_cast<cudaGraphNode_t>(*tail);
+  const bool* p = static_cast<const bool*>(pred);
+  void* args[] = {&handle, &p};
+  cudaKernelNodeParams kp = {};
+  kp.func = reinterpret_cast<void*>(set_condition_kernel);
+  kp.gridDim = dim3(1);
+  kp.blockDim = dim3(1);
+  kp.sharedMemBytes = 0;
+  kp.kernelParams = args;
+  kp.extra = nullptr;
+  cudaGraphNode_t set_node;
+  e = cudaGraphAddKernelNode(&set_node, g, dep ? &dep : nullptr, dep ? 1 : 0,
+                             &kp);
+  if (e != cudaSuccess) return e;
+  cudaGraphNodeParams cp = {};
+  cp.type = cudaGraphNodeTypeConditional;
+  cp.conditional.handle = handle;
+  cp.conditional.type = cudaGraphCondTypeIf;
+  cp.conditional.size = 1;
+  cudaGraphNode_t if_node;
+  e = cudaGraphAddNode(&if_node, g, &set_node, 1, &cp);
+  if (e != cudaSuccess) return e;
+  *body = cp.conditional.phGraph_out[0];
+  *tail = if_node;
+  return cudaSuccess;
+}
+
+extern "C" int bpvo_graph_instantiate(void** exec, void* graph) {
+  return cudaGraphInstantiate(reinterpret_cast<cudaGraphExec_t*>(exec),
+                              static_cast<cudaGraph_t>(graph), 0);
+}
+
+extern "C" int bpvo_graph_launch(void* exec, void* stream) {
+  return cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec),
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int bpvo_graph_exec_destroy(void* exec) {
+  return cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
+}

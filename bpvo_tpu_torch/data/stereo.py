@@ -19,6 +19,8 @@ returns a numpy disparity, invalid pixels < 0.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -29,6 +31,13 @@ from bpvo_tpu_torch.vo.device_vo import resolve_device
 
 # popcount of every byte, for the Hamming distance of packed census codes
 _POPCOUNT = np.array([bin(i).count("1") for i in range(256)], np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _popcount_table(device: str) -> torch.Tensor:
+    """``_POPCOUNT`` on ``device``, copied there once: a copy from the host
+    on every call could not be captured into a CUDA graph."""
+    return torch.as_tensor(_POPCOUNT, device=device)
 
 
 class StereoAlgorithm:
@@ -217,7 +226,7 @@ def census_cost_volume(cL, cR, num_disparities: int):
            - torch.arange(num_disparities, device=cL.device))      # (W, D)
     codes = cR[:, src.clamp(min=0)] ^ cL[:, :, None]
     codes.masked_fill_(src < 0, 255)
-    return torch.as_tensor(_POPCOUNT, device=cL.device)[codes.int()]
+    return _popcount_table(str(cL.device))[codes.int()]
 
 
 def _wta_subpixel(a, D: int):

@@ -205,6 +205,16 @@ def _load_library() -> ctypes.CDLL:
     lib.bpvo_census_planes.restype = i
     bind_sgm(lib)
     bind_gn(lib)
+    # graph_cond.cu: the IF nodes of utils/graphs.py
+    pp = ctypes.POINTER(p)
+    for name, args in (
+            ("create", [pp]), ("destroy", [p]),
+            ("num_nodes", [p, ctypes.POINTER(ctypes.c_longlong)]),
+            ("append_child", [p, pp, p]), ("append_if", [p, pp, p, pp]),
+            ("instantiate", [pp, p]), ("launch", [p, p]),
+            ("exec_destroy", [p])):
+        fn = getattr(lib, "bpvo_graph_" + name)
+        fn.argtypes, fn.restype = args, i
     # the microbenchmarks of bpvo_tpu_torch/probes
     for name, args in (
             ("while_cta", [p, p, i, i, p]),

@@ -12,6 +12,7 @@ tensors it launches the kernel or raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -72,16 +73,23 @@ def census_planes(I):
     return out.reshape(lead + (8, H, W))
 
 
+@functools.lru_cache(maxsize=None)
+def _bit_weights(dtype: torch.dtype, device: str) -> torch.Tensor:
+    """``_BIT_WEIGHTS`` on ``device``, copied there once: a copy from the
+    host on every call could not be captured into a CUDA graph."""
+    return torch.tensor(_BIT_WEIGHTS, dtype=dtype, device=device)
+
+
 def census(I):
     """Packed 8-bit census (reference census.cc:59-91): (..., H, W) ->
     (..., H, W) uint8 with bit b set when neighbor b >= center."""
     planes = census_planes(I).to(torch.uint8)
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=planes.device)
+    w = _bit_weights(torch.uint8, str(planes.device))
     return torch.sum(planes * w[:, None, None], dim=-3, dtype=torch.uint8)
 
 
 def extract_bitplanes(C):
     """Unpack a packed census image into 8 float {0, 1} channels (reference
     bitplanes_descriptor.cc:39-57)."""
-    bits = torch.tensor(_BIT_WEIGHTS, dtype=C.dtype, device=C.device)
+    bits = _bit_weights(C.dtype, str(C.device))
     return ((C[..., None, :, :] & bits[:, None, None]) > 0).to(torch.float32)

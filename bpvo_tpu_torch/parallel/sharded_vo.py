@@ -127,7 +127,8 @@ def make_sharded_vo(reducer, K, baseline: float, image_size,
         eye = torch.eye(4, dtype=torch.float32, device=dev)
         return VOState(
             templates=templates, prev_channels=channels,
-            prev_disparity=disparity, has_prev=False, T_kf=eye,
+            prev_disparity=disparity,
+            has_prev=torch.zeros((), dtype=torch.bool, device=dev), T_kf=eye,
             pose_world=eye, T_delta=eye,
             last_weights=torch.ones_like(templates[p.maxTestLevel].pixels))
 

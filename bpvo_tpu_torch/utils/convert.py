@@ -88,7 +88,7 @@ def state_from_numpy(d: Mapping[str, Any], device="cuda") -> VOState:
         prev_channels=tuple(_tensor(c, device, f32)
                             for c in d["prev_channels"]),
         prev_disparity=_tensor(d["prev_disparity"], device, f32),
-        has_prev=bool(np.asarray(d["has_prev"])),
+        has_prev=_tensor(np.asarray(d["has_prev"]), device, torch.bool),
         T_kf=_tensor(d["T_kf"], device, f32),
         pose_world=_tensor(d["pose_world"], device, f32),
         T_delta=_tensor(d["T_delta"], device, f32),

@@ -7,10 +7,12 @@ Keyframe semantics follow the reference's vo.cc:
   - keyframe with no candidate: the current frame becomes the keyframe
   - keyframe with candidate: the candidate becomes the keyframe and the pose
     is re-estimated against it.
-The keyframe branch is a host ``if`` on the decision: one device-to-host
-sync per frame.  A step is the part before that read (``_make_front``),
-which ``DeviceVO`` replays from a CUDA graph on CUDA (JAX jits the whole
-step), and the part after it (``_make_commit``).
+A step is ``_make_front`` (pyramid, warm start, estimate, keyframe reason)
+and ``_make_commit``: the keyframe branch (``_make_keyframe``, JAX's
+``lax.cond`` branch, with ``has_prev`` selected by ``torch.where``) under
+``utils.graphs.cond``, then the state update.  Eagerly ``cond`` reads the
+keyframe decision on the host; in ``DeviceVO``'s step graph on CUDA it is
+an IF node, and a step reads nothing back.
 
 With a ``stereo_fn`` (``(left, right) -> disparity``) the second input of a
 step is the right image and disparity is computed at keyframe rate: the
@@ -57,7 +59,7 @@ class VOState(NamedTuple):
     prev_disparity: torch.Tensor             # candidate full-res disparity,
                                              # or its (2, H, W) image pair
                                              # with a stereo_fn
-    has_prev: bool                           # a candidate exists
+    has_prev: torch.Tensor                   # () bool: a candidate exists
     T_kf: torch.Tensor                       # (4,4) keyframe -> last frame
     pose_world: torch.Tensor                 # (4,4) camera-to-world
     T_delta: torch.Tensor                    # (4,4) last inter-frame motion
@@ -167,8 +169,7 @@ def _keyframe_reason(T_est, frac_good, p: AlgorithmParameters):
 
 
 class _Front(NamedTuple):
-    """The part of a step before its one host read: what the step graph
-    computes."""
+    """The part of a step before the keyframe branch."""
     channels: Tuple[torch.Tensor, ...]  # the frame's descriptor pyramid
     store: torch.Tensor         # its candidate store (disparity or pair)
     T_est: torch.Tensor         # (4,4) keyframe -> frame
@@ -181,17 +182,29 @@ class _Front(NamedTuple):
     reason: torch.Tensor        # () int32 keyframing reason
     is_kf: torch.Tensor         # () bool
     pose_kf: torch.Tensor       # (4,4) motion wrt the previous frame
-    pose_world: torch.Tensor    # (4,4) world pose if this is no keyframe
+
+
+class _Branch(NamedTuple):
+    """What ``lax.cond``'s branches give (JAX bpvo_tpu/vo/device_vo.py:
+    284-357): the keyframe's templates, the new T_kf, the step's pose (the
+    next T_delta), its iterations and f_norm, and the finest level's IRLS
+    weights.  No keyframe: the templates kept and the front's values."""
+    templates: Tuple[td_mod.TemplateData, ...]
+    T_kf: torch.Tensor
+    pose: torch.Tensor
+    iters: torch.Tensor
+    f_norm: torch.Tensor
+    last_weights: torch.Tensor
 
 
 def _make_front(p: AlgorithmParameters, cams, opts_per_level, stereo: bool,
                 run_graphs=None, hooks: StepHooks = StepHooks()):
-    """front(templates, T_kf, T_delta, pose_world, image, aux) -> _Front:
-    the pyramid, the gated warm start, the coarse-to-fine estimate, the
-    keyframe reason and the no-keyframe state update."""
+    """front(templates, T_kf, T_delta, image, aux) -> _Front: the pyramid,
+    the gated warm start, the coarse-to-fine estimate and the keyframe
+    reason."""
     n_levels = p.numPyramidLevels
 
-    def front(templates, T_kf, T_delta, pose_world, image, aux):
+    def front(templates, T_kf, T_delta, image, aux):
         image = image.to(torch.float32)
         channels = _compute_channels_pyr(image, p, n_levels)
         # the candidate store: the disparity, or the stereo pair
@@ -207,91 +220,101 @@ def _make_front(p: AlgorithmParameters, cams, opts_per_level, stereo: bool,
             p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
             p.poseEstimator, run_graphs=run_graphs, hooks=hooks)
         reason = _keyframe_reason(T_est, frac, p)
-        pose_kf = T_est @ _rigid_inverse(T_kf)
         return _Front(channels=channels, store=store, T_est=T_est,
                       iters=iters, f_norm=fs, frac_good=frac, H=H,
                       w_fine=w_fine, band_overflow=boverflow, reason=reason,
-                      is_kf=reason != KF_NONE, pose_kf=pose_kf,
-                      pose_world=pose_world @ _rigid_inverse(pose_kf))
+                      is_kf=reason != KF_NONE,
+                      pose_kf=T_est @ _rigid_inverse(T_kf))
 
     return front
 
 
-def _make_commit(p: AlgorithmParameters, cams, capacities, opts_per_level,
-                 stereo_fn=None, run_graphs=None,
-                 hooks: StepHooks = StepHooks()):
-    """commit(state, front, is_kf) -> (state, out): the step after its one
-    host read.  No keyframe: the frame becomes the candidate.  Keyframe:
-    the matcher (with a ``stereo_fn``), the template build and the
-    re-estimate against the new keyframe."""
+def _make_keyframe(p: AlgorithmParameters, cams, capacities, opts_per_level,
+                   stereo_fn=None, run_graphs=None,
+                   hooks: StepHooks = StepHooks()):
+    """keyframe(state, front) -> _Branch: JAX's keyframe branch (bpvo_tpu/
+    vo/device_vo.py:295-354), a function of tensors.  The keyframe source
+    is the candidate when ``state.has_prev``, else the current frame,
+    chosen by ``torch.where`` so that there is one matcher call (with a
+    ``stereo_fn``), one template build and one re-estimate."""
     n_levels = p.numPyramidLevels
     build_templates = hooks.build_templates_fn or (
         lambda channels_pyr, disparity: _build_templates(
             channels_pyr, disparity, cams, p, capacities))
 
-    def commit(state: VOState, fr: _Front, is_kf: bool):
-        if not is_kf:
-            new_state = state._replace(
-                prev_channels=fr.channels, prev_disparity=fr.store,
-                has_prev=True, T_kf=fr.T_est, T_delta=fr.pose_kf,
-                last_weights=fr.w_fine, pose_world=fr.pose_world)
-            pose, it_out, fs_out = fr.pose_kf, fr.iters, fr.f_norm
+    def keyframe(state: VOState, fr: _Front) -> _Branch:
+        has_prev = state.has_prev
+        channels = fr.channels
+        src_channels = tuple(torch.where(has_prev, a, b) for a, b in
+                             zip(state.prev_channels, channels))
+        src_store = torch.where(has_prev, state.prev_disparity, fr.store)
+        # stereo in the loop: the matcher runs here, on the pair of the
+        # frame becoming the keyframe
+        src_disp = (src_store if stereo_fn is None
+                    else stereo_fn(src_store[0], src_store[1]))
+        templates = build_templates(src_channels, src_disp)
+        # re-estimate against the new keyframe.  When the keyframe IS the
+        # current frame this converges to ~identity and only its weights
+        # are kept.  It solves single-frame motion, so with
+        # keyframeReestimateStartLevel >= 0 it skips the coarse levels and
+        # warm-starts from the measured candidate->current motion behind
+        # the coarse-cost gate (identity fallback).
+        eye = _eye4(fr.T_est.device)
+        if p.keyframeReestimateStartLevel >= 0:
+            start2 = min(max(p.keyframeReestimateStartLevel,
+                             p.maxTestLevel), n_levels - 1)
+            T2_init = pe._gated_warm_start(
+                templates, channels, cams, fr.pose_kf, eye,
+                opts_per_level[start2], level=start2,
+                count_reduce=hooks.count_reduce)
         else:
-            channels = fr.channels
-            # keyframe source: the candidate when one exists, else the
-            # current frame
-            if state.has_prev:
-                src_channels = state.prev_channels
-                src_store = state.prev_disparity
-            else:
-                src_channels, src_store = channels, fr.store
-            # stereo in the loop: the matcher runs here, on the pair of the
-            # frame becoming the keyframe
-            src_disp = (src_store if stereo_fn is None
-                        else stereo_fn(src_store[0], src_store[1]))
-            templates = build_templates(src_channels, src_disp)
-            # re-estimate against the new keyframe.  When the keyframe IS the
-            # current frame this converges to ~identity and only its weights
-            # are kept.  It solves single-frame motion, so with
-            # keyframeReestimateStartLevel >= 0 it skips the coarse levels and
-            # warm-starts from the measured candidate->current motion behind
-            # the coarse-cost gate (identity fallback).
-            eye = _eye4(fr.T_est.device)
-            if p.keyframeReestimateStartLevel >= 0:
-                start2 = min(max(p.keyframeReestimateStartLevel,
-                                 p.maxTestLevel), n_levels - 1)
-                T2_init = pe._gated_warm_start(
-                    templates, channels, cams, fr.pose_kf, eye,
-                    opts_per_level[start2], level=start2,
-                    count_reduce=hooks.count_reduce)
-            else:
-                start2 = n_levels - 1
-                T2_init = (pe._gated_warm_start(
-                    templates, channels, cams, state.T_delta, eye,
-                    opts_per_level[n_levels - 1],
-                    count_reduce=hooks.count_reduce)
-                           if p.withMotionModel else eye)
-            T2, it2, fs2, _frac2, _H2, w2_fine, _bo2 = _estimate(
-                templates, channels, cams, T2_init, opts_per_level,
-                p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
-                p.poseEstimator, start_level=start2, run_graphs=run_graphs,
-                hooks=hooks)
-            if state.has_prev:
-                pose, T_kf_new, it_out, fs_out = T2, T2, it2, fs2
-            else:
-                pose, T_kf_new = fr.pose_kf, eye
-                it_out, fs_out = fr.iters, fr.f_norm
-            new_state = VOState(
-                templates=templates, prev_channels=channels,
-                prev_disparity=fr.store, has_prev=False, T_kf=T_kf_new,
-                pose_world=state.pose_world, T_delta=pose,
-                last_weights=w2_fine)
-            pose_world = new_state.pose_world @ _rigid_inverse(pose)
-            new_state = new_state._replace(pose_world=pose_world)
-        out = VOStepOutput(pose=pose, pose_world=new_state.pose_world,
+            start2 = n_levels - 1
+            T2_init = (pe._gated_warm_start(
+                templates, channels, cams, state.T_delta, eye,
+                opts_per_level[n_levels - 1],
+                count_reduce=hooks.count_reduce)
+                       if p.withMotionModel else eye)
+        T2, it2, fs2, _frac2, _H2, w2_fine, _bo2 = _estimate(
+            templates, channels, cams, T2_init, opts_per_level,
+            p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
+            p.poseEstimator, start_level=start2, run_graphs=run_graphs,
+            hooks=hooks)
+        return _Branch(templates=templates,
+                       T_kf=torch.where(has_prev, T2, eye),
+                       pose=torch.where(has_prev, T2, fr.pose_kf),
+                       iters=torch.where(has_prev, it2, fr.iters),
+                       f_norm=torch.where(has_prev, fs2, fr.f_norm),
+                       last_weights=w2_fine)
+
+    return keyframe
+
+
+def _make_commit(p: AlgorithmParameters, cams, capacities, opts_per_level,
+                 stereo_fn=None, run_graphs=None,
+                 hooks: StepHooks = StepHooks()):
+    """commit(state, front) -> (state, out): the keyframe branch under
+    ``graphs.cond`` (a host read of the decision, or in a step graph an IF
+    node), then the state update both branches share.  No keyframe: the
+    frame becomes the candidate.  Keyframe: the matcher (with a
+    ``stereo_fn``), the template build and the re-estimate."""
+    keyframe = _make_keyframe(p, cams, capacities, opts_per_level,
+                              stereo_fn, run_graphs, hooks)
+
+    def commit(state: VOState, fr: _Front):
+        br = graphs.cond(fr.is_kf, lambda: keyframe(state, fr), _Branch(
+            templates=state.templates, T_kf=fr.T_est, pose=fr.pose_kf,
+            iters=fr.iters, f_norm=fr.f_norm, last_weights=fr.w_fine))
+        pose_world = state.pose_world @ _rigid_inverse(br.pose)
+        new_state = VOState(
+            templates=br.templates, prev_channels=fr.channels,
+            prev_disparity=fr.store, has_prev=~fr.is_kf, T_kf=br.T_kf,
+            pose_world=pose_world, T_delta=br.pose,
+            last_weights=br.last_weights)
+        out = VOStepOutput(pose=br.pose, pose_world=pose_world,
                            is_keyframe=fr.is_kf, reason=fr.reason,
-                           iters=it_out, f_norm=fs_out, frac_good=fr.frac_good,
-                           H=fr.H, band_overflow=fr.band_overflow)
+                           iters=br.iters, f_norm=br.f_norm,
+                           frac_good=fr.frac_good, H=fr.H,
+                           band_overflow=fr.band_overflow)
         return new_state, out
 
     return commit
@@ -301,8 +324,8 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
                  opts_per_level: Tuple[gn.GNOptions, ...], stereo_fn=None,
                  run_graphs=None, hooks: StepHooks = StepHooks()):
     """Build the eager step function (state, image, aux) -> (state, out):
-    ``_make_front``, the one host read of the keyframe decision, then
-    ``_make_commit``.  ``aux`` is the disparity, or the right image when
+    ``_make_front``, then ``_make_commit`` with one host read of the
+    keyframe decision.  ``aux`` is the disparity, or the right image when
     ``stereo_fn`` is given.  ``run_graphs`` (one ``gauss_newton.RunGraphs``
     per level) replays the iterations of levels that take
     ``gauss_newton.run``.
@@ -321,22 +344,26 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
                           stereo_fn, run_graphs, hooks)
 
     def step(state: VOState, image, aux):
-        fr = front(state.templates, state.T_kf, state.T_delta,
-                   state.pose_world, image, aux)
-        return commit(state, fr, bool(fr.is_kf))
+        return commit(state, front(state.templates, state.T_kf,
+                                   state.T_delta, image, aux))
 
     return step
 
 
+def _clone(x):
+    """A copy of a structure of tensors (tuples, named tuples)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    items = [_clone(item) for item in x]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+
 class _StepBuffers(NamedTuple):
-    """The static buffers of the two step graphs: each graph's frame (its
-    pyramid's level 0 and its candidate store may be views of it), the
-    keyframe's templates, and for each graph the state it leaves for the
-    other (T_kf, T_delta, pose_world)."""
-    image: Tuple[torch.Tensor, torch.Tensor]
-    aux: Tuple[torch.Tensor, torch.Tensor]
-    templates: Tuple[td_mod.TemplateData, ...]
-    carry: Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]
+    """The static buffers of the step graph: the frame, and the state it
+    reads and writes in place."""
+    image: torch.Tensor
+    aux: torch.Tensor
+    state: VOState
 
 
 class DeviceVO:
@@ -347,30 +374,31 @@ class DeviceVO:
 
     Routes, chosen statically by device and configuration:
 
-    - CPU: the eager step (``make_vo_step``), every op issued from Python.
-    - CUDA, every solved level on ``level_gn``: the step up to its host read
-      (``_make_front``: pyramid with the census kernel, warm start, every
-      ``level_gn`` launch, keyframe reason, the no-keyframe update) is one
-      CUDA graph, replayed each frame (the counterpart of JAX's jitted
-      step).  The host reads the keyframe decision once per frame, as JAX's
-      ``lax.cond`` does on the device, and the keyframe branch (matcher,
-      template build, re-estimate) runs eagerly and refills the graph's
-      template buffers.  Two graphs, each with its own frame buffers,
-      alternate frame by frame, so the candidate's pyramid and store that
-      one wrote survive the other's replay; each reads the pose state the
-      other left.
+    - CPU: the eager step (``make_vo_step``), every op issued from Python,
+      the keyframe decision read on the host.
+    - CUDA, every solved level on ``level_gn``: the whole step is one CUDA
+      graph, replayed each frame (the counterpart of JAX's jitted step):
+      the front (pyramid with the census kernel, warm start, every
+      ``level_gn`` launch, keyframe reason), the keyframe branch in an IF
+      node (matcher, template build, re-estimate; JAX's ``lax.cond``),
+      and the state update, all into static buffers.  After the branch the
+      frame's pyramid and store are copied into the candidate buffers, as
+      JAX's ``prev_channels=channels``.  A step reads nothing back:
+      ``add_frame`` returns device tensors, and ``add_frames`` copies the
+      chunk to the card once and replays back to back (JAX's
+      ``lax.scan``), its outputs stacked on the card.
     - CUDA with a level on ``gauss_newton.run`` (more than
       ``MAX_LEVEL_KERNEL_POINTS`` points, CUBIC or CUBIC_HERMITE sampling,
       the DisparitySpace warp): the eager step, with those levels'
-      iterations replayed from ``gauss_newton.RunGraphs``.  A whole step
-      with a data-dependent loop in it awaits CUDA conditional nodes.
+      iterations replayed from ``gauss_newton.RunGraphs`` (their loops read
+      the device once per iteration; a graph of the whole step awaits a
+      WHILE node).
     - CUDA with Levenberg-Marquardt: the eager step (LM never takes the
       level kernel; its host loop reads the device once per iteration).
 
-    ``add_frames`` replays once per frame and reads the keyframe decision
-    each time; JAX's ``lax.scan`` needs no read per frame.  On the graphed
-    route ``state`` holds the graphs' buffers, which later steps overwrite,
-    as JAX's jitted step donates its state.
+    On the graphed route ``state`` holds the graph's buffers, which later
+    steps overwrite, as JAX's jitted step donates its state; a state set by
+    the caller is copied into them at the next step.
     """
 
     def __init__(self, K, baseline: float, image_size,
@@ -415,8 +443,6 @@ class DeviceVO:
         self._commit = _make_commit(p, self._cams, self._capacities,
                                     self._opts, stereo_fn)
         self._bufs: _StepBuffers = None
-        self._next = 0             # the step graph the next frame replays
-        self._own_state = None     # the state the buffers hold
         self.state: VOState = None
 
     def _as_tensor(self, a):
@@ -436,56 +462,51 @@ class DeviceVO:
         eye = _eye4(self.device)
         self.state = VOState(
             templates=templates, prev_channels=channels,
-            prev_disparity=store, has_prev=False, T_kf=eye,
-            pose_world=eye, T_delta=eye,
+            prev_disparity=store,
+            has_prev=torch.zeros((), dtype=torch.bool, device=self.device),
+            T_kf=eye, pose_world=eye, T_delta=eye,
             last_weights=torch.ones_like(templates[p.maxTestLevel].pixels))
 
     def add_frame(self, image, aux) -> VOStepOutput:
         """One step; the first call initialises and returns None.  ``aux``
-        is the disparity, or the right image with a ``stereo_fn``."""
+        is the disparity, or the right image with a ``stereo_fn``.  The
+        outputs are device tensors, read by the caller when it needs
+        them."""
         if self.state is None:
             self.init(image, aux)
             return None
         if self._graphs is not None:
-            return self._graphed_step(image, aux)
+            # the graph's outputs are overwritten by the next replay
+            return VOStepOutput(*(t.clone() for t in
+                                  self._graphed_step(image, aux)))
         self.state, out = self._step(self.state, self._as_tensor(image),
                                      self._as_tensor(aux))
         return out
 
-    def _load_state(self, state: VOState, carry):
-        """Copy a state the buffers do not hold (after ``init``, a keyframe
-        branch, or one set by the caller) into the templates and the
-        ``carry`` buffers the next graph reads."""
-        b = self._bufs
-        for td_buf, td in zip(b.templates, state.templates):
-            for dst, src in zip(td_buf, td):
-                if dst.shape != src.shape:
-                    raise ValueError(f"DeviceVO: template field of shape "
-                                     f"{tuple(src.shape)}, the step graph's "
-                                     f"is {tuple(dst.shape)}")
-                dst.copy_(src)
-        for dst, src in zip(carry, (state.T_kf, state.T_delta,
-                                    state.pose_world)):
-            dst.copy_(src)
+    def _load_state(self, state: VOState):
+        """Copy a state the buffers do not hold (after ``init``, or one set
+        by the caller) into them."""
+        try:
+            graphs.copy_into(self._bufs.state, state)
+        except ValueError as e:
+            raise ValueError(f"DeviceVO: the state does not fit the step "
+                             f"graph's buffers: {e}") from None
 
     def _graphed_step(self, image, aux) -> VOStepOutput:
-        state = self.state
+        """One replay of the step graph on the frame (tensors on the card,
+        or host arrays); returns the graph's outputs."""
         if self._bufs is None:
             rows, cols = self._image_size
-            f32, dev = torch.float32, self.device
             self._bufs = _StepBuffers(
-                image=tuple(torch.empty(rows, cols, dtype=f32, device=dev)
-                            for _ in range(2)),
-                aux=tuple(torch.empty(rows, cols, dtype=f32, device=dev)
-                          for _ in range(2)),
-                templates=tuple(td_mod.TemplateData(*(t.clone() for t in td))
-                                for td in state.templates),
-                carry=tuple(tuple(torch.empty(4, 4, dtype=f32, device=dev)
-                                  for _ in range(3)) for _ in range(2)))
-        b, g = self._bufs, self._next
-        if state is not self._own_state:
-            self._load_state(state, b.carry[1 - g])
-        for dst, src in ((b.image[g], image), (b.aux[g], aux)):
+                image=torch.empty(rows, cols, dtype=torch.float32,
+                                  device=self.device),
+                aux=torch.empty(rows, cols, dtype=torch.float32,
+                                device=self.device),
+                state=_clone(self.state))
+        b = self._bufs
+        if self.state is not b.state:
+            self._load_state(self.state)
+        for dst, src in ((b.image, image), (b.aux, aux)):
             src = torch.as_tensor(src)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"DeviceVO: frame of shape "
@@ -494,37 +515,50 @@ class DeviceVO:
             dst.copy_(src)
 
         def fn():
-            fr = self._front(b.templates, *b.carry[1 - g], b.image[g],
-                             b.aux[g])
-            for dst, src in zip(b.carry[g], (fr.T_est, fr.pose_kf,
-                                             fr.pose_world)):
-                dst.copy_(src)
-            return fr
+            st = b.state
+            fr = self._front(st.templates, st.T_kf, st.T_delta, b.image,
+                             b.aux)
+            new_state, out = self._commit(st, fr)
+            graphs.copy_into(st, new_state)
+            return out
 
-        fr = self._graphs(g, fn)
-        self._next = 1 - g
-        is_kf = bool(fr.is_kf)
-        new_state, out = self._commit(state._replace(templates=b.templates),
-                                      fr, is_kf)
-        if is_kf:      # refill the buffers the next graph reads
-            self._load_state(new_state, b.carry[g])
-        # the pose state the next graph reads (as the graph wrote it when
-        # this is no keyframe)
-        T_kf, T_delta, pose_world = b.carry[g]
-        new_state = new_state._replace(templates=b.templates, T_kf=T_kf,
-                                       T_delta=T_delta, pose_world=pose_world)
-        self.state = self._own_state = new_state
-        # the graphs' outputs are overwritten two frames on
-        return VOStepOutput(*(t.clone() for t in out))
+        out = self._graphs("step", fn)
+        self.state = b.state
+        return out
 
-    def add_frames(self, images, disparities) -> VOStepOutput:
+    def add_frames(self, images, auxs) -> VOStepOutput:
         """(N,H,W) frames -> VOStepOutput with every field stacked over the
-        steps taken (a leading frame initialises when there is no state)."""
+        steps taken (a leading frame initialises when there is no state).
+        On the graphed route the chunk is copied to the card once and the
+        steps are replayed back to back into (N, ...) outputs on the card,
+        with no read of the device."""
         if self.state is None:
-            self.init(images[0], disparities[0])
-            images, disparities = images[1:], disparities[1:]
-        outs = [self.add_frame(i, d) for i, d in zip(images, disparities)]
-        return VOStepOutput(*(torch.stack(f) for f in zip(*outs)))
+            self.init(images[0], auxs[0])
+            images, auxs = images[1:], auxs[1:]
+        if self._graphs is None:
+            outs = [self.add_frame(i, d) for i, d in zip(images, auxs)]
+            return VOStepOutput(*(torch.stack(f) for f in zip(*outs)))
+        images, auxs = self._as_chunk(images), self._as_chunk(auxs)
+        outs = None
+        for i in range(images.shape[0]):
+            out = self._graphed_step(images[i], auxs[i])
+            if outs is None:
+                outs = VOStepOutput(*(
+                    t.new_empty((images.shape[0],) + tuple(t.shape))
+                    for t in out))
+            for dst, src in zip(outs, out):
+                dst[i].copy_(src)
+        return outs
+
+    def _as_chunk(self, frames):
+        """(N, H, W) float32 on the card from an array, a tensor or a
+        sequence of either: one copy to the card."""
+        if isinstance(frames, (list, tuple)) and frames and isinstance(
+                frames[0], torch.Tensor):
+            return torch.stack([f.to(self.device, torch.float32)
+                                for f in frames])
+        return self._as_tensor(np.asarray(frames) if isinstance(
+            frames, (list, tuple)) else frames)
 
     def point_cloud(self):
         """Point cloud of the current keyframe's template at maxTestLevel,

@@ -90,8 +90,9 @@ def select_and_backproject(channels, disparity, cam: warp_mod.CameraModel,
         # padding slots get the finite dummy point (0, 0, 1): Z must stay
         # nonzero or 1/Z puts inf/NaN into the Jacobians that masking
         # cannot remove
-        dummy = torch.tensor([0.0, 0.0, 1.0], dtype=points.dtype,
-                             device=points.device)
+        # (filled on the device: no host copy, so capturable)
+        dummy = torch.zeros(3, dtype=points.dtype, device=points.device)
+        dummy[2].fill_(1.0)
         points = torch.where(sel.valid[:, None], points, dummy)
         if p.withNormalization:
             s, c = warp_mod.hartley_normalization(points, sel.valid)

@@ -35,8 +35,9 @@
    kernel's cluster size (CTAs), iterations and device us per iteration.
 3. Intensity VO phase: ``DeviceVO(device="cuda")`` over 1+30 frames with
    bench.py's intensity settings, through ``add_frame`` (the graphed route:
-   the step up to its keyframe decision replayed from a CUDA graph, the
-   replays counted as their kernel launches).  Every pose must be finite,
+   the whole step replayed from one CUDA graph, its keyframe branch an IF
+   node, the replays counted as their kernel launches and the taken IF
+   bodies' launches settled from the graph's device counters).  Every pose must be finite,
    within the ground-truth bound of the known per-frame motion, and within
    atol 5e-4 of the JAX package's poses
    (tests/data/torch_port_bench_ref.npz), with the same keyframes and
@@ -91,14 +92,23 @@
    iteration from a CUDA graph; the sigma re-estimates are counted in its
    host loop (``gauss_newton._loop``).
 9. Graph phase: each of the four VO paths eager and graphed in this
-   process over the first GRAPH_STEPS (15) steps (the graphed route is the
-   entry point; the eager one is ``DeviceVO``'s step function, or
-   ``VisualOdometry`` with its pose estimator's graphs withheld), each
-   route once to warm up, once timed
+   process (the two ``DeviceVO`` paths over all N_STEPS (30) steps, the
+   dense ``VisualOdometry`` paths over the first GRAPH_STEPS (15); the
+   graphed route is the entry point; the eager one is ``DeviceVO``'s step
+   function, or ``VisualOdometry`` with its pose estimator's graphs
+   withheld), each route once to warm up, once timed
    and once under torch.profiler: poses, iterations and keyframes must be
    bitwise equal; per route it prints p50/p90 ms of keyframe and other
    steps and the top-level host ops per step (a graph replay counted as
-   one op), and one JSON line with those numbers.  Then, after those
+   one op).  The ``DeviceVO`` paths add a third route, ``add_frames`` in
+   CHUNKS chunks of 10 with each chunk on the card first and its replays
+   under ``torch.cuda.set_sync_debug_mode("error")`` (a read of the device
+   fails the run): bitwise equal to the eager route, the same launch
+   counts once settled, chunk frames/s, each chunk's span on the stream
+   (CUDA events), host ops per step, and the device busy share of a
+   traced chunk, also as its kernel time over the same chunk's untraced
+   span (tracing adds host time between launches).  One JSON line holds
+   those numbers.  Then, after those
    CPU-only profiler sessions, a second ``profiling.trace`` of 2 warmed
    ``DeviceVO`` steps with the tools phase's checks.
 10. Probe phase (``bpvo_tpu_torch.probes``, the GPU counterparts of the JAX
@@ -260,6 +270,8 @@ STEP_LABEL = "vo_step_"  # the profiler label of a step in the graph phase
 # steps of the graph phase (30 before the app phase came; cut to keep the
 # script's wall near its earlier ~190 s)
 GRAPH_STEPS = 15
+CHUNKS = 3               # add_frames chunks of the DeviceVO paths' 30 steps
+CHUNK_LABEL = "vo_chunk"  # the traced chunk's annotation
 # dense VO: bench.py's settings, NMS off (as conf/tunnel.cfg), and a point
 # capacity every level fills: 131072/32768/8192/2048 points
 BENCH = dict(minSaliency=2.0, numPyramidLevels=4, functionTolerance=1e-4,
@@ -487,12 +499,17 @@ def _rel(a, b):
 
 def _reset_counts():
     from bpvo_tpu_torch.ops import census, fused_linearize, irls, level_gn, sgm
+    from bpvo_tpu_torch.utils import graphs
+    graphs.settle()     # launches of IF bodies taken so far count before 0
     for mod in (census, fused_linearize, irls, level_gn, sgm):
         mod.launch_count = 0
 
 
 def _counts():
+    """The kernels' launch counts, with the taken IF bodies' settled."""
     from bpvo_tpu_torch.ops import census, fused_linearize, irls, level_gn, sgm
+    from bpvo_tpu_torch.utils import graphs
+    graphs.settle()
     return {"level_gn": level_gn.launch_count,
             "census_planes": census.launch_count,
             "sgm_aggregate": sgm.launch_count,
@@ -1006,14 +1023,16 @@ def _host_ops(run_step, n):
             for i in range(n)]
 
 
-def graph_phase(name, make_vo, frames, dev, smi):
+def graph_phase(name, make_vo, frames, dev, smi, chunked=False):
     """One VO path, eager and graphed, in this process: each route once to
     warm up (the graphs' captures), once timed (host clock, each step
     ending in a sync) and once under torch.profiler for its host ops per
     step.  The graphed route is
     the entry point (``add_frame``); the eager one is ``DeviceVO``'s step
     function, or ``VisualOdometry`` with its pose estimator's graphs
-    withheld.  Poses, iterations and keyframes must be equal bit for bit.
+    withheld.  ``chunked`` (a ``DeviceVO``) adds ``chunk_route``.
+    Poses, iterations and keyframes must be equal bit for bit, and the
+    timed passes' launch counts equal.
     Returns {route: {"p50_ms", "p90_ms", "kf_p50_ms", "kf_p90_ms",
     "other_p50_ms", "other_p90_ms", "host_ops_other", "host_ops_kf"}}."""
     import numpy as np
@@ -1023,17 +1042,6 @@ def graph_phase(name, make_vo, frames, dev, smi):
     images = [torch.as_tensor(f[0]).to(dev) for f in frames]
     auxs = [torch.as_tensor(f[1]).to(dev) for f in frames]
     n = len(images) - 1
-
-    def summary(out):
-        """(poses, iterations, keyframe flag) of a step's output."""
-        if isinstance(out, tuple):      # a VOStepOutput
-            return (torch.cat([out.pose.reshape(-1),
-                               out.pose_world.reshape(-1),
-                               out.f_norm]).cpu().numpy(),
-                    out.iters.cpu().numpy(), bool(out.is_keyframe))
-        return (np.asarray(out.pose), np.array(
-            [st.num_iterations for st in out.optimizer_statistics]),
-            bool(out.is_keyframe))
 
     def route(graphed):
         vo = make_vo()
@@ -1073,23 +1081,24 @@ def graph_phase(name, make_vo, frames, dev, smi):
         for _ in range(2):              # warm-up, then the timed pass
             reset()
             torch.cuda.synchronize()
+            counts = _counts()
             outs, t_ms = [], []
             for i in range(n):
                 t0 = time.perf_counter()
                 outs.append(step(i))
                 torch.cuda.synchronize()
                 t_ms.append((time.perf_counter() - t0) * 1e3)
-            runs.append(([summary(o) for o in outs], np.array(t_ms)))
+            counts = {k: v - counts[k] for k, v in _counts().items()}
+            runs.append(([_summary(o) for o in outs], np.array(t_ms), counts))
         reset()
         torch.cuda.synchronize()
         ops = np.array(_host_ops(step, n))
         return runs[1], ops
 
-    (res_e, t_e), ops_e = route(False)
-    (res_g, t_g), ops_g = route(True)
+    (res_e, t_e, n_e), ops_e = route(False)
+    (res_g, t_g, n_g), ops_g = route(True)
     kf = np.array([r[2] for r in res_e])
-    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
-               and a[2] == b[2] for a, b in zip(res_e, res_g))
+    same = _same(res_e, res_g)
     out = {}
     for label, t_ms, ops in (("eager", t_e, ops_e), ("graphed", t_g, ops_g)):
         r = {"p50_ms": float(np.percentile(t_ms, 50)),
@@ -1110,12 +1119,152 @@ def graph_phase(name, make_vo, frames, dev, smi):
               f"keyframe step {r.get('host_ops_kf', math.nan):.0f} on {smi}")
     print(f"graph phase {name}: {n} steps, {int(kf.sum())} keyframes; "
           f"graphed and eager poses, iterations and keyframes bitwise equal: "
-          f"{same}")
+          f"{same}; launches eager {n_e}, graphed {n_g}")
     _require(same, f"graph phase {name}: the graphed route differs from the "
                    f"eager one")
+    _require(n_e == n_g, f"graph phase {name}: launches eager {n_e}, "
+                         f"graphed {n_g}")
     _require(kf.any() and not kf.all(),
              f"graph phase {name}: {int(kf.sum())} keyframes in {n} steps")
+    if chunked:
+        out["chunks"] = chunk_route(name, make_vo, images, auxs, res_e, n_e,
+                                    dev, smi)
     return out
+
+
+def _summary(out):
+    """(poses, iterations, keyframe flag) of a step's output."""
+    import numpy as np
+    import torch
+    if isinstance(out, tuple):      # a VOStepOutput
+        return (torch.cat([out.pose.reshape(-1),
+                           out.pose_world.reshape(-1),
+                           out.f_norm]).cpu().numpy(),
+                out.iters.cpu().numpy(), bool(out.is_keyframe))
+    return (np.asarray(out.pose), np.array(
+        [st.num_iterations for st in out.optimizer_statistics]),
+        bool(out.is_keyframe))
+
+
+def _same(res_a, res_b):
+    import numpy as np
+    return len(res_a) == len(res_b) and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        and a[2] == b[2] for a, b in zip(res_a, res_b))
+
+
+def chunk_route(name, make_vo, images, auxs, res_e, n_e, dev, smi):
+    """``DeviceVO.add_frames`` over the steps in CHUNKS chunks, each chunk
+    on the card before its replays run under
+    ``torch.cuda.set_sync_debug_mode("error")``: once to warm up (the
+    capture), once timed (host clock from the first replay to a sync after
+    the last chunk; each chunk's span by CUDA events) and counted, once
+    under torch.profiler (top-level host ops a step), and one chunk traced
+    (``profiling.trace``, annotated through its sync) for the device busy
+    share, and its kernel time over that chunk's untraced span.  Its poses, iterations
+    and keyframes must equal the eager route's ``res_e`` bit for bit, its
+    settled launch counts ``n_e``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from bpvo_tpu_torch.utils import graphs, profiling
+    from bpvo_tpu_torch.vo.device_vo import VOStepOutput
+
+    vo = make_vo()
+    n = len(images) - 1
+    size = -(-n // CHUNKS)
+    chunks = [(torch.stack(images[lo:lo + size]),
+               torch.stack(auxs[lo:lo + size]))
+              for lo in range(1, n + 1, size)]
+
+    def reset():
+        vo.state = None
+        vo.add_frame(images[0], auxs[0])
+        torch.cuda.synchronize()
+
+    def run(sub=None, debug="error", events=()):
+        outs = []
+        torch.cuda.set_sync_debug_mode(debug)
+        try:
+            for i, (im, ax) in enumerate(sub or chunks):
+                if events:
+                    events[i][0].record()
+                if sub is None:
+                    outs.append(vo.add_frames(im, ax))
+                else:
+                    with record_function(f"{STEP_LABEL}{i}"):
+                        outs.append(vo.add_frames(im, ax))
+                if events:
+                    events[i][1].record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return outs
+
+    reset()
+    run(debug=0)                        # warm-up: the capture reads
+    reset()
+    _reset_counts()
+    # each chunk's span on the stream's clock (CUDA events, no sync)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in chunks]
+    t0 = time.perf_counter()
+    outs = run(events=events)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    span_ms = [a.elapsed_time(b) for a, b in events]
+    counts = _counts()
+    res = [_summary(VOStepOutput(*(f[i] for f in o)))
+           for o in outs for i in range(o.pose.shape[0])]
+    same = _same(res_e, res)
+    # host ops: every top-level op and replay under a chunk's label
+    reset()
+    replays = graphs.replay_count
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(sub=chunks)
+    n_replays = graphs.replay_count - replays
+    ops = sum(len(e.cpu_children) for e in prof.events()
+              if e.name.startswith(STEP_LABEL))
+    # device busy share of one traced chunk, its sync inside the window;
+    # tracing adds host time between launches, so its kernel time is also
+    # set against the same chunk's untraced span
+    reset()
+    log_dir = os.path.join(HERE, "build", "graph_phase_trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    with profiling.trace(log_dir, device=dev):
+        with profiling.annotate(CHUNK_LABEL):
+            run(sub=chunks[:1])
+            torch.cuda.synchronize()
+    kernels, names, found, busy = _trace_read(log_dir, [CHUNK_LABEL])
+    by_name = {}
+    for k in kernels:
+        by_name[k["name"][:60]] = by_name.get(k["name"][:60], 0) + k["dur"]
+    total_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    r = {"chunks": len(chunks), "frames_per_s": n / (wall_ms / 1e3),
+         "wall_ms": wall_ms, "host_ops_per_step": (ops + n_replays) / n,
+         "device_busy_share": busy, "traced_chunk_kernels": len(kernels),
+         "traced_chunk_kernel_us": total_us, "chunk_span_ms": span_ms,
+         "kernel_share_of_untraced_span": total_us / 1e3 / span_ms[0],
+         "traced_chunk_steps": chunks[0][0].shape[0],
+         "top_kernels_us": top, "launches": counts, "bitwise_eager": same}
+    print(f"graph phase {name} chunks: {len(chunks)} add_frames chunks of "
+          f"{size} under set_sync_debug_mode('error'): {r['frames_per_s']:.1f}"
+          f" frames/s ({wall_ms:.3f} ms for {n} steps), top-level host ops "
+          f"per step {r['host_ops_per_step']:.2f}, device busy share of a "
+          f"traced chunk {busy:.4f} ({len(kernels)} kernel events, "
+          f"{total_us:.1f} us of kernels for {chunks[0][0].shape[0]} steps, "
+          f"{r['kernel_share_of_untraced_span']:.4f} of that chunk's "
+          f"untraced span {span_ms[0]:.3f} ms; chunk spans {span_ms}; "
+          f"top by device time {top}); "
+          f"launches {counts} (eager {n_e}); bitwise equal to the eager "
+          f"route: {same} on {smi}")
+    _require(same, f"graph phase {name}: the chunk route differs from the "
+                   f"eager one")
+    _require(counts == n_e, f"graph phase {name}: chunk launches {counts}, "
+                            f"eager {n_e}")
+    _require(found == [CHUNK_LABEL] and len(kernels) > 0,
+             f"graph phase {name}: the traced chunk has no kernels")
+    return r
 
 
 def census_phase(left, dev):
@@ -2453,18 +2602,20 @@ def trace_steps(frames, K, baseline, dev, smi, name, n_steps, untraced):
         _reset_counts()
         ctx = (profiling.trace(log_dir, device=dev) if traced
                else contextlib.nullcontext())
-        poses_t, step_ms = [], []
+        outs_t, step_ms = [], []
         t_session = time.perf_counter()
         with ctx:
             for i, label in zip(steps, labels):
                 t = time.perf_counter()
                 with profiling.annotate(label):
-                    poses_t.append(dvo.add_frame(images[i], disps[i]).pose)
+                    outs_t.append(dvo.add_frame(images[i], disps[i]))
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t) * 1e3)
-        runs[traced] = (float(np.mean(step_ms)), torch.stack(poses_t),
+        runs[traced] = (float(np.mean(step_ms)),
+                        torch.stack([o.pose for o in outs_t]),
                         _counts()["level_gn"],
-                        (time.perf_counter() - t_session) * 1e3)
+                        (time.perf_counter() - t_session) * 1e3,
+                        [bool(o.is_keyframe) for o in outs_t])
         del dvo
     kernels, names, found, busy = _trace_read(log_dir, labels)
     n_lg = sum("level_gn" in k for k in names)
@@ -2474,6 +2625,7 @@ def trace_steps(frames, K, baseline, dev, smi, name, n_steps, untraced):
     res = {"steps": n_steps, "kernel_events": len(kernels),
            "level_gn_events": n_lg, "level_gn_launches": runs[True][2],
            "annotations_found": found, "device_busy_share": busy,
+           "keyframes": runs[True][4],
            "ms_per_step_traced": runs[True][0],
            "session_ms_with_export": runs[True][3],
            "top_kernels": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
@@ -2490,11 +2642,14 @@ def trace_steps(frames, K, baseline, dev, smi, name, n_steps, untraced):
           + (f" vs {res['ms_per_step_untraced']:.3f} untraced" if untraced
              else "")
           + f", the session with its export {runs[True][3]:.1f} ms, on "
-          f"{smi}; top kernels {res['top_kernels']}")
+          f"{smi}; keyframes {runs[True][4]}; top kernels "
+          f"{res['top_kernels']}")
     _require(n_lg > 0 and n_lg == runs[True][2],
              f"{name} trace: {n_lg} kernel events named level_gn for "
              f"{runs[True][2]} launches")
     _require(found == sorted(labels), f"{name} trace: annotations {found}")
+    _require(any(runs[True][4]), f"{name} trace: no keyframe among the "
+                                 f"traced steps, so no IF body ran")
     _require(not untraced or res["poses_equal_untraced"],
              f"{name} trace: the traced steps' poses differ from the "
              f"untraced ones")
@@ -2774,12 +2929,13 @@ def main() -> int:
     graph_res = {
         "intensity": graph_phase(
             "intensity", lambda: DeviceVO(K, baseline, shape, params,
-                                          device=dev), dframes, dev, smi),
+                                          device=dev),
+            [f[0::2] for f in sframes], dev, smi, chunked=True),
         "stereo_bitplanes": graph_phase(
             "stereo Bit-Planes", lambda: DeviceVO(
                 K, baseline, shape, params_bp, device=dev,
-                stereo_fn=matcher.as_fn()), [f[:2] for f in gframes], dev,
-            smi)}
+                stereo_fn=matcher.as_fn()), [f[:2] for f in sframes], dev,
+            smi, chunked=True)}
     for name, desc in (("intensity", DescriptorType.INTENSITY),
                        ("bitplanes", DescriptorType.BITPLANES)):
         graph_res[f"dense_{name}"] = graph_phase(
@@ -2836,6 +2992,8 @@ def main() -> int:
     def by_path(kernel):
         return {"intensity": counts_i[kernel],
                 "stereo_bitplanes": counts_s[kernel],
+                **{f"{path}_chunks": graph_res[path]["chunks"]["launches"][
+                    kernel] for path in ("intensity", "stereo_bitplanes")},
                 "dense_intensity": dense["intensity"][kernel],
                 "dense_bitplanes": dense["bitplanes"][kernel],
                 **{path: c[kernel] for path, c in zoo_counts.items()},
@@ -2906,7 +3064,8 @@ def main() -> int:
         {"name": "sgm_aggregate", "route": "cuda",
          "source": "bpvo_tpu_torch/csrc/sgm.cu",
          "replaces": "bpvo_tpu/ops/pallas/sgm_kernel.py:51",
-         "launches": counts_s["sgm_aggregate"], "max_abs_err": err_s,
+         "launches": sum(by_path("sgm_aggregate").values()),
+         "launches_by_path": by_path("sgm_aggregate"), "max_abs_err": err_s,
          "ms": ms_s, "plain_ms": plain_s, "bound_ms": bound_s[0],
          "bound_by": bound_s[1], "library_ms": None, **sgm_extra},
         gn_entry("fused_linearize", "bpvo_tpu_torch/csrc/fused_linearize.cu",

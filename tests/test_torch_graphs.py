@@ -45,15 +45,18 @@ def _leaves(x):
 
 class _Rerun:
     """A stand-in for a captured graph: each replay runs the function
-    again with the launch counts held, and copies its results into the
-    outputs of the first replay."""
+    again with the launch counts held, an IF body only when its predicate
+    is true (``graphs.cond`` in the "rerun" phase), and copies its results
+    into the outputs of the first replay."""
 
-    def __init__(self, fn, modules):
-        self.fn, self.modules, self.outputs = fn, modules, None
+    def __init__(self, fn, cache):
+        self.fn, self.cache, self.outputs = fn, cache, None
+        self.modules = cache._modules or graphs.op_modules()
 
     def replay(self):
         counts = [m.launch_count for m in self.modules]
-        new = self.fn()
+        with self.cache._running("rerun"):
+            new = self.fn()
         for m, n in zip(self.modules, counts):
             m.launch_count = n
         if self.outputs is None:
@@ -73,7 +76,7 @@ class ReplayStandIn(graphs.GraphCache):
         return fn()
 
     def _capture(self, fn):
-        return _Rerun(fn, self._modules or graphs.op_modules())
+        return _Rerun(fn, self)
 
 
 # ---------------------------------------------------------------------------
@@ -461,10 +464,10 @@ def _vo_case(descriptor):
 @pytest.mark.parametrize("descriptor", ["intensity", "bitplanes"])
 def test_split_step_bitwise(descriptor):
     """Over 10 steps with keyframes, the eager ``DeviceVO`` (front, the
-    host read, commit) and its graphed route through the stand-in (two
-    alternating step graphs over static buffers, the keyframe branch
-    refilling them) give the VOStepOutputs of the unsplit step bit for
-    bit; an ``init`` re-run on the same object refills the buffers."""
+    host read, commit) and its graphed route through the stand-in (one
+    step graph over static buffers, the keyframe branch an IF body) give
+    the VOStepOutputs of the unsplit step bit for bit; an ``init`` re-run
+    on the same object refills the buffers."""
     K, b, frames, params, stereo_fn = _vo_case(descriptor)
     eager = dv.DeviceVO(K, b, (H_IMG, W_IMG), params, device="cpu",
                         stereo_fn=stereo_fn)
@@ -490,7 +493,7 @@ def test_split_step_bitwise(descriptor):
             n_cand += int(bool(want.is_keyframe) and has_prev)
         assert n_kf >= 2 and n_cand >= 1 and n_kf < len(frames) - 1
         eager.state = None
-    assert len(graphed._graphs) == 2
+    assert len(graphed._graphs) == 1
 
 
 def test_graphed_step_outputs_own_their_tensors():

@@ -1,7 +1,9 @@
 """The graphed routes on the card against the eager ones: ``DeviceVO``'s step
-graphs, ``gauss_newton.run``'s iteration graphs (alone, in a ``DeviceVO``
-with a level on ``run``, and in ``VisualOdometry``) bit for bit, with equal
-launch counts, and a capture that fails raising.  Marked ``gpu``: without a
+graph (its keyframe branch an IF node; ``add_frame`` and read-free
+``add_frames`` chunks), ``gauss_newton.run``'s iteration graphs (alone, in a
+``DeviceVO`` with a level on ``run``, and in ``VisualOdometry``) bit for
+bit, with equal launch counts once settled, IF nodes alone, and captures
+that fail raising.  Marked ``gpu``: without a
 CUDA device they skip (the decision is made in a fixture).  On a machine
 with an NVIDIA GPU (no JAX needed):
 
@@ -44,6 +46,7 @@ def cuda():
 
 
 def _counts():
+    graphs.settle()
     return {m.__name__.rsplit(".", 1)[-1]: m.launch_count
             for m in graphs.op_modules()}
 
@@ -73,9 +76,11 @@ def _vo_case(path, rows, cols):
 @pytest.mark.parametrize("path", ["intensity", "stereo_bitplanes"])
 def test_device_vo_graphed_equals_eager(cuda, path, shape):
     """Over 12 steps with keyframes, twice on the same objects (``init``
-    re-run), the graphed ``add_frame`` gives the eager step's outputs bit
-    for bit (poses, world poses, iterations, keyframes, f_norm, ...), and
-    the kernels' launch counts, replays counted, are the eager ones."""
+    re-run), the graphed ``add_frame`` (one step graph, the keyframe
+    branch an IF node) gives the eager step's outputs bit for bit (poses,
+    world poses, iterations, keyframes, f_norm, ...), and the kernels'
+    launch counts, replays and taken IF bodies counted, are the eager
+    ones."""
     K, b, frames, params, stereo_fn = _vo_case(path, *shape)
     vo = device_vo.DeviceVO(K, b, shape, params, device=cuda,
                             stereo_fn=stereo_fn)
@@ -100,7 +105,98 @@ def test_device_vo_graphed_equals_eager(cuda, path, shape):
         for g, w in zip(got, want):
             _equal(g, w, fields)
         assert sum(bool(w.is_keyframe) for w in want) >= 2
-    assert len(vo._graphs) == 2 and graphs.replay_count > 0
+    assert len(vo._graphs) == 1 and graphs.replay_count > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["intensity", "stereo_bitplanes"])
+def test_device_vo_chunks_read_free(cuda, path):
+    """``add_frames`` in chunks of 1, 3 and 7 (the chunk on the card
+    first) replays the step graph with no device-to-host read
+    (``set_sync_debug_mode("error")`` raises on one) and equals the eager
+    step bit for bit, with the eager launch counts once settled."""
+    shape = (240, 320)
+    K, b, frames, params, stereo_fn = _vo_case(path, *shape)
+    vo = device_vo.DeviceVO(K, b, shape, params, device=cuda,
+                            stereo_fn=stereo_fn)
+    images = torch.stack([torch.as_tensor(f[0]) for f in frames]).to(cuda)
+    auxs = torch.stack([torch.as_tensor(f[1]) for f in frames]).to(cuda)
+    vo.add_frames(images[:3], auxs[:3])      # warm-up and capture
+    vo.state = None
+    vo.add_frame(images[0], auxs[0])
+    state, want = vo.state, []
+    before = _counts()
+    for i in range(1, len(frames)):
+        state, out = vo._step(state, images[i], auxs[i])
+        want.append(out)
+    n_eager = _delta(before)
+    assert sum(bool(w.is_keyframe) for w in want) >= 2
+    for chunk in (1, 3, 7):
+        vo.state = None
+        vo.add_frame(images[0], auxs[0])
+        torch.cuda.synchronize()
+        before = _counts()
+        outs = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for lo in range(1, len(frames), chunk):
+                outs.append(vo.add_frames(images[lo:lo + chunk],
+                                          auxs[lo:lo + chunk]))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert _delta(before) == n_eager and n_eager["level_gn"] > 0
+        got = [device_vo.VOStepOutput(*(f[i] for f in o))
+               for o in outs for i in range(o.pose.shape[0])]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _equal(g, w, device_vo.VOStepOutput._fields)
+
+
+@pytest.mark.gpu
+def test_if_nodes_on_the_card(cuda):
+    """``graphs.cond`` in a captured function: an IF node (nested in a
+    second) runs its body only on replays whose predicate is true, copies
+    its results over ``into``, and counts its launches (a fake op module)
+    only for the replays that took it, once settled."""
+    import types
+    mod = types.SimpleNamespace(launch_count=0)
+    cache = graphs.GraphCache(cuda, modules=(mod,))
+    x = torch.zeros(4, device=cuda)
+    flags = torch.zeros(2, dtype=torch.bool, device=cuda)
+    out = torch.zeros(3, device=cuda)
+
+    def op(t):
+        mod.launch_count += 1
+        return t + 1.0
+
+    def fn():
+        y = op(x)
+        out.copy_(torch.stack([y.sum(), torch.zeros((), device=cuda),
+                               torch.zeros((), device=cuda)]))
+
+        def outer():
+            z = op(op(y))
+
+            def inner():
+                return (z * 10.0).sum().reshape(1)
+            w = graphs.cond(flags[1], inner, torch.zeros(1, device=cuda))
+            return torch.cat([z.sum().reshape(1), w])
+        graphs.cond(flags[0], outer, out[1:])
+        return out
+
+    want_launches = 0
+    for a, bb in [(0, 0), (1, 0), (1, 1), (0, 1), (1, 1), (0, 0), (1, 0)]:
+        x.add_(1.0)
+        flags.copy_(torch.tensor([bool(a), bool(bb)], device=cuda))
+        got = cache("k", fn).clone()
+        s1 = float((x + 1).sum())
+        z = float((x + 3).sum())
+        want = [s1, z if a else 0.0, 10 * z if a and bb else 0.0]
+        assert got.tolist() == pytest.approx(want), (a, bb, got)
+        want_launches += 1 + (2 if a else 0)
+        graphs.settle()
+        assert mod.launch_count == want_launches
+    assert len(cache) == 1
 
 
 @pytest.fixture(scope="module")
@@ -199,6 +295,41 @@ def test_visual_odometry_graphed_equals_eager(cuda):
         assert rg.is_keyframe == re.is_keyframe
         assert rg.optimizer_statistics == re.optimizer_statistics
     assert len(vo._pose_estimator._run_graphs[0]._cache) >= 2
+
+
+@pytest.mark.gpu
+def test_refused_if_body_raises(cuda):
+    """A host copy inside an IF body makes the capture fail: the call
+    raises and no graph is kept (the warm-up ran the body eagerly, where
+    the copy is allowed).  In a process of its own."""
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        sys.path.insert(0, sys.argv[1])
+        from bpvo_tpu_torch.utils import graphs
+        cache = graphs.GraphCache("cuda")
+        x = torch.ones(8, device="cuda")
+        pred = torch.ones((), dtype=torch.bool, device="cuda")
+
+        def body():
+            return x + torch.tensor([1.0] * 8, device="cuda")   # host copy
+
+        def fn():
+            return graphs.cond(pred, body, x * 2)
+
+        try:
+            cache("k", fn)
+        except RuntimeError as e:
+            assert "k" not in cache, len(cache)
+            print("raised:", str(e).splitlines()[0])
+        else:
+            sys.exit("the capture did not fail")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script,
+                           os.path.dirname(HERE)], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "raised:" in proc.stdout
 
 
 @pytest.mark.gpu
