@@ -205,12 +205,14 @@ def _load_library() -> ctypes.CDLL:
     lib.bpvo_census_planes.restype = i
     bind_sgm(lib)
     bind_gn(lib)
-    # graph_cond.cu: the IF nodes of utils/graphs.py
-    pp = ctypes.POINTER(p)
+    # graph_cond.cu: the IF and WHILE nodes of utils/graphs.py
+    pp, u64 = ctypes.POINTER(p), ctypes.c_ulonglong
     for name, args in (
             ("create", [pp]), ("destroy", [p]),
             ("num_nodes", [p, ctypes.POINTER(ctypes.c_longlong)]),
             ("append_child", [p, pp, p]), ("append_if", [p, pp, p, pp]),
+            ("append_while", [p, pp, p, pp, ctypes.POINTER(u64)]),
+            ("append_set", [p, pp, u64, p]),
             ("instantiate", [pp, p]), ("launch", [p, p]),
             ("exec_destroy", [p])):
         fn = getattr(lib, "bpvo_graph_" + name)

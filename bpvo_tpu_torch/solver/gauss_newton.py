@@ -12,15 +12,18 @@ Flow per iteration (inverse compositional, template Jacobians fixed):
   T       <- T * Tn^-1 exp(-dp) Tn
 
 ``run_level`` runs a level's whole loop in the CUDA kernel ``ops.level_gn``
-(16-step bisection median).  ``run`` drives the loop from the host, with the
-linearization in the CUDA kernels ``ops.fused_linearize`` and
-``ops.irls`` (CUBIC, CUBIC_HERMITE and DisparitySpace levels take the
-gather route: plain sampling, ``irls_reduce_w`` at C > 1); it reads the
-device once per iteration (converged, solver ok, and whether sigma is still
-moving) and keeps everything else, sigma included, on the device.  Given a
-``RunGraphs`` (the entry points hold one per level on CUDA) each of its
-iterations is one CUDA-graph replay; the eager loop stays as the route
-verbose runs take and the graphs are held to.  Levenberg-Marquardt is in
+(16-step bisection median).  ``run`` runs the loop as
+``utils.graphs.while_loop`` (JAX's ``lax.while_loop``), with the
+linearization in the CUDA kernels ``ops.fused_linearize`` and ``ops.irls``
+(CUBIC, CUBIC_HERMITE and DisparitySpace levels take the gather route:
+plain sampling, ``irls_reduce_w`` at C > 1) and the sigma re-estimate
+under ``utils.graphs.cond`` (JAX's ``lax.cond``); everything, sigma and the
+exit test included, stays on the device.  Eagerly the loop reads its exit
+test once per iteration (and the sigma test once); captured in a CUDA
+graph it is a WHILE node and reads nothing.  ``RunGraphs`` (the entry
+points hold one per level on CUDA) makes each level solve one replay; a
+``DeviceVO`` step graph holds its ``run`` levels' loops itself.  Verbose
+runs stay on the host loop.  Levenberg-Marquardt is in
 ``solver/levenberg_marquardt.py``.
 """
 from __future__ import annotations
@@ -43,6 +46,7 @@ from bpvo_tpu_torch.ops.level_gn import (STATUS_FUNCTION_TOL,
 from bpvo_tpu_torch.solver import linear_system, mestimator
 from bpvo_tpu_torch.types import (InterpolationType, LossFunctionType,
                                   PoseEstimationStatus, VerbosityType)
+from bpvo_tpu_torch.utils import graphs as graphs_mod
 from bpvo_tpu_torch.vo import template_data as td_mod
 from bpvo_tpu_torch.vo import warp as warp_mod
 
@@ -179,21 +183,36 @@ def _sigma_fn(opts: GNOptions):
     return sigma_fn
 
 
-def _linearize(tdata, channels, cam, T, scale, delta_scale, do_est: bool,
+def _sigma_branch(do_est, estimate, keep, scale, delta_scale):
+    """The sigma re-estimate as JAX's ``lax.cond``: ``estimate()`` (which
+    returns ``(*keep, sigma, delta_scale)`` recomputed) when ``do_est``,
+    else ``(*keep, scale, delta_scale)``.  A host bool (the first
+    iteration's, which the options fix) picks on the host; a 0-d bool
+    tensor goes through ``graphs.cond``, into ``keep`` (tensors the caller
+    owns) and copies of ``scale`` and ``delta_scale``."""
+    if isinstance(do_est, torch.Tensor):
+        return graphs_mod.cond(do_est, estimate, (*keep, scale.clone(),
+                                                  delta_scale.clone()))
+    return estimate() if do_est else (*keep, scale, delta_scale)
+
+
+def _linearize(tdata, channels, cam, T, scale, delta_scale, do_est,
                opts: GNOptions, sigma_fn=None, reduce=_no_reduce):
     """The gather route (JAX gauss_newton.py:374-428), taken by the levels
     the fused kernel does not take (CUBIC or CUBIC_HERMITE sampling, or the
     DisparitySpace warp): residuals by ``compute_residuals``, sigma from
-    channel 0 (``sigma_fn(r0, valid)``, default ``_sigma_fn``), weights and
-    normal equations by ``reduce_w``, then ``reduce(H, g, f_sq)``.
+    channel 0 (``sigma_fn(r0, valid)``, default ``_sigma_fn``) when
+    ``do_est`` (``_sigma_branch``), weights and normal equations by
+    ``reduce_w``, then ``reduce(H, g, f_sq)``.
     Returns (H, g, f, sigma, delta_scale, w)."""
     r, valid = td_mod.compute_residuals(tdata, channels, cam, T, opts.interp,
                                         warp=opts.warp)
-    if do_est:
+
+    def estimate():
         sigma = (sigma_fn or _sigma_fn(opts))(r[0], valid)
-        delta_scale = torch.abs(sigma - scale)
-    else:
-        sigma = scale
+        return sigma, torch.abs(sigma - scale)
+    sigma, delta_scale = _sigma_branch(do_est, estimate, (), scale,
+                                       delta_scale)
     H, g, f_sq, w = reduce_w(tdata.jacobians, r, valid, sigma, opts.loss)
     H, g, f_sq = reduce(H, g, f_sq)
     return H, g, torch.sqrt(f_sq), sigma, delta_scale, w
@@ -211,8 +230,9 @@ def _fused_linearize_fn(tdata, channels, cam, opts: GNOptions, sigma_fn=None,
       gives the residuals for sigma; then one fused pass over all channels
       runs at the new sigma.
 
-    ``sigma_fn(r0, valid)`` defaults to ``_sigma_fn``; ``reduce(H, g,
-    f_sq)`` is applied last (the distributed layer sums over the ranks).
+    The re-estimate is ``_sigma_branch`` on ``do_est``.  ``sigma_fn(r0,
+    valid)`` defaults to ``_sigma_fn``; ``reduce(H, g, f_sq)`` is applied
+    last (the distributed layer sums over the ranks).
     """
     C, rows, cols = channels.shape
     pixels, jacobians = tdata.pixels, tdata.jacobians
@@ -232,12 +252,13 @@ def _fused_linearize_fn(tdata, channels, cam, opts: GNOptions, sigma_fn=None,
             u, v, ok = project(T)
             H, g, f_sq, r0, w = fused_mod.fused_linearize(
                 u, v, ok, channels, pixels, jacobians, scale, loss, interp)
-            sigma = scale
-            if do_est:
+
+            def estimate():
                 sigma = sigma_fn(r0, ok)
-                delta_scale = torch.abs(sigma - scale)
                 H, g, f_sq, w = irls_mod.irls_reduce_w(J, r0, ok, sigma, loss)
-                w = w[None, :]
+                return H, g, f_sq, w[None, :], sigma, torch.abs(sigma - scale)
+            H, g, f_sq, w, sigma, delta_scale = _sigma_branch(
+                do_est, estimate, (H, g, f_sq, w), scale, delta_scale)
             H, g, f_sq = reduce(H, g, f_sq)
             return H, g, torch.sqrt(f_sq), sigma, delta_scale, w
         return linearize
@@ -246,12 +267,14 @@ def _fused_linearize_fn(tdata, channels, cam, opts: GNOptions, sigma_fn=None,
 
     def linearize(T, scale, delta_scale, do_est):
         u, v, ok = project(T)
-        sigma = scale
-        if do_est:
-            r0 = fused_mod.fused_linearize(u, v, ok, ch0, px0, J0, scale, loss,
-                                           interp)[3]
+
+        def estimate():
+            r0 = fused_mod.fused_linearize(u, v, ok, ch0, px0, J0, scale,
+                                           loss, interp)[3]
             sigma = sigma_fn(r0, ok)
-            delta_scale = torch.abs(sigma - scale)
+            return sigma, torch.abs(sigma - scale)
+        sigma, delta_scale = _sigma_branch(do_est, estimate, (), scale,
+                                           delta_scale)
         H, g, f_sq, _, w = fused_mod.fused_linearize(
             u, v, ok, channels, pixels, jacobians, sigma, loss, interp)
         H, g, f_sq = reduce(H, g, f_sq)
@@ -281,7 +304,7 @@ def _test_convergence(dp_norm, dp_norm_prev, g_norm, f_norm, f_norm_prev,
 
 
 class _LoopState(NamedTuple):
-    """``run``'s loop state between iterations (device tensors)."""
+    """``run``'s loop carry (device tensors)."""
     T: torch.Tensor             # (4, 4) pose the next iteration linearizes at
     T_best: torch.Tensor        # (4, 4) lowest-cost pose evaluated so far
     f_best: torch.Tensor        # its cost
@@ -297,7 +320,7 @@ class _LoopState(NamedTuple):
     status: torch.Tensor        # int32 STATUS_* code
     conv: torch.Tensor          # bool, a convergence test fired
     ok: torch.Tensor            # bool, the last solve succeeded
-    flags: torch.Tensor         # (3,) bool: conv, ok, sigma still moving
+    num_iters: torch.Tensor     # int32 iterations run
 
 
 def _initial_state(T_init, C: int, K: int, dev) -> _LoopState:
@@ -307,7 +330,6 @@ def _initial_state(T_init, C: int, K: int, dev) -> _LoopState:
         return torch.full((), x, dtype=dtype, device=dev)
 
     T = T_init.to(device=dev, dtype=f32)
-    conv, ok = scalar(False, torch.bool), scalar(True, torch.bool)
     return _LoopState(
         T=T, T_best=T, f_best=scalar(float("inf")),
         dp=torch.zeros(6, dtype=f32, device=dev), f_norm=scalar(0.0),
@@ -315,18 +337,20 @@ def _initial_state(T_init, C: int, K: int, dev) -> _LoopState:
         delta_scale=scalar(1e10), H=torch.eye(6, dtype=f32, device=dev),
         g=torch.zeros(6, dtype=f32, device=dev),
         w=torch.zeros(C, K, dtype=f32, device=dev),
-        status=scalar(STATUS_MAX_ITERATIONS, torch.int32), conv=conv, ok=ok,
-        flags=torch.stack([conv, ok, scalar(True, torch.bool)]))
+        status=scalar(STATUS_MAX_ITERATIONS, torch.int32),
+        conv=scalar(False, torch.bool), ok=scalar(True, torch.bool),
+        num_iters=scalar(0, torch.int32))
 
 
 def _iteration(st: _LoopState, linearize_fn, s, c, opts: GNOptions,
-               first: bool, do_est: bool):
-    """One GN iteration from ``st`` (the loop body of ``gn.run``'s
-    ``lax.while_loop``, gauss_newton.py:492): linearize at T, test
+               first: bool, do_est):
+    """One GN iteration from ``st`` (the body of ``gn.run``'s
+    ``lax.while_loop``, gauss_newton.py:457-487): linearize at T, test
     convergence against the previous iteration's values (only the gradient
-    test on the first iteration), solve and update.  ``first`` and
-    ``do_est`` (sigma still moving) are host-static, as the branches they
-    pick.  Returns (new state, dp_new, g_norm)."""
+    test on the first iteration), solve and update.  ``first`` is
+    host-static (``run`` peels iteration 0, the only one that takes it);
+    ``do_est`` (sigma still moving) is a host bool or a 0-d bool tensor
+    (``_sigma_branch``).  Returns (new state, dp_new, g_norm)."""
     H, g, f_new, sigma, delta_scale, w = linearize_fn(st.T, st.scale,
                                                       st.delta_scale, do_est)
     g_norm = torch.max(torch.abs(g))
@@ -351,45 +375,23 @@ def _iteration(st: _LoopState, linearize_fn, s, c, opts: GNOptions,
                     st.T)
     dp = torch.where(do_update, dp_new, st.dp)
     status = torch.where(ok, status, STATUS_SOLVER_ERROR).to(torch.int32)
-    flags = torch.stack([conv, ok, _sigma_unstable(delta_scale, sigma, opts)])
     return _LoopState(
         T=T, T_best=T_best, f_best=f_best, dp=dp, f_norm=f_new,
         dp_norm_prev=dp_norm, g_tol=g_tol, scale=sigma,
         delta_scale=delta_scale, H=H, g=g, w=w, status=status, conv=conv,
-        ok=ok, flags=flags), dp_new, g_norm
+        ok=ok, num_iters=st.num_iters + 1), dp_new, g_norm
 
 
-def _loop(advance, opts: GNOptions):
-    """The host loop: ``advance(it, do_est)`` runs iteration ``it`` and
-    returns its (3,) flags tensor, the loop's one read of the device per
-    iteration (converged, solver ok, and whether sigma is still moving).
-    Returns (iterations run, converged)."""
-    it, converged, solver_ok = 0, False, True
-    do_est = 1e10 > max(opts.scale_tolerance, opts.scale_tolerance_rel)
-    while not converged and solver_ok and it < opts.max_iterations:
-        converged, solver_ok, do_est = advance(it, do_est).tolist()
-        it += 1
-    return it, converged
-
-
-def _result(st: _LoopState, it: int, converged: bool,
-            copy: bool = False) -> GNState:
+def _result(st: _LoopState) -> GNState:
     """The level's GNState: the best evaluated pose when the loop ended
-    unconverged at a higher cost.  ``copy`` clones what aliases ``st``."""
-    dev = st.T.device
-
-    def out(t):
-        return t.clone() if copy else t
-
-    T = (out(st.T) if converged
-         else torch.where(st.f_best < st.f_norm, st.T_best, st.T))
-    return GNState(T=T, f_norm=out(st.f_norm), g=out(st.g),
-                   scale=out(st.scale), weights=out(st.w), H=out(st.H),
-                   num_iters=torch.full((), it, dtype=torch.int32, device=dev),
-                   status=out(st.status), converged=out(st.conv),
-                   solver_ok=out(st.ok),
+    unconverged at a higher cost (JAX gauss_newton.py:489-492)."""
+    use_best = ~st.conv & (st.f_best < st.f_norm)
+    return GNState(T=torch.where(use_best, st.T_best, st.T),
+                   f_norm=st.f_norm, g=st.g, scale=st.scale, weights=st.w,
+                   H=st.H, num_iters=st.num_iters, status=st.status,
+                   converged=st.conv, solver_ok=st.ok,
                    band_overflow=torch.zeros((), dtype=torch.int32,
-                                             device=dev))
+                                             device=st.T.device))
 
 
 def reduce_w(jacobians, r, valid, sigma, loss):
@@ -433,17 +435,23 @@ def run(tdata, channels, cam, T_init, opts: GNOptions, linearize_fn=None,
 
     Iteration i linearizes at T_i, tests convergence against iteration
     i-1's values (only the gradient test on the first iteration), then
-    solves and updates (``_iteration``).  ``linearize_fn(T, scale,
-    delta_scale, do_est) -> (H, g, f, sigma, delta_scale, w)`` may replace
-    the linearization; the host bool ``do_est`` says whether sigma is still
-    moving.  By default RigidBody levels with LINEAR or COSINE sampling take
-    the fused CUDA kernels, others the gather route (``irls_reduce_w`` at
-    C > 1); on the CPU their plain versions.
+    solves and updates (``_iteration``).  Iteration 0 runs first on its
+    own; the rest are ``utils.graphs.while_loop`` on the device exit test
+    ``~converged & solver_ok & (num_iters < max_iterations)``, JAX's
+    ``lax.while_loop`` (a host loop reads that test and the sigma test in
+    one copy an iteration).  ``linearize_fn(T, scale, delta_scale, do_est) ->
+    (H, g, f, sigma, delta_scale, w)`` may replace the linearization;
+    ``do_est`` (sigma still moving) is a host bool on iteration 0 and a
+    device bool after it.  By default RigidBody levels with LINEAR or
+    COSINE sampling take the fused CUDA kernels, others the gather route
+    (``irls_reduce_w`` at C > 1); on the CPU their plain versions.
 
-    ``graphs`` (a ``RunGraphs``, held per level by the caller) replays each
-    iteration from a CUDA graph; without it every op is issued from here.
-    Verbose runs and ``max_iterations == 0`` issue every op whatever
-    ``graphs`` is: a static route choice, as ``level_kernel_supported``.
+    ``graphs`` (a ``RunGraphs``, held per level by the caller) replays the
+    whole solve from one CUDA graph; without it the loop runs where it is
+    called (a host loop, or a WHILE node of a graph being captured).
+    Verbose runs (one printed line, so one host read, per iteration) and
+    ``max_iterations == 0`` do not take ``graphs``: a static route choice,
+    as ``level_kernel_supported``.
     """
     if graphs is not None and not opts.verbose and opts.max_iterations > 0:
         if linearize_fn is not None:
@@ -455,52 +463,56 @@ def run(tdata, channels, cam, T_init, opts: GNOptions, linearize_fn=None,
     if linearize_fn is None:
         linearize_fn = _default_linearize_fn(tdata, channels, cam, opts)
     st = _initial_state(T_init, C, K, channels.device)
+    if opts.max_iterations == 0:
+        return _result(st)
 
-    def advance(it, do_est):
-        nonlocal st
-        st, dp_new, g_norm = _iteration(st, linearize_fn, s, c, opts,
-                                        it == 0, do_est)
+    def iteration(st, first, do_est):
+        st, dp_new, g_norm = _iteration(st, linearize_fn, s, c, opts, first,
+                                        do_est)
         if opts.verbose:
-            f_, g_, dp_, s_ = torch.stack([
-                st.f_norm, g_norm, torch.linalg.norm(dp_new),
-                st.scale]).tolist()
-            print(f"  it {it}  |F|={f_:.6g}  |G|={g_:.4g}  |dp|={dp_:.4g}  "
-                  f"sigma={s_:.4g}")
-        return st.flags
+            it, f_, g_, dp_, s_ = torch.stack([
+                st.num_iters.to(torch.float32) - 1, st.f_norm, g_norm,
+                torch.linalg.norm(dp_new), st.scale]).tolist()
+            print(f"  it {int(it)}  |F|={f_:.6g}  |G|={g_:.4g}  "
+                  f"|dp|={dp_:.4g}  sigma={s_:.4g}")
+        return st
 
-    it, converged = _loop(advance, opts)
-    return _result(st, it, converged)
+    # iteration 0: sigma is due unless the tolerances exceed the initial
+    # delta_scale (1e10) at the initial scale (1)
+    st = iteration(st, True,
+                   1e10 > max(opts.scale_tolerance, opts.scale_tolerance_rel))
+    return _result(graphs_mod.while_loop(
+        lambda st: ~st.conv & st.ok & (st.num_iters < opts.max_iterations),
+        lambda st, do_est: iteration(st, False, do_est), st,
+        flag_fn=lambda st: _sigma_unstable(st.delta_scale, st.scale, opts)))
 
 
 class RunGraphs:
-    """One level's ``run`` iterations as CUDA graphs (the counterpart of
-    jitting ``gn.run``'s ``lax.while_loop`` body): a graph for each
-    (first iteration, sigma re-estimated, options, camera), at most 4 per
-    level, over static copies of the level's template, channels and T_init
-    and over the loop state, which each replay updates in place.  Each
-    iteration is then one replay and the loop's one read of its flags.
+    """One level's ``run`` as a CUDA graph (the counterpart of jitting
+    ``gn.run``): iteration 0 and the WHILE node of the others, over static
+    copies of the level's template, channels and T_init, a graph for each
+    (options, camera).  A level solve is then one replay and no read of
+    the device.
 
-    Held per level by whatever owns the level's buffers (``PoseEstimator``,
-    ``DeviceVO``); the level's shapes are fixed at the first run.  The
-    template is copied in when a run brings another template object, the
-    channels and T_init on every run.  ``cache`` is the ``GraphCache``
-    (default: one on the channels' device)."""
+    Held per level by whatever owns the level's buffers
+    (``PoseEstimator``); the level's shapes are fixed at the first run.
+    The template is copied in when a run brings another template object,
+    the channels and T_init on every run.  ``cache`` is the ``GraphCache``
+    (default: one on the channels' device).  ``solve(tdata, channels, cam,
+    T_init, opts, **static)`` is the solver a graph captures: ``run``
+    (default), or ``levenberg_marquardt.run`` for LM's holders."""
 
-    def __init__(self, cache=None):
+    def __init__(self, cache=None, solve=None):
         self._cache = cache
+        self._solve = solve or run
         self._td_src = None
-        self._td = self._channels = self._T_in = self._st = None
+        self._td = self._channels = self._T_in = None
 
     def _load(self, tdata, channels, T_init):
         if self._td is None:
             self._td = td_mod.TemplateData(*(t.clone() for t in tdata))
             self._channels = channels.contiguous().clone()
             self._T_in = T_init.to(torch.float32).clone()
-            C, K = tdata.pixels.shape
-            # every field its own buffer: the initial state shares T
-            # between T, T_best and T_init
-            self._st = _LoopState(*(t.clone() for t in _initial_state(
-                self._T_in, C, K, channels.device)))
         else:
             if (tuple(channels.shape) != tuple(self._channels.shape)
                     or any(a.shape != b.shape
@@ -516,36 +528,18 @@ class RunGraphs:
             self._T_in.copy_(T_init)
         self._td_src = tdata
 
-    def run(self, tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
-        """``gauss_newton.run`` with each iteration replayed; bitwise its
-        result.  The returned state owns its tensors."""
+    def run(self, tdata, channels, cam, T_init, opts: GNOptions, **static):
+        """The solver's result from one replay, bit for bit its eager run;
+        ``static`` (the solver's Python arguments, LM's ``tau``) is part
+        of the graph's key.  The returned state owns its tensors."""
         if self._cache is None:
-            from bpvo_tpu_torch.utils import graphs
-            self._cache = graphs.GraphCache(channels.device)
+            self._cache = graphs_mod.GraphCache(channels.device)
         self._load(tdata, channels, T_init)
-        td, st = self._td, self._st
-        C, K = td.pixels.shape
-        dev = self._channels.device
-
-        def body(first, do_est):
-            def fn():
-                lin = _default_linearize_fn(td, self._channels, cam, opts)
-                start = (_initial_state(self._T_in, C, K, dev) if first
-                         else st)
-                new = _iteration(start, lin, td.norm_scale, td.norm_center,
-                                 opts, first, do_est)[0]
-                for dst, src in zip(st, new):
-                    dst.copy_(src)
-                return st.flags
-            return fn
-
-        def advance(it, do_est):
-            first = it == 0
-            return self._cache((first, do_est, opts, cam), body(first,
-                                                                do_est))
-
-        it, converged = _loop(advance, opts)
-        return _result(st, it, converged, copy=True)
+        key = (opts, cam, *sorted(static.items()))
+        out = self._cache(key, lambda: self._solve(
+            self._td, self._channels, cam, self._T_in, opts, **static))
+        # the next replay overwrites the graph's outputs
+        return type(out)(*(t.clone() for t in out))
 
 
 def fraction_of_good_points(weights, num_channels, num_valid, threshold,

@@ -13,9 +13,14 @@ from the candidate's channel-0 residuals, with the weights, H, g and f
 rebuilt at it, so the next rho compares costs under one weighting.  The
 linearizations are ``gauss_newton``'s gather route (``reduce_w``:
 ``irls_reduce_w`` at C > 1), whose f_sq is the carried cost, as JAX carries
-``linear_system.build``'s.  The loop runs on the host with one device read per iteration
-(converged, and whether sigma is still moving); the state stays on the
-device.
+``linear_system.build``'s.  The loop is ``utils.graphs.while_loop`` (JAX's
+``lax.while_loop``) and the sigma re-estimate ``utils.graphs.cond``: the
+state and the exit test stay on the device.  Eagerly the loop reads its
+exit test and its sigma test in one copy an iteration; captured in a CUDA
+graph it is a WHILE node and reads nothing.  A ``gauss_newton.RunGraphs``
+made with ``solve=run`` (the entry points hold one per level on CUDA)
+makes each level solve one replay; a ``DeviceVO`` step graph holds its LM
+loops itself.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 
 from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.solver import linear_system, mestimator
+from bpvo_tpu_torch.utils import graphs as graphs_mod
 from bpvo_tpu_torch.vo import template_data as td_mod
 from bpvo_tpu_torch.vo import warp as warp_mod
 
@@ -44,20 +50,18 @@ class LMState(NamedTuple):
     status: torch.Tensor       # int32 STATUS_* code
 
 
-def _flags(st: LMState, opts: gn.GNOptions):
-    """(converged, sigma still moving): the loop's one read per
-    iteration."""
-    return torch.stack([st.converged,
-                        gn._sigma_unstable(st.delta_scale, st.scale, opts)])
-
-
 def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
-        opts: gn.GNOptions, tau: float = 1e-4) -> LMState:
+        opts: gn.GNOptions, tau: float = 1e-4, graphs=None) -> LMState:
     """LM from T_init until a convergence test fires on an accepted step or
-    ``max_iterations`` are spent."""
+    ``max_iterations`` are spent.  ``graphs`` (a ``gauss_newton.RunGraphs``
+    made with ``solve=run``, held per level by the caller) replays the
+    whole solve from one CUDA graph."""
+    if graphs is not None:
+        return graphs.run(tdata, channels, cam, T_init, opts, tau=tau)
     f32 = torch.float32
     dev = channels.device
-    T0 = T_init.to(device=dev, dtype=f32)
+    # the carry's own pose (the loop may write over it)
+    T0 = T_init.to(device=dev, dtype=f32).clone()
     s, c = tdata.norm_scale, tdata.norm_center
     eye = torch.eye(6, dtype=f32, device=dev)
 
@@ -76,14 +80,13 @@ def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
     H, g, f_sq, w = gn.reduce_w(tdata.jacobians, r, valid, sigma, opts.loss)
     g_max = torch.max(torch.abs(g))
     g_tol = opts.gradient_tolerance * torch.clamp(g_max, min=gn._SQRT_EPS)
-    st = LMState(T=T0, f_norm=torch.sqrt(f_sq), g=g, H=H,
-                 mu=tau * torch.max(torch.diag(H)), nu=scalar(2.0),
-                 scale=sigma, delta_scale=dscale, weights=w,
-                 num_iters=scalar(0, torch.int32), converged=g_max < g_tol,
-                 status=scalar(gn.STATUS_MAX_ITERATIONS, torch.int32))
-    converged, do_est = _flags(st, opts).tolist()
-    it = 0
-    while not converged and it < opts.max_iterations:
+    init = LMState(T=T0, f_norm=torch.sqrt(f_sq), g=g, H=H,
+                   mu=tau * torch.max(torch.diag(H)), nu=scalar(2.0),
+                   scale=sigma, delta_scale=dscale, weights=w,
+                   num_iters=scalar(0, torch.int32), converged=g_max < g_tol,
+                   status=scalar(gn.STATUS_MAX_ITERATIONS, torch.int32))
+
+    def body(st: LMState, do_est) -> LMState:
         dp = linear_system.cholesky_solve_6x6(st.H + st.mu * eye, st.g)
         dp = torch.where(torch.all(torch.isfinite(dp)), dp, 0.0)
         T_new = st.T @ warp_mod.params_to_pose(-dp, s, c)
@@ -92,13 +95,14 @@ def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
         w_new = mestimator.compute_weights(opts.loss, r_new,
                                            valid_new[None, :], st.scale)
         f_new = torch.sqrt(torch.sum(w_new * r_new * r_new))
+
         # sigma for the next cycle, carried only if this step is accepted
-        if do_est:
-            new_sigma = mestimator.estimate_scale(r_new[0], valid_new,
-                                                  opts.use_histogram_median)
-            new_delta = torch.abs(new_sigma - st.scale)
-        else:
-            new_sigma, new_delta = st.scale, st.delta_scale
+        def estimate():
+            est = mestimator.estimate_scale(r_new[0], valid_new,
+                                            opts.use_histogram_median)
+            return est, torch.abs(est - st.scale)
+        new_sigma, new_delta = gn._sigma_branch(do_est, estimate, (),
+                                                st.scale, st.delta_scale)
         H_c, g_c, f_sq_c, w_c = gn.reduce_w(tdata.jacobians, r_new,
                                             valid_new, new_sigma, opts.loss)
         pred = torch.dot(dp, st.mu * dp + st.g)
@@ -112,7 +116,7 @@ def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
             opts.gradient_tolerance * torch.clamp(g_max, min=gn._SQRT_EPS),
             opts)
         conv = conv & accept
-        st = LMState(
+        return LMState(
             T=torch.where(accept, T_new, st.T),
             f_norm=torch.where(accept, torch.sqrt(f_sq_c), st.f_norm),
             g=torch.where(accept, g_c, st.g),
@@ -124,6 +128,8 @@ def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
             weights=torch.where(accept, w_c, st.weights),
             num_iters=st.num_iters + 1, converged=conv,
             status=torch.where(conv, status, st.status).to(torch.int32))
-        converged, do_est = _flags(st, opts).tolist()
-        it += 1
-    return st
+
+    return graphs_mod.while_loop(
+        lambda st: ~st.converged & (st.num_iters < opts.max_iterations),
+        body, init,
+        flag_fn=lambda st: gn._sigma_unstable(st.delta_scale, st.scale, opts))

@@ -1,12 +1,13 @@
 """CUDA graphs for the compiled step: the port's counterpart of ``jax.jit``
-and, through IF nodes, of ``jax.lax.cond``.
+and, through IF and WHILE nodes, of ``jax.lax.cond`` and
+``jax.lax.while_loop``.
 
 JAX runs a ``DeviceVO`` step, and each ``gn.run`` level, as one compiled
 program.  Here a function over tensors that stay at fixed addresses (its
 static buffers) is captured once as a CUDA graph and replayed; inputs that
 change between calls are copied into those buffers first.  ``GraphCache``
 holds the graphs of one owner, keyed by a Python-static key (level, shapes,
-branch flags), as ``jax.jit`` keys its compiled programs by the static
+options), as ``jax.jit`` keys its compiled programs by the static
 arguments.
 
 The first call of a key runs the function once on the cache's own stream
@@ -23,24 +24,46 @@ function eagerly.
 
 ``cond(pred, body, into)`` is the data-dependent branch.  Outside a cache it
 reads ``pred`` on the host and returns ``body()`` or ``into``.  In a
-function the cache runs, the branch is a CUDA graph IF node
-(``CUDAGraph.begin_capture_to_if_node``): the body runs on the device only
-on replays whose ``pred`` is true, and copies its results over ``into``, a
-structure of tensors at fixed addresses that holds the other branch's
-values.  The warm-up runs a body that is not taken too, and throws its
-result away, so a body's first-use work never happens inside a capture.  A
-torch without IF nodes raises.
+function the cache captures, the branch is an IF node: the body runs on
+the device only on replays whose ``pred`` is true, and copies its results
+over ``into``, a structure of tensors at fixed addresses that holds the
+other branch's values.  The warm-up runs a body that is not taken too, and
+throws its result away, so a body's first-use work never happens inside a
+capture.
+
+``while_loop(pred_fn, body, carry)`` is the data-dependent loop.  Outside a
+cache it is a host loop that reads ``pred_fn(carry)`` once per iteration
+(with ``flag_fn``, a bool the body branches on, read in the same copy).
+In a function the cache captures, it is a WHILE node: the body is captured
+once, copies its results over ``carry`` (whose tensors it then owns) and
+recomputes the predicate into a fixed bool that re-arms the node, so a
+replay runs every iteration on the device with no host read.  The warm-up
+runs the body at least once, even when the loop would run none, and warms
+every ``cond`` body in it.  The body is captured into a memory pool of its
+own: a block the body frees (a tensor from before the loop whose last
+reference the body drops) could otherwise be handed to a temporary later
+in the same body, which the next iteration would then read for that
+tensor.
+
+The card's torch has no API for conditional nodes, so the code around a
+branch or a loop is captured as separate torch graphs (segments, kept
+un-instantiated) and ``csrc/graph_cond.cu`` joins them into one graph
+(``_Joined``): each segment a child-graph node, each branch or loop a
+one-thread kernel that copies its device predicate into a conditional
+handle, then the IF or WHILE node.
 
 The kernel wrappers count their launches in Python (``launch_count`` of each
 ``ops`` module), and a replay never enters them: the cache records how far
 each count advanced during the capture, puts the counts back, and adds that
-advance on every replay.  A launch captured inside an IF body counts only
-on the replays that took the body: the body adds one to a device counter
-of its own, and ``settle()`` reads every such counter in one
-device-to-host read and adds the bodies' launches for the replays that
-took them.  Read the counts after ``settle()``; so settled, they equal
-those of running the function eagerly.  A key's first call counts through
-the wrappers themselves (an untaken body's warm-up is not counted).
+advance on every replay.  A launch captured inside a conditional body
+counts only as often as the body runs: each body adds one to a device
+counter of its own on each run (an IF body when taken, a WHILE body on
+each iteration), and ``settle()`` reads every such counter in one
+device-to-host read and adds each body's launches times its new runs.
+The counters are sized by the bodies the warm-up ran, which bound those
+the capture holds.  Read the counts after ``settle()``; so settled, they
+equal those of running the function eagerly.  A key's first call counts
+through the wrappers themselves (an untaken body's warm-up is not counted).
 The capture holds ``ops._build.count_lock``, under which every wrapper
 counts, so a launch counted by another thread (a data loader's stereo
 matcher) waits until the capture is over and is not taken for the graph's.
@@ -66,11 +89,9 @@ from bpvo_tpu_torch.ops import _build
 # scripts/profile_torch_vo.py, which counts a replay as one host op)
 replay_count = 0
 
-# IF bodies a graph may hold (the size of its device counters)
-MAX_BODIES = 16
-
-# the IF bodies of every graph captured in this process whose launches are
-# not all settled: [(taken counters, [(body's launches, settled takes)])]
+# the conditional bodies of every graph captured in this process:
+# [(run counters, [(body's launches, settled runs)])], a body's counter at
+# its index in the records
 _bodies = []
 
 # the cache running a function on this thread; its phase is "warm-up",
@@ -92,15 +113,44 @@ def _leaves(x):
     return [t for item in x for t in _leaves(item)]
 
 
+def _replace_leaf(x, leaf):
+    """``x`` with every occurrence of the tensor ``leaf`` but the first
+    replaced by a copy of its own."""
+    first = [True]
+
+    def walk(y):
+        if isinstance(y, torch.Tensor):
+            if y is not leaf:
+                return y
+            keep, first[0] = first[0], False
+            return y if keep else y.clone()
+        items = [walk(i) for i in y]
+        return type(y)(*items) if hasattr(y, "_fields") else type(y)(items)
+    return walk(x)
+
+
 def copy_into(dst, src):
     """Copy the tensors of ``src`` over those of ``dst`` (structures of the
-    same shape); a leaf that is ``dst``'s own tensor is left alone."""
-    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+    same shape); a leaf that is ``dst``'s own tensor is left alone, and one
+    that is another of ``dst``'s tensors is copied out first, so that no
+    copy reads a tensor an earlier one overwrote."""
+    dsts = _leaves(dst)
+    held = {id(d) for d in dsts}
+    srcs = [s.clone() if id(s) in held and s is not d else s
+            for d, s in zip(dsts, _leaves(src), strict=True)]
+    for d, s in zip(dsts, srcs):
         if d is not s:
             if d.shape != s.shape or d.dtype != s.dtype:
                 raise ValueError(f"copy_into: {s.dtype} {tuple(s.shape)} "
                                  f"over {d.dtype} {tuple(d.shape)}")
             d.copy_(s)
+
+
+def _predicate(pred, who):
+    if pred.dtype != torch.bool or pred.dim() != 0:
+        raise ValueError(f"{who}: the predicate must be a 0-d bool tensor, "
+                         f"got {pred.dtype} {tuple(pred.shape)}")
+    return pred
 
 
 def cond(pred, body, into):
@@ -112,40 +162,80 @@ def cond(pred, body, into):
     a cache runs: an IF node whose body copies ``body()``'s results over
     ``into``, which is returned (its tensors must be at fixed addresses:
     static buffers, or tensors the captured function computed)."""
-    if pred.dtype != torch.bool or pred.dim() != 0:
-        raise ValueError(f"cond: the predicate must be a 0-d bool tensor, "
-                         f"got {pred.dtype} {tuple(pred.shape)}")
+    _predicate(pred, "cond")
     cache = getattr(_running, "cache", None)
     if cache is None:
         return body() if bool(pred) else into
     return cache._cond(pred, body, into)
 
 
+def while_loop(pred_fn, body, carry, flag_fn=None):
+    """``jax.lax.while_loop``: ``carry = body(carry)`` while
+    ``pred_fn(carry)`` (a 0-d bool tensor) is true; returns the last carry.
+    ``body`` returns a structure shaped as ``carry``.  With ``flag_fn`` the
+    body is ``body(carry, flag_fn(carry))``: ``flag_fn`` gives a 0-d bool
+    tensor the body branches on (``cond``).
+
+    Outside a ``GraphCache`` call: a host loop, one read of the predicate
+    per iteration (and one at the end); the flag is read in the same copy
+    and passed to the body as a host bool.  In a function a cache runs: a
+    WHILE node whose body copies ``body(carry)``'s results over ``carry``
+    and returns it (the flag passed as the tensor); the loop then owns
+    ``carry``'s tensors and overwrites them on every replay, so they must
+    be tensors the captured function computed for the loop (not its
+    inputs) or static buffers."""
+    cache = getattr(_running, "cache", None)
+    if cache is None:
+        while True:
+            go = _predicate(pred_fn(carry), "while_loop")
+            if flag_fn is None:
+                if not bool(go):
+                    return carry
+                carry = body(carry)
+                continue
+            go, flag = torch.stack(
+                [go, _predicate(flag_fn(carry), "while_loop")]).tolist()
+            if not go:
+                return carry
+            carry = body(carry, flag)
+    if flag_fn is not None:
+        inner = body
+
+        def body(c):
+            return inner(c, flag_fn(c))
+    return cache._while(pred_fn, body, carry)
+
+
 def settle():
-    """Add the launches of the IF bodies taken since the last ``settle``
-    to the ``ops`` modules' counts: one device-to-host read of every
-    graph's counters.  Call it before reading ``launch_count``."""
+    """Add the launches of the conditional bodies run since the last
+    ``settle`` to the ``ops`` modules' counts: one device-to-host read of
+    every graph's counters.  Call it before reading ``launch_count``."""
     with _build.count_lock:
-        taken = {}
+        runs = {}
         for dev in {c.device for c, _ in _bodies}:   # one read a device
             idx = [i for i, (c, _) in enumerate(_bodies) if c.device == dev]
-            rows = torch.stack([_bodies[i][0] for i in idx]).tolist()
-            taken.update(zip(idx, rows))
+            flat = torch.cat([_bodies[i][0][:len(_bodies[i][1])]
+                              for i in idx]).tolist()
+            for i in idx:
+                n = len(_bodies[i][1])
+                runs[i], flat = flat[:n], flat[n:]
         for i, (_, records) in enumerate(_bodies):
             for j, (launches, settled) in enumerate(records):
                 for mod, n in launches:
-                    mod.launch_count += n * (taken[i][j] - settled)
-                records[j] = (launches, taken[i][j])
+                    mod.launch_count += n * (runs[i][j] - settled)
+                records[j] = (launches, runs[i][j])
 
 
 class _Joined:
     """The segments of one capture (torch CUDA graphs kept un-instantiated)
     joined into one graph by ``csrc/graph_cond.cu``: each segment a
-    child-graph node, each IF body an IF node on its predicate.  ``items``
-    is the capture's sequence: ``("graph", CUDAGraph)`` and ``("if",
-    predicate, items)``; holding it keeps the segments' memory pool and
-    the predicates alive.  ``replay()`` launches the graph on the current
-    stream and returns the static outputs."""
+    child-graph node, each IF body an IF node on its predicate, each WHILE
+    body a WHILE node re-armed at the body's end from its predicate.
+    ``items`` is the capture's sequence: ``("graph", CUDAGraph)``, ``("if",
+    predicate, items)`` and ``("while", predicate, items)``; holding it
+    keeps the segments' memory pools and the predicates alive.
+    ``replay()`` launches the graph on the current stream and returns the
+    static outputs."""
 
     def __init__(self, items, outputs, device):
         self.items, self.outputs, self.device = items, outputs, device
@@ -160,6 +250,8 @@ class _Joined:
         _build.launch(self._lib, "CUDA graph", rc)
 
     def _append(self, graph, items):
+        """Append ``items`` to ``graph`` as a chain; returns its last node
+        (null when it added none)."""
         lib, tail = self._lib, ctypes.c_void_p()
         for kind, *rest in items:
             if kind == "graph":
@@ -170,13 +262,22 @@ class _Joined:
                 if n.value:
                     self._check(lib.bpvo_graph_append_child(
                         graph, ctypes.byref(tail), segment))
-            else:
-                pred, body_items = rest
-                body = ctypes.c_void_p()
+                continue
+            pred, body_items = rest
+            body, ptr = ctypes.c_void_p(), ctypes.c_void_p(pred.data_ptr())
+            if kind == "if":
                 self._check(lib.bpvo_graph_append_if(
-                    graph, ctypes.byref(tail), ctypes.c_void_p(
-                        pred.data_ptr()), ctypes.byref(body)))
+                    graph, ctypes.byref(tail), ptr, ctypes.byref(body)))
                 self._append(body, body_items)
+            else:
+                handle = ctypes.c_ulonglong()
+                self._check(lib.bpvo_graph_append_while(
+                    graph, ctypes.byref(tail), ptr, ctypes.byref(body),
+                    ctypes.byref(handle)))
+                body_tail = self._append(body, body_items)
+                self._check(lib.bpvo_graph_append_set(
+                    body, ctypes.byref(body_tail), handle, ptr))
+        return tail
 
     def replay(self):
         stream = torch.cuda.current_stream(self.device).cuda_stream
@@ -192,8 +293,8 @@ class _Joined:
 
 
 class _Body:
-    """An IF body being captured: the counts when it began, and the
-    launches of the bodies nested in it."""
+    """A conditional body being captured: the counts when it began, and
+    the launches of the bodies nested in it."""
 
     def __init__(self, before):
         self.before, self.nested = before, [0] * len(before)
@@ -211,11 +312,13 @@ class GraphCache:
         self._entries = {}
         self._stream = None
         self._phase = None
-        # the capture in progress: its memory pool, the segment being
-        # captured, the sequences being filled (``_Joined``'s items; the
-        # innermost last), the IF bodies' device counters and launches,
-        # and the IF bodies being captured
-        self._pool = self._segment = self._items = None
+        # conditional bodies the warm-up ran (the size of the counters)
+        self._n_bodies = 0
+        # the capture in progress: its memory pools (the innermost WHILE
+        # body's last), the segment being captured, the sequences being
+        # filled (``_Joined``'s items; the innermost last), the bodies'
+        # device counters and launches, and the bodies being captured
+        self._pools = self._segment = self._items = None
         self._taken = self._records = self._stack = None
 
     def __len__(self):
@@ -251,12 +354,13 @@ class GraphCache:
 
     def _first_call(self, key, fn):
         mods = self._mods()
+        self._n_bodies = 0
         with self._running("warm-up"):
             out = self._warm_up(fn)
         with _build.count_lock:
             before = [mod.launch_count for mod in mods]
-            self._taken = torch.zeros(MAX_BODIES, dtype=torch.int64,
-                                      device=self.device)
+            self._taken = torch.zeros(max(self._n_bodies, 1),
+                                      dtype=torch.int64, device=self.device)
             self._records, self._stack = [], [_Body(before)]
             try:
                 with self._running("capture"):
@@ -277,33 +381,72 @@ class GraphCache:
     def _cond(self, pred, body, into):
         """``cond`` in a function this cache runs (see ``cond``)."""
         if self._phase == "capture":
-            return self._capture_if(pred, body, into)
-        take = bool(pred)
-        if take:
+            self._capture_body("if", pred, lambda: copy_into(into, body()))
+            return into
+        if self._phase == "warm-up":
+            self._n_bodies += 1
+        if bool(pred):
             copy_into(into, body())
         elif self._phase == "warm-up":
-            # warm the body that is not taken; its result and its launches
-            # are thrown away
-            with _build.count_lock:
-                counts = [mod.launch_count for mod in self._mods()]
-                try:
-                    body()
-                finally:
-                    for mod, n in zip(self._mods(), counts):
-                        mod.launch_count = n
+            self._discard(body)
         return into
 
-    def _capture_if(self, pred, body, into):
+    def _while(self, pred_fn, body, carry):
+        """``while_loop`` in a function this cache runs (see
+        ``while_loop``)."""
+        if self._phase == "capture":
+            return self._capture_while(pred_fn, body, carry)
+        ran = self._phase != "warm-up"
+        if not ran:
+            self._n_bodies += 1
+        while bool(_predicate(pred_fn(carry), "while_loop")):
+            carry, ran = body(carry), True
+        if not ran:
+            # warm the body the loop did not run
+            self._discard(lambda: body(carry))
+        return carry
+
+    def _discard(self, fn):
+        """Run ``fn`` (a body the warm-up does not take); its result and
+        its launches are thrown away."""
+        with _build.count_lock:
+            counts = [mod.launch_count for mod in self._mods()]
+            try:
+                fn()
+            finally:
+                for mod, n in zip(self._mods(), counts):
+                    mod.launch_count = n
+
+    def _capture_while(self, pred_fn, body, carry):
+        seen = set()
+        for t in _leaves(carry):    # a tensor held twice: one buffer each
+            if id(t) in seen:
+                carry = _replace_leaf(carry, t)
+            seen.add(id(t))
+        pred = _predicate(pred_fn(carry), "while_loop")
+        if any(pred is t for t in _leaves(carry)):
+            pred = pred.clone()
+
+        def iteration():
+            copy_into(carry, body(carry))
+            pred.copy_(_predicate(pred_fn(carry), "while_loop"))
+        self._capture_body("while", pred, iteration)
+        return carry
+
+    def _capture_body(self, kind, pred, fill):
+        """Capture ``fill()`` as the body of an IF or WHILE node on
+        ``pred``, counting its launches per run of the body."""
         slot = len(self._records)
-        if slot == MAX_BODIES:
-            raise RuntimeError(f"cond: more than {MAX_BODIES} IF bodies in "
-                               f"one graph")
+        if slot == len(self._taken):
+            raise RuntimeError(f"graphs: the capture holds more conditional "
+                               f"bodies than the warm-up ran ({slot})")
         mods = self._mods()
         frame = _Body([mod.launch_count for mod in mods])
         self._records.append(None)
         self._stack.append(frame)
-        with self._if_node(pred):
-            copy_into(into, body())
+        node = self._if_node if kind == "if" else self._while_node
+        with node(pred):
+            fill()
             self._taken[slot].add_(1)
         self._stack.pop()
         advanced = [mod.launch_count - n for mod, n in zip(mods, frame.before)]
@@ -312,28 +455,39 @@ class GraphCache:
                                if a - nested]
         outer = self._stack[-1]
         outer.nested = [x + a for x, a in zip(outer.nested, advanced)]
-        return into
+
+    def _if_node(self, pred):
+        """Capture what the block launches into an IF body on ``pred``."""
+        return self._node("if", pred, None)
+
+    def _while_node(self, pred):
+        """Capture what the block launches into a WHILE body on ``pred``, in
+        a memory pool of its own."""
+        return self._node("while", pred, torch.cuda.graph_pool_handle())
 
     @contextlib.contextmanager
-    def _if_node(self, pred):
-        """Capture what the block issues into an IF body on ``pred``: the
-        segment before it ends, the body is segments of its own, and a new
-        segment begins after it."""
+    def _node(self, kind, pred, pool):
+        """The segment before the block ends, the block is segments of its
+        own (in ``pool``, if given), and a new segment begins after it."""
         self._end_segment()
         items = []
-        self._items[-1].append(("if", pred, items))
+        self._items[-1].append((kind, pred, items))
         self._items.append(items)
+        if pool is not None:
+            self._pools.append(pool)
         self._begin_segment()
         try:
             yield
         finally:
             self._end_segment()
             self._items.pop()
+            if pool is not None:
+                self._pools.pop()
             self._begin_segment()
 
     def _begin_segment(self):
         self._segment = torch.cuda.CUDAGraph(keep_graph=True)
-        self._segment.capture_begin(pool=self._pool,
+        self._segment.capture_begin(pool=self._pools[-1],
                                     capture_error_mode="thread_local")
 
     def _end_segment(self):
@@ -373,7 +527,7 @@ class GraphCache:
         torch.cuda.synchronize(self.device)
         gc.collect()
         torch.cuda.empty_cache()
-        self._pool, self._items = torch.cuda.graph_pool_handle(), [[]]
+        self._pools, self._items = [torch.cuda.graph_pool_handle()], [[]]
         try:
             with torch.cuda.stream(self._side_stream()):
                 self._begin_segment()
@@ -383,4 +537,4 @@ class GraphCache:
                     self._end_segment()
             return _Joined(self._items[0], outputs, self.device)
         finally:
-            self._pool = self._segment = self._items = None
+            self._pools = self._segment = self._items = None

@@ -132,7 +132,7 @@ def _build_templates(channels_pyr, disparity, cams, p, capacities):
 
 def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
               max_test_level, good_threshold, min_points: int,
-              solver: str = "GaussNewton", start_level=-1, run_graphs=None,
+              solver: str = "GaussNewton", start_level=-1,
               hooks: StepHooks = StepHooks()):
     """Coarse-to-fine GN or LM from ``start_level`` (default: coarsest) down
     to ``max_test_level`` (``pose_estimator._estimate_all``, with the
@@ -142,8 +142,7 @@ def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
     T, iters, fs, _, _, frac, H, w, bo = pe._estimate_all(
         templates, channels_pyr, cams, T_init, opts_per_level,
         max_test_level, good_threshold, min_points, solver=solver,
-        start_level=start_level, run_graphs=run_graphs,
-        linearize_factory=hooks.linearize_factory,
+        start_level=start_level, linearize_factory=hooks.linearize_factory,
         count_reduce=hooks.count_reduce)
     return T, iters, fs, frac, H, w, bo
 
@@ -198,7 +197,7 @@ class _Branch(NamedTuple):
 
 
 def _make_front(p: AlgorithmParameters, cams, opts_per_level, stereo: bool,
-                run_graphs=None, hooks: StepHooks = StepHooks()):
+                hooks: StepHooks = StepHooks()):
     """front(templates, T_kf, T_delta, image, aux) -> _Front: the pyramid,
     the gated warm start, the coarse-to-fine estimate and the keyframe
     reason."""
@@ -218,7 +217,7 @@ def _make_front(p: AlgorithmParameters, cams, opts_per_level, stereo: bool,
         T_est, iters, fs, frac, H, w_fine, boverflow = _estimate(
             templates, channels, cams, T_init, opts_per_level,
             p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
-            p.poseEstimator, run_graphs=run_graphs, hooks=hooks)
+            p.poseEstimator, hooks=hooks)
         reason = _keyframe_reason(T_est, frac, p)
         return _Front(channels=channels, store=store, T_est=T_est,
                       iters=iters, f_norm=fs, frac_good=frac, H=H,
@@ -230,8 +229,7 @@ def _make_front(p: AlgorithmParameters, cams, opts_per_level, stereo: bool,
 
 
 def _make_keyframe(p: AlgorithmParameters, cams, capacities, opts_per_level,
-                   stereo_fn=None, run_graphs=None,
-                   hooks: StepHooks = StepHooks()):
+                   stereo_fn=None, hooks: StepHooks = StepHooks()):
     """keyframe(state, front) -> _Branch: JAX's keyframe branch (bpvo_tpu/
     vo/device_vo.py:295-354), a function of tensors.  The keyframe source
     is the candidate when ``state.has_prev``, else the current frame,
@@ -277,8 +275,7 @@ def _make_keyframe(p: AlgorithmParameters, cams, capacities, opts_per_level,
         T2, it2, fs2, _frac2, _H2, w2_fine, _bo2 = _estimate(
             templates, channels, cams, T2_init, opts_per_level,
             p.maxTestLevel, p.goodPointThreshold, p.minNumPixelsToWork,
-            p.poseEstimator, start_level=start2, run_graphs=run_graphs,
-            hooks=hooks)
+            p.poseEstimator, start_level=start2, hooks=hooks)
         return _Branch(templates=templates,
                        T_kf=torch.where(has_prev, T2, eye),
                        pose=torch.where(has_prev, T2, fr.pose_kf),
@@ -290,15 +287,14 @@ def _make_keyframe(p: AlgorithmParameters, cams, capacities, opts_per_level,
 
 
 def _make_commit(p: AlgorithmParameters, cams, capacities, opts_per_level,
-                 stereo_fn=None, run_graphs=None,
-                 hooks: StepHooks = StepHooks()):
+                 stereo_fn=None, hooks: StepHooks = StepHooks()):
     """commit(state, front) -> (state, out): the keyframe branch under
     ``graphs.cond`` (a host read of the decision, or in a step graph an IF
     node), then the state update both branches share.  No keyframe: the
     frame becomes the candidate.  Keyframe: the matcher (with a
     ``stereo_fn``), the template build and the re-estimate."""
     keyframe = _make_keyframe(p, cams, capacities, opts_per_level,
-                              stereo_fn, run_graphs, hooks)
+                              stereo_fn, hooks)
 
     def commit(state: VOState, fr: _Front):
         br = graphs.cond(fr.is_kf, lambda: keyframe(state, fr), _Branch(
@@ -322,26 +318,21 @@ def _make_commit(p: AlgorithmParameters, cams, capacities, opts_per_level,
 
 def make_vo_step(p: AlgorithmParameters, cams, capacities,
                  opts_per_level: Tuple[gn.GNOptions, ...], stereo_fn=None,
-                 run_graphs=None, hooks: StepHooks = StepHooks()):
+                 hooks: StepHooks = StepHooks()):
     """Build the eager step function (state, image, aux) -> (state, out):
     ``_make_front``, then ``_make_commit`` with one host read of the
     keyframe decision.  ``aux`` is the disparity, or the right image when
-    ``stereo_fn`` is given.  ``run_graphs`` (one ``gauss_newton.RunGraphs``
-    per level) replays the iterations of levels that take
-    ``gauss_newton.run``.
+    ``stereo_fn`` is given.  ``DeviceVO`` captures the same functions as
+    one CUDA graph.
 
     ``hooks`` are the distributed layer's (``StepHooks``;
     ``parallel/sharded_vo.py``).  A hooked step is eager: a level with a
-    custom linearization runs ``gauss_newton.run`` op by op, and hooks
-    together with ``run_graphs`` raise a ``ValueError``."""
+    custom linearization runs ``gauss_newton.run`` op by op."""
     cams = tuple(cams)
-    if run_graphs is not None and hooks != StepHooks():
-        raise ValueError("make_vo_step: a hooked step has no graphed route; "
-                         "pass run_graphs=None")
     front = _make_front(p, cams, opts_per_level, stereo_fn is not None,
-                        run_graphs, hooks)
+                        hooks)
     commit = _make_commit(p, cams, tuple(capacities), opts_per_level,
-                          stereo_fn, run_graphs, hooks)
+                          stereo_fn, hooks)
 
     def step(state: VOState, image, aux):
         return commit(state, front(state.templates, state.T_kf,
@@ -375,26 +366,25 @@ class DeviceVO:
     Routes, chosen statically by device and configuration:
 
     - CPU: the eager step (``make_vo_step``), every op issued from Python,
-      the keyframe decision read on the host.
-    - CUDA, every solved level on ``level_gn``: the whole step is one CUDA
-      graph, replayed each frame (the counterpart of JAX's jitted step):
-      the front (pyramid with the census kernel, warm start, every
-      ``level_gn`` launch, keyframe reason), the keyframe branch in an IF
-      node (matcher, template build, re-estimate; JAX's ``lax.cond``),
-      and the state update, all into static buffers.  After the branch the
-      frame's pyramid and store are copied into the candidate buffers, as
-      JAX's ``prev_channels=channels``.  A step reads nothing back:
-      ``add_frame`` returns device tensors, and ``add_frames`` copies the
-      chunk to the card once and replays back to back (JAX's
-      ``lax.scan``), its outputs stacked on the card.
-    - CUDA with a level on ``gauss_newton.run`` (more than
-      ``MAX_LEVEL_KERNEL_POINTS`` points, CUBIC or CUBIC_HERMITE sampling,
-      the DisparitySpace warp): the eager step, with those levels'
-      iterations replayed from ``gauss_newton.RunGraphs`` (their loops read
-      the device once per iteration; a graph of the whole step awaits a
-      WHILE node).
-    - CUDA with Levenberg-Marquardt: the eager step (LM never takes the
-      level kernel; its host loop reads the device once per iteration).
+      the keyframe decision and each level solve's exit test read on the
+      host.
+    - CUDA: the whole step is one CUDA graph, replayed each frame (the
+      counterpart of JAX's jitted step): the front (pyramid with the census
+      kernel, warm start, every level solve, keyframe reason), the keyframe
+      branch in an IF node (matcher, template build, re-estimate; JAX's
+      ``lax.cond``), and the state update, all into static buffers.  A
+      level on ``level_gn`` is one launch; a level on ``gauss_newton.run``
+      (more than ``MAX_LEVEL_KERNEL_POINTS`` points, CUBIC or CUBIC_HERMITE
+      sampling, the DisparitySpace warp) and a Levenberg-Marquardt level
+      are their first iteration and a WHILE node (JAX's
+      ``lax.while_loop``), the sigma re-estimate an IF node inside it.
+      After the branch the frame's pyramid and store are copied into the
+      candidate buffers, as JAX's ``prev_channels=channels``.  A step
+      reads nothing back: ``add_frame`` returns device tensors, and
+      ``add_frames`` copies the chunk to the card once and replays back to
+      back (JAX's ``lax.scan``), its outputs stacked on the card.
+    - CUDA with verbose levels (``verbosity`` ITERATION or DEBUG): the
+      eager step, whose level solves print a line per iteration.
 
     On the graphed route ``state`` holds the graph's buffers, which later
     steps overwrite, as JAX's jitted step donates its state; a state set by
@@ -423,21 +413,12 @@ class DeviceVO:
         self._opts = tuple(fine if l == p.maxTestLevel else coarse
                            for l in range(p.numPyramidLevels))
         self._stereo_fn = stereo_fn
-        C = descriptors.num_channels(p.descriptor, p)
-        gauss_newton = p.poseEstimator == "GaussNewton"
-        on_kernel = gauss_newton and all(
-            gn.level_kernel_supported(self._opts[l], C, *shapes[l],
-                                      self._capacities[l])
-            for l in range(p.maxTestLevel, p.numPyramidLevels))
-        cuda = self.device.type == "cuda"
-        # the graphed routes (see the class docstring)
+        # the graphed route (see the class docstring)
         self._graphs = graphs.GraphCache(self.device) if (
-            cuda and on_kernel) else None
-        self._run_graphs = tuple(gn.RunGraphs() for _ in shapes) if (
-            cuda and gauss_newton and not on_kernel) else None
+            self.device.type == "cuda"
+            and not any(o.verbose for o in self._opts)) else None
         self._step = make_vo_step(p, self._cams, self._capacities, self._opts,
-                                  stereo_fn=stereo_fn,
-                                  run_graphs=self._run_graphs)
+                                  stereo_fn=stereo_fn)
         self._front = _make_front(p, self._cams, self._opts,
                                   stereo_fn is not None)
         self._commit = _make_commit(p, self._cams, self._capacities,

@@ -3,11 +3,12 @@
 
 Each Gauss-Newton level is solved by ``gauss_newton.solve_level``: the
 one-launch level kernel on levels it takes, ``gauss_newton.run`` on the
-others, whose iterations ``PoseEstimator`` replays from CUDA graphs on CUDA
-(one ``gauss_newton.RunGraphs`` per level).  Levenberg-Marquardt levels run
-``levenberg_marquardt.run`` (never the level kernel, as in the JAX
-package).  With ``coarseInitOffsetPx`` > 0 a multi-start probe picks the
-start among five candidates.  The level chain stays on the device;
+others.  Levenberg-Marquardt levels run ``levenberg_marquardt.run`` (never
+the level kernel, as in the JAX package).  On CUDA ``PoseEstimator``
+replays each ``run`` level solve from one CUDA graph (a
+``gauss_newton.RunGraphs`` per level, solving LM's levels with
+``levenberg_marquardt.run``).  With ``coarseInitOffsetPx`` > 0 a
+multi-start probe picks the start among five candidates.  The level chain stays on the device;
 ``PoseEstimator.estimate`` reads its results back in one copy.
 """
 from __future__ import annotations
@@ -102,8 +103,9 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
     """Coarse-to-fine estimation from ``start_level`` (default: coarsest)
     down to ``max_test_level``.  ``alt_init`` is taken instead of ``T_init``
     when its photometric cost at the start level is not higher.
-    ``run_graphs`` (one ``gauss_newton.RunGraphs`` per level) replays the
-    iterations of levels that take ``gauss_newton.run``.  ``solver`` is
+    ``run_graphs`` (a ``gauss_newton.RunGraphs`` per level, for LM one
+    made with ``solve=levenberg_marquardt.run``) replays the level solves
+    that take ``gauss_newton.run`` or LM, one graph each.  ``solver`` is
     "GaussNewton" or "LevenbergMarquardt"; ``multistart_px`` > 0 runs the
     multi-start probe (``_multistart``) first.
 
@@ -151,7 +153,8 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
                             cams[level], opts_per_level[level]))
         elif solver == "LevenbergMarquardt":
             st = lm.run(templates[level], channels[level], cams[level], T,
-                        opts_per_level[level])
+                        opts_per_level[level],
+                        graphs=run_graphs and run_graphs[level])
         else:
             st = gn.solve_level(templates[level], channels[level],
                                 cams[level], T, opts_per_level[level],
@@ -183,11 +186,14 @@ class PoseEstimator:
         self._run_graphs = None
 
     def _level_graphs(self, channels_pyr):
-        """One ``gauss_newton.RunGraphs`` per level on CUDA (the graphed
-        route of ``gauss_newton.run``), None on the CPU and for LM."""
-        if (self._run_graphs is None and self._p.poseEstimator == "GaussNewton"
+        """One graph holder per level on CUDA (a ``gauss_newton.RunGraphs``
+        solving with ``gauss_newton.run``, or ``levenberg_marquardt.run``
+        for LM: each level solve one replay), None on the CPU."""
+        if (self._run_graphs is None
                 and channels_pyr[0].device.type == "cuda"):
-            self._run_graphs = tuple(gn.RunGraphs()
+            solve = (lm.run if self._p.poseEstimator == "LevenbergMarquardt"
+                     else gn.run)
+            self._run_graphs = tuple(gn.RunGraphs(solve=solve)
                                      for _ in range(len(channels_pyr)))
         return self._run_graphs
 

@@ -88,9 +88,12 @@
    launches: fused_linearize = gauss_newton.run iterations (+ one sigma pass
    per sigma re-estimate at C=8), irls_reduce = sigma re-estimates at C=1,
    level_gn = the L2 and L3 solves, each > 0.
-   ``VisualOdometry.add_frame`` replays each ``gauss_newton.run``
-   iteration from a CUDA graph; the sigma re-estimates are counted in its
-   host loop (``gauss_newton._loop``).
+   ``VisualOdometry.add_frame`` replays each ``gauss_newton.run`` level
+   solve from one CUDA graph (its iterations a WHILE node); the run is
+   first made eager (the pose estimator's graphs withheld), counting the
+   iterations and the sigma re-estimates (the calls of its sigma
+   function), and the graphed run must equal it bit for bit with the same
+   launches.
 9. Graph phase: each of the four VO paths eager and graphed in this
    process (the two ``DeviceVO`` paths over all N_STEPS (30) steps, the
    dense ``VisualOdometry`` paths over the first GRAPH_STEPS (15); the
@@ -105,10 +108,28 @@
    under ``torch.cuda.set_sync_debug_mode("error")`` (a read of the device
    fails the run): bitwise equal to the eager route, the same launch
    counts once settled, chunk frames/s, each chunk's span on the stream
-   (CUDA events), host ops per step, and the device busy share of a
-   traced chunk, also as its kernel time over the same chunk's untraced
-   span (tracing adds host time between launches).  One JSON line holds
-   those numbers.  Then, after those
+   (CUDA events), host ops per step, and its first chunk traced in a
+   fresh process (``trace_chunk``, ``python3 chip_smoke.py --trace-chunk
+   <path>``): the device busy share, its kernel time over the same
+   chunk's untraced span (tracing adds host time between launches), and a
+   kernel event for every launch of level_gn and census the counts show
+   (fused_linearize and irls_reduce: at most their launches, as the
+   profiler records a WHILE body once a replay).  The same for three more ``DeviceVO`` paths
+   (``while_paths``): (a) dense intensity and Bit-Planes (L0 and L1 on
+   ``gauss_newton.run``, each a WHILE node in the step graph) over
+   GRAPH_STEPS steps, (b) Bit-Planes Levenberg-Marquardt with the
+   disparity given (every level an LM WHILE node, ``irls_reduce`` in its
+   body) over LM_GRAPH_STEPS, each also held to JAX's ``DeviceVO``
+   (tests/data/torch_port_while_ref.npz, the same frames: poses within
+   T_ATOL_JAX_DENSE, LM within ZOO_ATOL, the same keyframes); a graphed ``DeviceVO`` step's timed pass runs
+   under ``set_sync_debug_mode("error")`` too.  One JSON line holds those
+   numbers (after the second trace below, ``graph_phase_while_paths``).
+   (c) Level solves alone: ``gauss_newton.run`` at the
+   dense L0/L1 (C = 1 and 8) and LM at L0 (C = 8), eager and through
+   ``RunGraphs`` (LM's made with ``solve=levenberg_marquardt.run``): ms
+   per solve, one replay a solve under ``set_sync_debug_mode("error")``,
+   bitwise, the same launches (a ``level_solve_phase`` JSON line).
+   Between the first four paths and the WHILE paths, after those
    CPU-only profiler sessions, a second ``profiling.trace`` of 2 warmed
    ``DeviceVO`` steps with the tools phase's checks.
 10. Probe phase (``bpvo_tpu_torch.probes``, the GPU counterparts of the JAX
@@ -157,7 +178,9 @@
    ZOO_JAX_LEVEL_ROUTE), ATE within JAX's own plus ZOO_ATE_MARGIN,
    iterations per frame within ZOO_ITERS_CELL of JAX's per cell and within
    ZOO_ITERS_POOLED of JAX's summed over each solver's cells, ms and
-   iterations per frame printed per cell; the gather
+   iterations per frame printed per cell; the LM cells again eager (the
+   pose estimator's graph holders withheld): each graphed LM cell's
+   trajectory and per-frame iterations bit for bit the eager cell's; the gather
    route (Bit-Planes, CUBIC_HERMITE: irls_reduce inside gauss_newton.run's
    CUDA graphs) and dense DescriptorFields1 (fused_linearize at C = 5) over
    1+4 frames, counted, within ZOO_GT_BOUND of the ground truth; ``python -m
@@ -236,6 +259,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REF_NPZ = os.path.join(HERE, "tests", "data", "torch_port_bench_ref.npz")
 REF_STEREO_NPZ = os.path.join(HERE, "tests", "data",
                               "torch_port_bitplanes_sgm_ref.npz")
+REF_WHILE_NPZ = os.path.join(HERE, "tests", "data",
+                             "torch_port_while_ref.npz")
 REF_DENSE_NPZ = os.path.join(HERE, "tests", "data",
                              "torch_port_dense_ref.npz")
 CONF = os.path.join(HERE, "conf", "kitti_bitplanes.cfg")
@@ -270,6 +295,9 @@ STEP_LABEL = "vo_step_"  # the profiler label of a step in the graph phase
 # steps of the graph phase (30 before the app phase came; cut to keep the
 # script's wall near its earlier ~190 s)
 GRAPH_STEPS = 15
+LM_GRAPH_STEPS = 10      # the Bit-Planes LM DeviceVO path's steps
+TRACE_CHUNK_TIMEOUT_S = 240  # a chunk path's trace in a process of its own
+LEVEL_SOLVE_REPS = 5     # timed solves a route in level_solve_phase
 CHUNKS = 3               # add_frames chunks of the DeviceVO paths' 30 steps
 CHUNK_LABEL = "vo_chunk"  # the traced chunk's annotation
 # dense VO: bench.py's settings, NMS off (as conf/tunnel.cfg), and a point
@@ -897,9 +925,12 @@ def gn_kernel_phase(K, baseline, frames, dev):
 
 
 def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
-    """VisualOdometry over 1+N_STEPS frames of dense VO, once to warm up,
-    then the counted and timed run that is checked against the JAX
-    reference.  Returns the launch counts of the counted run."""
+    """VisualOdometry over 1+N_STEPS frames of dense VO, once eager (its
+    pose estimator's graphs withheld), counting what the launches must
+    be, then the graphed, counted and timed run (each ``run`` level solve
+    one replay) that must equal the eager one bit for bit and is checked
+    against the JAX reference.  Returns the launch counts of the counted
+    run."""
     import numpy as np
     import torch
     from bpvo_tpu_torch import VisualOdometry
@@ -911,9 +942,11 @@ def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
     disps = [torch.as_tensor(f[1]).to(dev) for f in frames]
     params = _dense_params(descriptor)
 
-    def one_pass():
+    def one_pass(graphed):
         vo = VisualOdometry(K, baseline, tuple(images[0].shape), params,
                             device=dev)
+        if not graphed:
+            vo._pose_estimator._level_graphs = lambda channels_pyr: None
         vo.add_frame(images[0], disps[0])
         res, t_ms = [], []
         for image, disp in zip(images[1:], disps[1:]):
@@ -924,33 +957,44 @@ def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
         return vo, res, np.array(t_ms)
 
     torch.cuda.synchronize()
-    one_pass()                          # warm-up: first-use costs of each op
-    # what the launch counts must equal: gauss_newton.run's iterations
-    # (device scalars, summed after the run) and its sigma re-estimates
-    # (the iterations its host loop runs with sigma still moving, replayed
-    # or not)
+    # the eager pass (also the warm-up of each op's first use): what the
+    # launch counts must equal, gauss_newton.run's iterations (device
+    # scalars, summed after the run) and its sigma re-estimates (the calls
+    # of its sigma function, made only where the re-estimate is taken)
     run_iters, n_est = [], [0]
-    run, loop = gn.run, gn._loop
+    run, sigma_fn = gn.run, gn._sigma_fn
 
     def counted_run(*a, **k):
         st = run(*a, **k)
         run_iters.append(st.num_iters)
         return st
 
-    def counted_loop(advance, opts):
-        def counted(it, do_est):
-            n_est[0] += bool(do_est)
-            return advance(it, do_est)
-        return loop(counted, opts)
+    def counted_sigma_fn(opts):
+        fn = sigma_fn(opts)
 
-    gn.run, gn._loop = counted_run, counted_loop
+        def counted(r0, valid):
+            n_est[0] += 1
+            return fn(r0, valid)
+        return counted
+
+    gn.run, gn._sigma_fn = counted_run, counted_sigma_fn
     try:
         _reset_counts()
-        vo, res, t_ms = one_pass()
-        counts = _counts()
+        _, res_e, t_e = one_pass(graphed=False)
+        counts_e = _counts()
     finally:
-        gn.run, gn._loop = run, loop
+        gn.run, gn._sigma_fn = run, sigma_fn
     iters_run = int(torch.stack(run_iters).sum())
+    _reset_counts()
+    vo, res, t_ms = one_pass(graphed=True)
+    counts = _counts()
+    same = all(np.array_equal(a.pose, b.pose) and a.is_keyframe
+               == b.is_keyframe and a.optimizer_statistics
+               == b.optimizer_statistics for a, b in zip(res, res_e))
+    _require(same and len(res) == len(res_e),
+             f"VO dense {name}: the graphed run differs from the eager one")
+    _require(counts == counts_e, f"VO dense {name}: launches graphed "
+                                 f"{counts}, eager {counts_e}")
 
     poses = np.stack([r.pose for r in res]).astype(np.float32)
     kf = np.array([r.is_keyframe for r in res])
@@ -980,7 +1024,9 @@ def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
     print(f"{label}: per step |pose - JAX pose| "
           + " ".join(f"{e:.1e}" for e in d_pose))
     print(f"{label}: launches {counts}; gauss_newton.run {iters_run} "
-          f"iterations, {n_est[0]} sigma re-estimates; expected {want}")
+          f"iterations, {n_est[0]} sigma re-estimates; expected {want}; "
+          f"bitwise equal to the eager run (eager per-frame ms p50 "
+          f"{np.percentile(t_e, 50):.3f})")
     split = "".join(f"; {lab} p50 {np.percentile(t_ms[sel], 50):.3f}"
                     for lab, sel in (("keyframe steps", kf), ("others", ~kf))
                     if sel.any())
@@ -1003,6 +1049,107 @@ def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
         np.percentile(t_ms, 50)), float(np.percentile(t_ms, 90))
 
 
+@contextlib.contextmanager
+def _sync_errors(on=True):
+    """With ``on``: a device-to-host read in the block raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch
+    if not on:
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def level_solve_phase(K, baseline, frames, dev, smi):
+    """Path (c), a level solve of ``VisualOdometry``'s pose estimator on
+    its own: at the dense L0 and L1 (K = 131072 / 32768; C = 1 and 8)
+    ``gauss_newton.run`` and at L0 ``levenberg_marquardt.run`` (C = 8),
+    eager and through its graph holder (``RunGraphs``, for LM made with
+    ``solve=levenberg_marquardt.run``): ms
+    per solve (host clock to a sync, mean of LEVEL_SOLVE_REPS after the
+    first call), the holder's replays per solve, bitwise equal to the
+    eager solve, the same launches.  The holder's solves after its first
+    run under set_sync_debug_mode("error"), so a device read there fails
+    (torch's sync debug mode sees the reads it knows; none is counted).
+    Returns the JSON object."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from bpvo_tpu_torch import DescriptorType
+    from bpvo_tpu_torch.solver import gauss_newton as gn
+    from bpvo_tpu_torch.solver import levenberg_marquardt as lm
+    from bpvo_tpu_torch.utils import graphs
+    from bpvo_tpu_torch.vo.device_vo import DeviceVO, _compute_channels_pyr
+
+    out = {}
+    for cname, desc in (("C1", DescriptorType.INTENSITY),
+                        ("C8", DescriptorType.BITPLANES)):
+        vo = DeviceVO(K, baseline, tuple(frames[0][0].shape),
+                      _dense_params(desc), device=dev)
+        vo.init(*frames[0])
+        ch = _compute_channels_pyr(torch.as_tensor(frames[1][0]).to(dev),
+                                   vo._p, vo._p.numPyramidLevels)
+        cases = [("gauss_newton.run", gn.run, level, vo._opts[level])
+                 for level in (0, 1)]
+        if cname == "C8":
+            cases.append(("levenberg_marquardt.run", lm.run, 0,
+                          dataclasses.replace(vo._opts[0],
+                                              max_iterations=20)))
+        for solver, solve, level, opts in cases:
+            args = (vo.state.templates[level], ch[level], vo._cams[level],
+                    torch.eye(4, device=dev), opts)
+            holder = gn.RunGraphs(solve=solve)
+
+            def timed(graphed):
+                t, res = [], None
+                for _ in range(1 + LEVEL_SOLVE_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with _sync_errors(graphed and res is not None):
+                        res = solve(*args, graphs=holder if graphed else None)
+                    torch.cuda.synchronize()
+                    t.append((time.perf_counter() - t0) * 1e3)
+                return res, float(np.mean(t[1:]))
+            _reset_counts()
+            want, ms_e = timed(False)
+            n_e = _counts()
+            _reset_counts()
+            replays = graphs.replay_count
+            got, ms_g = timed(True)
+            n_g = _counts()
+            n_replays = graphs.replay_count - replays
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            key = f"{solver} {cname} L{level}"
+            out[key] = {"K": int(args[0].pixels.shape[1]),
+                        "iterations": int(want.num_iters),
+                        "eager_ms": ms_e, "graphed_ms": ms_g,
+                        "replays_per_solve": n_replays / LEVEL_SOLVE_REPS,
+                        "device_reads": "none allowed: the graphed solves "
+                                        "ran under set_sync_debug_mode("
+                                        "'error'); not counted",
+                        "bitwise_eager": same,
+                        "launches_eager": n_e, "launches_graphed": n_g}
+            print(f"level solve {key} (K = {out[key]['K']}): "
+                  f"{out[key]['iterations']} iterations, eager {ms_e:.3f} "
+                  f"ms, graphed {ms_g:.3f} ms per solve ({n_replays} "
+                  f"replays for {LEVEL_SOLVE_REPS} solves after the "
+                  f"capture, under set_sync_debug_mode('error')); bitwise "
+                  f"{same}; launches "
+                  f"eager {n_e}, graphed {n_g} on {smi}")
+            _require(same, f"level solve {key}: graphed differs from eager")
+            _require(n_e == n_g, f"level solve {key}: launches {n_g}, "
+                                 f"eager {n_e}")
+            _require(n_replays == LEVEL_SOLVE_REPS,
+                     f"level solve {key}: {n_replays} replays")
+        del vo
+    return out
+
+
 def _host_ops(run_step, n):
     """Top-level host ops of each of ``n`` steps (``run_step(i)``), counted
     as scripts/profile_torch_vo.py counts them: the ops torch.profiler
@@ -1023,16 +1170,19 @@ def _host_ops(run_step, n):
             for i in range(n)]
 
 
-def graph_phase(name, make_vo, frames, dev, smi, chunked=False):
+def graph_phase(name, make_vo, frames, dev, smi, chunked=False,
+                jax_ref=None):
     """One VO path, eager and graphed, in this process: each route once to
     warm up (the graphs' captures), once timed (host clock, each step
     ending in a sync) and once under torch.profiler for its host ops per
     step.  The graphed route is
     the entry point (``add_frame``); the eager one is ``DeviceVO``'s step
     function, or ``VisualOdometry`` with its pose estimator's graphs
-    withheld.  ``chunked`` (a ``DeviceVO``) adds ``chunk_route``.
-    Poses, iterations and keyframes must be equal bit for bit, and the
-    timed passes' launch counts equal.
+    withheld.  ``chunked`` (a ``DeviceVO``) adds ``chunk_route``.  Poses, iterations and
+    keyframes must be equal bit for bit, and the timed passes' launch
+    counts equal.  ``jax_ref`` ((the JAX reference, its key prefix, atol),
+    a ``DeviceVO``): the steps' poses within atol of JAX's ``DeviceVO``
+    on the same frames, the same keyframes.
     Returns {route: {"p50_ms", "p90_ms", "kf_p50_ms", "kf_p90_ms",
     "other_p50_ms", "other_p90_ms", "host_ops_other", "host_ops_kf"}}."""
     import numpy as np
@@ -1077,15 +1227,19 @@ def graph_phase(name, make_vo, frames, dev, smi, chunked=False):
                 state[0], out = vo._step(state[0], images[i + 1],
                                          auxs[i + 1])
                 return out
+        # a graphed DeviceVO step reads nothing from the card: its timed
+        # steps run under set_sync_debug_mode("error")
+        no_reads = graphed and not isinstance(vo, VisualOdometry)
         runs = []
-        for _ in range(2):              # warm-up, then the timed pass
+        for timed in (False, True):     # warm-up, then the timed pass
             reset()
             torch.cuda.synchronize()
             counts = _counts()
             outs, t_ms = [], []
             for i in range(n):
                 t0 = time.perf_counter()
-                outs.append(step(i))
+                with _sync_errors(timed and no_reads):
+                    outs.append(step(i))
                 torch.cuda.synchronize()
                 t_ms.append((time.perf_counter() - t0) * 1e3)
             counts = {k: v - counts[k] for k, v in _counts().items()}
@@ -1126,10 +1280,139 @@ def graph_phase(name, make_vo, frames, dev, smi, chunked=False):
                          f"graphed {n_g}")
     _require(kf.any() and not kf.all(),
              f"graph phase {name}: {int(kf.sum())} keyframes in {n} steps")
+    if jax_ref is not None:
+        out["jax"] = _jax_check(name, res_g, *jax_ref)
     if chunked:
         out["chunks"] = chunk_route(name, make_vo, images, auxs, res_e, n_e,
                                     dev, smi)
     return out
+
+
+def _jax_check(name, res, ref, prefix, atol):
+    """``DeviceVO`` steps' summaries (``_summary``) against the JAX
+    ``DeviceVO``'s run in ``ref`` (keys ``prefix`` + ``_poses``,
+    ``_is_keyframe``, ``_iters``): each step's pose within ``atol``, the
+    same keyframes.  Returns the JSON object."""
+    import numpy as np
+    poses = np.stack([r[0][:16].reshape(4, 4) for r in res])
+    kf = np.array([r[2] for r in res])
+    want, want_kf = ref[f"{prefix}_poses"], ref[f"{prefix}_is_keyframe"]
+    d_pose = np.abs(poses - want).max((1, 2))
+    iters = int(sum(r[1].sum() for r in res))
+    want_iters = int(ref[f"{prefix}_iters"].sum())
+    same_kf = bool(np.array_equal(kf, want_kf))
+    print(f"graph phase {name}: max |pose - JAX DeviceVO pose| "
+          f"{d_pose.max():.3e} (atol {atol}); keyframes "
+          f"{np.flatnonzero(kf).tolist()} (JAX "
+          f"{np.flatnonzero(want_kf).tolist()}); iterations {iters} (JAX "
+          f"{want_iters}); per step "
+          + " ".join(f"{e:.1e}" for e in d_pose))
+    _require(len(res) == len(want), f"graph phase {name}: {len(res)} steps, "
+                                    f"JAX {len(want)}")
+    _require(bool(np.all(np.isfinite(poses))) and d_pose.max() <= atol,
+             f"graph phase {name}: poses differ from JAX's DeviceVO by "
+             f"{d_pose.max()}")
+    _require(same_kf, f"graph phase {name}: keyframes differ from JAX's")
+    return {"max_abs_pose_diff": float(d_pose.max()), "atol": atol,
+            "keyframes_equal": same_kf, "iterations": iters,
+            "jax_iterations": want_iters}
+
+
+def while_paths(K, baseline, shape, dev):
+    """The graph phase's WHILE paths: {name: (label, make_vo, steps, JAX
+    atol)}: (a) dense ``DeviceVO`` intensity and Bit-Planes (L0 and L1 on
+    ``gauss_newton.run``, each a WHILE node in the step graph), (b)
+    Bit-Planes Levenberg-Marquardt with the disparity given (every level
+    an LM WHILE node, ``irls_reduce`` in its body)."""
+    from bpvo_tpu_torch import AlgorithmParameters, DescriptorType
+    from bpvo_tpu_torch.vo.device_vo import DeviceVO
+
+    def make(params):
+        return lambda: DeviceVO(K, baseline, shape, params, device=dev)
+    lm = AlgorithmParameters(**BENCH, descriptor=DescriptorType.BITPLANES,
+                             poseEstimator="LevenbergMarquardt")
+    return {
+        "device_vo_dense_intensity": (
+            "DeviceVO dense intensity",
+            make(_dense_params(DescriptorType.INTENSITY)), GRAPH_STEPS,
+            T_ATOL_JAX_DENSE["intensity"]),
+        "device_vo_dense_bitplanes": (
+            "DeviceVO dense bitplanes",
+            make(_dense_params(DescriptorType.BITPLANES)), GRAPH_STEPS,
+            T_ATOL_JAX_DENSE["bitplanes"]),
+        "device_vo_lm_bitplanes": (
+            "DeviceVO Bit-Planes LM", make(lm), LM_GRAPH_STEPS, ZOO_ATOL)}
+
+
+def trace_chunk_subprocess(path):
+    """``python3 chip_smoke.py --trace-chunk <path>`` (``trace_chunk_main``):
+    a chunk path's first chunk traced in a fresh process; its lines are
+    printed here, its JSON object returned.  Fails with the process."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--trace-chunk", path], capture_output=True,
+                          text=True, timeout=TRACE_CHUNK_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  [trace {path}] {line}")
+    _require(proc.returncode == 0 and bool(lines),
+             f"trace of {path} in a fresh process: rc {proc.returncode}, "
+             f"{proc.stderr[-4000:]}")
+    return {**json.loads(lines[-1]), "traced_in": "a fresh process"}
+
+
+def trace_chunk_main(path):
+    """The body of ``--trace-chunk <path>``: the path's ``DeviceVO`` (the
+    bench ``intensity``, ``stereo_bitplanes`` or one of ``while_paths``)
+    over the first of the graph phase's CHUNKS chunks of its steps, as
+    ``trace_chunk`` takes it, after one ``add_frames`` over it (the
+    warm-up and the capture).  Prints the JSON object last."""
+    import torch
+    from bpvo_tpu_torch import AlgorithmParameters, ConfigFile, DescriptorType
+    from bpvo_tpu_torch.data import stereo, synthetic
+    from bpvo_tpu_torch.vo.device_vo import DeviceVO
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    shape = (synthetic.ROWS, synthetic.COLS)
+    K, baseline, sframes = synthetic.synthesize_stereo_sequence(
+        1 + -(-N_STEPS // CHUNKS))
+    frames = [f[0::2] for f in sframes]
+    if path == "intensity":
+        label, n = "intensity", N_STEPS
+        params = AlgorithmParameters(**BENCH,
+                                     descriptor=DescriptorType.INTENSITY)
+
+        def make_vo():
+            return DeviceVO(K, baseline, shape, params, device=dev)
+    elif path == "stereo_bitplanes":
+        label, n, frames = "stereo Bit-Planes", N_STEPS, [
+            f[:2] for f in sframes]
+        cf = ConfigFile(CONF)
+        params, matcher = (AlgorithmParameters.from_config(cf),
+                           stereo.create_stereo_algorithm(cf))
+
+        def make_vo():
+            return DeviceVO(K, baseline, shape, params, device=dev,
+                            stereo_fn=matcher.as_fn())
+    else:
+        label, make_vo, n, _ = while_paths(K, baseline, shape, dev)[path]
+    size = -(-n // CHUNKS)
+    images, auxs = ([torch.as_tensor(f[i]).to(dev) for f in frames[:1 + size]]
+                    for i in (0, 1))
+    chunk = torch.stack(images[1:]), torch.stack(auxs[1:])
+    vo = make_vo()
+
+    def reset():
+        vo.state = None
+        vo.add_frame(images[0], auxs[0])
+        torch.cuda.synchronize()
+    reset()
+    vo.add_frames(*chunk)
+    torch.cuda.synchronize()
+    print(json.dumps(trace_chunk(label, vo, chunk, reset, smi)))
+    return 0
 
 
 def _summary(out):
@@ -1158,16 +1441,15 @@ def chunk_route(name, make_vo, images, auxs, res_e, n_e, dev, smi):
     on the card before its replays run under
     ``torch.cuda.set_sync_debug_mode("error")``: once to warm up (the
     capture), once timed (host clock from the first replay to a sync after
-    the last chunk; each chunk's span by CUDA events) and counted, once
-    under torch.profiler (top-level host ops a step), and one chunk traced
-    (``profiling.trace``, annotated through its sync) for the device busy
-    share, and its kernel time over that chunk's untraced span.  Its poses, iterations
-    and keyframes must equal the eager route's ``res_e`` bit for bit, its
+    the last chunk; each chunk's span by CUDA events) and counted, and
+    once under torch.profiler (top-level host ops a step); its first chunk
+    is traced in a fresh process (``trace_chunk_subprocess``).  Its poses,
+    iterations and keyframes must equal the eager route's ``res_e`` bit for bit, its
     settled launch counts ``n_e``."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    from bpvo_tpu_torch.utils import graphs, profiling
+    from bpvo_tpu_torch.utils import graphs
     from bpvo_tpu_torch.vo.device_vo import VOStepOutput
 
     vo = make_vo()
@@ -1224,46 +1506,115 @@ def chunk_route(name, make_vo, images, auxs, res_e, n_e, dev, smi):
     n_replays = graphs.replay_count - replays
     ops = sum(len(e.cpu_children) for e in prof.events()
               if e.name.startswith(STEP_LABEL))
-    # device busy share of one traced chunk, its sync inside the window;
-    # tracing adds host time between launches, so its kernel time is also
-    # set against the same chunk's untraced span
-    reset()
-    log_dir = os.path.join(HERE, "build", "graph_phase_trace")
-    shutil.rmtree(log_dir, ignore_errors=True)
-    with profiling.trace(log_dir, device=dev):
-        with profiling.annotate(CHUNK_LABEL):
-            run(sub=chunks[:1])
-            torch.cuda.synchronize()
-    kernels, names, found, busy = _trace_read(log_dir, [CHUNK_LABEL])
-    by_name = {}
-    for k in kernels:
-        by_name[k["name"][:60]] = by_name.get(k["name"][:60], 0) + k["dur"]
-    total_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     r = {"chunks": len(chunks), "frames_per_s": n / (wall_ms / 1e3),
          "wall_ms": wall_ms, "host_ops_per_step": (ops + n_replays) / n,
-         "device_busy_share": busy, "traced_chunk_kernels": len(kernels),
-         "traced_chunk_kernel_us": total_us, "chunk_span_ms": span_ms,
-         "kernel_share_of_untraced_span": total_us / 1e3 / span_ms[0],
-         "traced_chunk_steps": chunks[0][0].shape[0],
-         "top_kernels_us": top, "launches": counts, "bitwise_eager": same}
+         "chunk_span_ms": span_ms, "launches": counts, "bitwise_eager": same}
     print(f"graph phase {name} chunks: {len(chunks)} add_frames chunks of "
-          f"{size} under set_sync_debug_mode('error'): {r['frames_per_s']:.1f}"
-          f" frames/s ({wall_ms:.3f} ms for {n} steps), top-level host ops "
-          f"per step {r['host_ops_per_step']:.2f}, device busy share of a "
-          f"traced chunk {busy:.4f} ({len(kernels)} kernel events, "
-          f"{total_us:.1f} us of kernels for {chunks[0][0].shape[0]} steps, "
-          f"{r['kernel_share_of_untraced_span']:.4f} of that chunk's "
-          f"untraced span {span_ms[0]:.3f} ms; chunk spans {span_ms}; "
-          f"top by device time {top}); "
+          f"{size} under set_sync_debug_mode('error'): "
+          f"{r['frames_per_s']:.1f} frames/s ({wall_ms:.3f} ms for {n} "
+          f"steps), top-level host ops per step "
+          f"{r['host_ops_per_step']:.2f}; chunk spans {span_ms}; "
           f"launches {counts} (eager {n_e}); bitwise equal to the eager "
           f"route: {same} on {smi}")
     _require(same, f"graph phase {name}: the chunk route differs from the "
                    f"eager one")
     _require(counts == n_e, f"graph phase {name}: chunk launches {counts}, "
                             f"eager {n_e}")
+    return r
+
+
+# the kernels whose trace events trace_chunk holds to their launches, by
+# the name of their launch count; those of LOOP_KERNELS also launch in
+# WHILE bodies
+TRACED_KERNELS = {"level_gn": "level_gn_kernel",
+                  "fused_linearize": "fused_linearize_kernel",
+                  "irls_reduce": "irls_reduce_kernel",
+                  "census_planes": "census_kernel"}
+LOOP_KERNELS = ("fused_linearize", "irls_reduce")
+
+
+def trace_chunk(name, vo, chunk, reset, smi):
+    """``chunk`` (``vo.add_frames``, its graph captured) run untraced,
+    its span on the stream by CUDA events, then traced (``profiling.trace``,
+    annotated through its sync): the device busy share of the annotated
+    window, the kernel time over the untraced span, the top kernels by
+    device time, and the kernel events of each of TRACED_KERNELS, which
+    must equal the launches the wrappers counted for the chunk, settled.
+    LOOP_KERNELS are held to fewer: torch.profiler records a WHILE body's
+    kernels once a replay, not once an iteration (scripts/
+    profiler_records.py, ``while_body_iterations``), so each must have
+    events if it launched, at most its launches, and the trace's kernel
+    time and busy share then undercount.  Run it in a fresh process
+    (``trace_chunk_main``): in one that ran chip_smoke's earlier phases,
+    the profiler gave the bench chunks' kernels other names (6 events
+    named fused_linearize and 6 census in an intensity chunk, which
+    launches neither; 40 level_gn events for 46 launches in a stereo
+    one).  Both runs are under ``set_sync_debug_mode("error")``.
+    Returns the JSON object."""
+    import torch
+    from bpvo_tpu_torch.utils import profiling
+
+    im, ax = chunk
+
+    def one():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            vo.add_frames(im, ax)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    reset()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    one()
+    b.record()
+    torch.cuda.synchronize()
+    span_ms = a.elapsed_time(b)
+    reset()
+    log_dir = os.path.join(HERE, "build", "graph_phase_trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _reset_counts()
+    with profiling.trace(log_dir, device=vo.device):
+        with profiling.annotate(CHUNK_LABEL):
+            one()
+            torch.cuda.synchronize()
+    launches = _counts()
+    kernels, names, found, busy = _trace_read(log_dir, [CHUNK_LABEL])
+    by_name = {}
+    for k in kernels:
+        by_name[k["name"][:60]] = by_name.get(k["name"][:60], 0) + k["dur"]
+    total_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    traced = {k: sum(kname in n for n in names)
+              for k, kname in TRACED_KERNELS.items()}
+    counted = {k: launches[k] for k in TRACED_KERNELS}
+    uncorrelated = sum(not k["args"].get("correlation") for k in kernels)
+    missing = {k: counted[k] - traced[k] for k in LOOP_KERNELS}
+    r = {"trace_complete": not any(missing.values()),
+         "device_busy_share": busy, "traced_chunk_kernels": len(kernels),
+         "traced_chunk_kernel_us": total_us, "untraced_span_ms": span_ms,
+         "kernel_share_of_untraced_span": total_us / 1e3 / span_ms,
+         "traced_chunk_steps": im.shape[0], "top_kernels_us": top,
+         "traced_kernel_events": traced, "traced_launches": counted,
+         "uncorrelated_kernel_events": uncorrelated}
+    print(f"graph phase {name} traced chunk ({im.shape[0]} steps): device "
+          f"busy share {busy:.4f} ({len(kernels)} kernel events, "
+          f"{uncorrelated} with no correlation, {total_us:.1f} us of "
+          f"kernels, {r['kernel_share_of_untraced_span']:.4f} of the same "
+          f"chunk's untraced span {span_ms:.3f} ms); kernel events "
+          f"{traced} for launches {counted}"
+          + (f" (WHILE-body launches with no event: {missing}; the kernel "
+             f"time and busy share undercount)" if not
+             r["trace_complete"] else "")
+          + f"; top by device time {top} on {smi}")
     _require(found == [CHUNK_LABEL] and len(kernels) > 0,
              f"graph phase {name}: the traced chunk has no kernels")
+    _require(all(traced[k] == counted[k] if k not in LOOP_KERNELS
+                 else traced[k] <= counted[k]
+                 and (traced[k] > 0) == (counted[k] > 0)
+                 for k in TRACED_KERNELS) and sum(counted.values()) > 0,
+             f"graph phase {name} trace: kernel events {traced} for "
+             f"launches {counted}")
     return r
 
 
@@ -1914,6 +2265,42 @@ def zoo_phase(dev, smi, tsukuba_root, latch_bits):
                  f"summed over the cells, JAX {n_jax}")
     _lap(t0, "zoo eval_descriptors")
 
+    # the LM cells again with the pose estimator's LM graphs withheld (the
+    # eager host loops): each graphed cell (every level solve one replay of
+    # a RunGraphs solving levenberg_marquardt.run) must give the eager
+    # cell's trajectory and per-frame iterations bit for bit
+    from bpvo_tpu_torch.vo import pose_estimator as pe
+    level_graphs = pe.PoseEstimator._level_graphs
+    pe.PoseEstimator._level_graphs = lambda self, channels_pyr: None
+    traj_e = {}
+    try:
+        t = time.perf_counter()
+        cells_e = eval_descriptors.run(
+            corridor_cfg, os.path.join(root, "eval_lm_eager"), -1, None,
+            ("LevenbergMarquardt",), device=dev, trajectories=traj_e)
+        wall_e = time.perf_counter() - t
+    finally:
+        pe.PoseEstimator._level_graphs = level_graphs
+    lm_eager = {}
+    for desc in ZOO_DESCRIPTORS:
+        tag = f"{desc}+LevenbergMarquardt"
+        it_g, it_e = (np.loadtxt(os.path.join(root, d, f"{t}_iterations.txt"))
+                      for d, t in (("eval", tag), ("eval_lm_eager", desc)))
+        same = (np.array_equal(traj[tag], traj_e[desc])
+                and np.array_equal(it_g, it_e))
+        lm_eager[tag] = {"graphed_ms": table[tag]["mean_ms"],
+                         "eager_ms": cells_e[desc]["mean_ms"],
+                         "iterations": float(it_g.sum()),
+                         "bitwise_eager": same}
+        print(f"  {tag:40s} graphed {table[tag]['mean_ms']:8.3f} ms/frame, "
+              f"eager {cells_e[desc]['mean_ms']:8.3f} ms/frame, "
+              f"{int(it_g.sum())} iterations (eager {int(it_e.sum())}); "
+              f"trajectory and iterations bitwise the eager run: {same}")
+        _require(same, f"eval_descriptors {tag}: the graphed LM cell "
+                       f"differs from the eager one")
+    print(f"eval_descriptors LM cells eager: {wall_e:.1f} s")
+    _lap(t0, "zoo LM eager")
+
     # the gather route (Bit-Planes, CUBIC_HERMITE: every level on
     # gauss_newton.run, irls_reduce_w inside its CUDA graphs) and dense
     # DescriptorFields1 (C = 5 on fused_linearize at L0 and L1), 1+4
@@ -1964,7 +2351,8 @@ def zoo_phase(dev, smi, tsukuba_root, latch_bits):
              f"apps.vo tsukuba: poses differ from JAX's by {err}")
     _lap(t0, "zoo phase")
     return ({"device": smi, "frames": ZOO_FRAMES, "cells": table,
-             "eval_descriptors_s": wall, "launches": launches,
+             "eval_descriptors_s": wall, "lm_eager": lm_eager,
+             "lm_eager_s": wall_e, "launches": launches,
              "latch_flipped_bits": latch_bits[0],
              "latch_bits": latch_bits[1], "tsukuba_max_pose_diff": err},
             launches)
@@ -2821,6 +3209,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--trace-chunk"]:
+        return trace_chunk_main(sys.argv[2])
     import numpy as np
     from bpvo_tpu_torch import AlgorithmParameters, ConfigFile, DescriptorType
     from bpvo_tpu_torch.data import stereo, synthetic
@@ -2936,6 +3326,8 @@ def main() -> int:
                 K, baseline, shape, params_bp, device=dev,
                 stereo_fn=matcher.as_fn()), [f[:2] for f in sframes], dev,
             smi, chunked=True)}
+    for path in graph_res:      # see trace_chunk
+        graph_res[path]["chunks"].update(trace_chunk_subprocess(path))
     for name, desc in (("intensity", DescriptorType.INTENSITY),
                        ("bitplanes", DescriptorType.BITPLANES)):
         graph_res[f"dense_{name}"] = graph_phase(
@@ -2949,6 +3341,26 @@ def main() -> int:
     print(json.dumps({"trace_after_graph_phase": trace_steps(
         dframes, K, baseline, dev, smi, "after the graph phase", 2,
         untraced=False)}))
+    # the WHILE paths: each eager, graphed and chunked here, held to JAX's
+    # DeviceVO, its first chunk traced in a fresh process; after the trace
+    # above: once this process has run CPU-only profiler sessions over a
+    # DeviceVO's WHILE-node replays, torch.profiler reports IF bodies'
+    # kernels with no correlation and drops some level_gn events (scripts/
+    # profiler_records.py, the if_body_* cases; the cause is not known)
+    ref_w = dict(np.load(REF_WHILE_NPZ))
+    while_res = {}
+    for path, (label, make_vo, n, atol) in while_paths(
+            K, baseline, shape, dev).items():
+        while_res[path] = graph_phase(
+            label, make_vo, dframes[:1 + n], dev, smi, chunked=True,
+            jax_ref=(ref_w, path.removeprefix("device_vo_"), atol))
+        while_res[path]["chunks"].update(trace_chunk_subprocess(path))
+    print(json.dumps({"graph_phase_while_paths": while_res}))
+    # path (c): a level solve of VisualOdometry's pose estimator alone
+    print(json.dumps({"level_solve_phase": level_solve_phase(
+        K, baseline, dframes[:2], dev, smi)}))
+    graph_res.update(while_res)
+    _lap(t_start, "graph phase's WHILE paths")
 
     probe_entries = probe_phase(dev, smi)
 
@@ -2993,7 +3405,10 @@ def main() -> int:
         return {"intensity": counts_i[kernel],
                 "stereo_bitplanes": counts_s[kernel],
                 **{f"{path}_chunks": graph_res[path]["chunks"]["launches"][
-                    kernel] for path in ("intensity", "stereo_bitplanes")},
+                    kernel] for path in ("intensity", "stereo_bitplanes",
+                                         "device_vo_dense_intensity",
+                                         "device_vo_dense_bitplanes",
+                                         "device_vo_lm_bitplanes")},
                 "dense_intensity": dense["intensity"][kernel],
                 "dense_bitplanes": dense["bitplanes"][kernel],
                 **{path: c[kernel] for path, c in zoo_counts.items()},

@@ -33,6 +33,15 @@ tests hold the PyTorch port to:
   ``<descriptor>_<solver>_level_world``, ``_level_iters``, ``_level_ate``),
   in a process of its own (``zoo_level``, which adds them to the file).
 
+- ``tests/data/torch_port_while_ref.npz``: JAX ``DeviceVO`` on the CPU
+  over the port's synthetic 376x1241 sequence (given disparity), the
+  configurations of chip_smoke.py's WHILE paths: dense (bench.py's
+  settings with the dense ones above) intensity and Bit-Planes
+  (``dense_intensity_*``, ``dense_bitplanes_*``) over 1+chip_smoke
+  .GRAPH_STEPS frames, and bench.py's settings with Bit-Planes and
+  Levenberg-Marquardt (``lm_bitplanes_*``) over 1+chip_smoke
+  .LM_GRAPH_STEPS frames.
+
 - ``tests/data/torch_port_sharded_ref.npz``: JAX ``make_sharded_vo`` on
   the CPU on a 2-device mesh over 1+4 frames of the port's synthetic
   376x1241 sequence in two ``scan_fn`` chunks, with the dry run's
@@ -63,7 +72,7 @@ Bit-Planes also with other per-level iteration counts), so the port is held
 to these poses by a cross-route tolerance, not by bitwise equality.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_ref.py \
-        [bench|stereo|dense|zoo|sharded]
+        [bench|stereo|dense|zoo|while|sharded]
     JAX_PLATFORMS=cpu BPVO_LEVEL_KERNEL=force \
         python scripts/make_torch_port_ref.py zoo_level|sharded_level
 """
@@ -81,6 +90,7 @@ OUT_STEREO = os.path.join(ROOT, "tests", "data",
                           "torch_port_bitplanes_sgm_ref.npz")
 OUT_DENSE = os.path.join(ROOT, "tests", "data", "torch_port_dense_ref.npz")
 OUT_ZOO = os.path.join(ROOT, "tests", "data", "torch_port_zoo_ref.npz")
+OUT_WHILE = os.path.join(ROOT, "tests", "data", "torch_port_while_ref.npz")
 OUT_SHARDED = os.path.join(ROOT, "tests", "data",
                            "torch_port_sharded_ref.npz")
 SHARDED_DEVICES = 2
@@ -248,6 +258,36 @@ def dense_ref():
         _report(f"{OUT_DENSE} [{name}]", ref)
         out.update({f"{name}_{k}": v for k, v in ref.items()})
     np.savez_compressed(OUT_DENSE, rows=synthetic.ROWS, cols=synthetic.COLS,
+                        **out)
+
+
+def while_ref():
+    import time
+
+    import bench
+    from bpvo_tpu.ops import selection
+    from bpvo_tpu.vo.device_vo import DeviceVO
+    from bpvo_tpu_torch.data import synthetic
+
+    cs = _chip_smoke()
+    selection.select_pixels = _wide_select_pixels(selection.select_pixels)
+    K, baseline, frames = synthetic.synthesize_sequence(1 + cs.GRAPH_STEPS)
+    shape = (synthetic.ROWS, synthetic.COLS)
+    runs = (("dense_intensity", bench._make_params("Intensity")
+             .replace(**DENSE), cs.GRAPH_STEPS),
+            ("dense_bitplanes", bench._make_params("BitPlanes")
+             .replace(**DENSE), cs.GRAPH_STEPS),
+            ("lm_bitplanes", bench._make_params("BitPlanes").replace(
+                poseEstimator="LevenbergMarquardt"), cs.LM_GRAPH_STEPS))
+    out = {}
+    for name, params, n in runs:
+        t0 = time.perf_counter()
+        ref = _run(DeviceVO(K, baseline, shape, params), frames[:1 + n],
+                   _step_pose())
+        print(f"{name}: {time.perf_counter() - t0:.1f} s")
+        _report(f"{OUT_WHILE} [{name}]", ref)
+        out.update({f"{name}_{k}": v for k, v in ref.items()})
+    np.savez_compressed(OUT_WHILE, rows=synthetic.ROWS, cols=synthetic.COLS,
                         **out)
 
 
@@ -479,6 +519,8 @@ def main():
         dense_ref()
     if "zoo" in which:
         zoo_ref()
+    if "while" in which:
+        while_ref()
     if "zoo_level" in which:
         zoo_level_ref()
     if "sharded" in which:

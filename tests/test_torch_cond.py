@@ -175,20 +175,29 @@ def test_if_bodies_count_only_when_taken():
 
 def test_cond_capture_checks_its_predicate():
     """The predicate must be a 0-d bool tensor, and a captured graph holds
-    at most ``MAX_BODIES`` IF bodies."""
-    cache = RecordingIf("cpu")
+    as many IF bodies as it has (the counters are sized by the bodies the
+    warm-up ran; once a fixed 16): 40 bodies, each counted for the replays
+    that take it."""
+    mod, op = _fake_op_module()
+    cache = RecordingIf("cpu", modules=(mod,))
     x = torch.zeros(2)
     with pytest.raises(ValueError, match="0-d bool"):
         cache("a", lambda: graphs.cond(torch.ones(2, dtype=torch.bool),
                                        lambda: x + 1, x))
-    flag = torch.ones((), dtype=torch.bool)
+    flags = torch.zeros(40, dtype=torch.bool)
 
     def many():
-        for _ in range(graphs.MAX_BODIES + 1):
-            graphs.cond(flag, lambda: x + 1, x)
+        for i in range(40):
+            graphs.cond(flags[i], lambda: op(x), x.clone())
         return x
-    with pytest.raises(RuntimeError, match="IF bodies"):
+    cache("b", many)
+    taken, records = graphs._bodies[-1]
+    assert mod.launch_count == 0 and len(records) == 40 <= len(taken)
+    flags[::3] = True
+    for n in range(1, 4):
         cache("b", many)
+        graphs.settle()
+        assert mod.launch_count == n * 14
 
 
 # ---------------------------------------------------------------------------

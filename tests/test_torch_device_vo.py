@@ -109,8 +109,8 @@ def test_add_frames_recovers_motion(frames):
 
 
 def test_unported_solver_raises(frames):
-    """Levenberg-Marquardt, once refused, runs the eager step (no CUDA
-    graphs, no level kernel) and follows JAX's ``DeviceVO`` with LM: the
+    """Levenberg-Marquardt, once refused, runs (the eager step on the CPU;
+    never the level kernel) and follows JAX's ``DeviceVO`` with LM: the
     same keyframes, poses at atol 5e-4."""
     cam = make_cam()
     kw = dict(KW, poseEstimator="LevenbergMarquardt")
@@ -118,7 +118,7 @@ def test_unported_solver_raises(frames):
     jvo = JDeviceVO(K, b, (H_IMG, W_IMG), JParams(**kw))
     tvo = DeviceVO(K, b, (H_IMG, W_IMG), AlgorithmParameters(**kw),
                    device="cpu")
-    assert tvo._graphs is None and tvo._run_graphs is None
+    assert tvo._graphs is None
     for I, D in frames:
         oj, ot = jvo.add_frame(I, D), tvo.add_frame(I, D)
         if oj is None:

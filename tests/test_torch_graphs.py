@@ -286,11 +286,11 @@ def _assert_states_equal(a, b):
                                     (1, LossFunctionType.HUBER),
                                     (3, LossFunctionType.TUKEY)])
 def test_run_factored_loop_bitwise(C, loss):
-    """``gauss_newton.run`` (its loop body ``_iteration`` driven by the
-    host loop) and ``RunGraphs.run`` through the stand-in give the GNState
-    of the unfactored loop bit for bit, from two starts, over two
-    templates (the second run on the same graphs copies the template
-    in)."""
+    """``gauss_newton.run`` (its loop body ``_iteration``, iteration 0 on
+    its own and the rest through ``graphs.while_loop``'s host loop) and
+    ``RunGraphs.run`` through the stand-in give the GNState of the
+    unfactored loop bit for bit, from two starts, over two templates (the
+    second run on the same graph copies the template in)."""
     td, ch, cam, _ = _gn_problem(C)
     ttd = template_from_numpy(_np_template(td), "cpu")
     td2 = ttd._replace(pixels=ttd.pixels * 1.01)
@@ -312,8 +312,9 @@ def test_run_factored_loop_bitwise(C, loss):
             _assert_states_equal(got, want)
             assert int(want.num_iters) >= 3
             runs += int(want.num_iters)
-    # graphs by (first iteration, sigma re-estimated): sigma settles
-    assert 2 <= len(graphed._cache) <= 3 and runs > len(graphed._cache)
+    # one graph for the level (its options and camera): every solve of it
+    # one replay
+    assert len(graphed._cache) == 1 and runs > 4
 
 
 def test_run_graphs_static_routes():
@@ -532,33 +533,32 @@ def test_graphed_step_matches_jax_level_kernel_route(monkeypatch):
 
 
 def test_step_with_run_levels_bitwise(monkeypatch):
-    """A ``DeviceVO`` whose finest level goes to ``gauss_newton.run`` keeps
-    the eager step and replays those levels' iterations (``RunGraphs``,
-    here through the stand-in): bit for bit the unsplit step."""
+    """A ``DeviceVO`` whose finest level goes to ``gauss_newton.run`` takes
+    the one-graph step (here through the stand-in: that level's loop a
+    ``while_loop`` inside the step function), and its eager step is the
+    unsplit step: both bit for bit."""
     monkeypatch.setattr(gn, "MAX_LEVEL_KERNEL_POINTS", 1024)
     K, b, frames, params, _ = _vo_case("intensity")
     vo = dv.DeviceVO(K, b, (H_IMG, W_IMG), params, device="cpu")
+    vo._graphs = ReplayStandIn("cpu")
     assert vo._capacities[0] > 1024 >= vo._capacities[1]
-    run_graphs = tuple(gn.RunGraphs(ReplayStandIn("cpu"))
-                       for _ in vo._capacities)
-    step = dv.make_vo_step(vo._p, vo._cams, vo._capacities, vo._opts,
-                           run_graphs=run_graphs)
     parent = _parent_make_vo_step(vo._p, vo._cams, vo._capacities, vo._opts)
-    vo.init(*frames[0])
+    vo.add_frame(*frames[0])
     state = want_state = vo.state
     for image, aux in frames[1:7]:
         image, aux = torch.as_tensor(image), torch.as_tensor(aux)
         want_state, want = parent(want_state, image, aux)
-        state, got = step(state, image, aux)
+        state, got = vo._step(state, image, aux)
         _assert_outputs_equal(got, want)
-    assert len(run_graphs[0]._cache) >= 2
-    assert all(len(g._cache) == 0 for g in run_graphs[1:])
+        _assert_outputs_equal(vo.add_frame(image, aux), want)
+    assert len(vo._graphs) == 1
 
 
 def test_visual_odometry_run_levels_bitwise(monkeypatch):
     """``VisualOdometry`` with its finest level on ``gauss_newton.run``:
-    the pose estimator's per-level iteration graphs (stand-in) against the
-    eager loop, every Result field bit for bit."""
+    the pose estimator's per-level graphs (stand-in; one graph, one replay
+    per level solve) against the eager loop, every Result field bit for
+    bit."""
     monkeypatch.setattr(gn, "MAX_LEVEL_KERNEL_POINTS", 1024)
     K, b, frames, params, _ = _vo_case("intensity")
     eager = VisualOdometry(K, b, (H_IMG, W_IMG), params, device="cpu")
@@ -574,7 +574,7 @@ def test_visual_odometry_run_levels_bitwise(monkeypatch):
         assert re.optimizer_statistics == rg.optimizer_statistics
         n_kf += int(re.is_keyframe)
     assert n_kf >= 3
-    assert len(graphed._pose_estimator._run_graphs[0]._cache) >= 2
+    assert len(graphed._pose_estimator._run_graphs[0]._cache) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
 """The graphed routes on the card against the eager ones: ``DeviceVO``'s step
-graph (its keyframe branch an IF node; ``add_frame`` and read-free
-``add_frames`` chunks), ``gauss_newton.run``'s iteration graphs (alone, in a
-``DeviceVO`` with a level on ``run``, and in ``VisualOdometry``) bit for
-bit, with equal launch counts once settled, IF nodes alone, and captures
-that fail raising.  Marked ``gpu``: without a
+graph (its keyframe branch an IF node, its ``gauss_newton.run`` and LM
+level solves WHILE nodes; ``add_frame`` and read-free ``add_frames``
+chunks) on the bench, dense and Bit-Planes LM paths,
+``gauss_newton.RunGraphs`` for GN and for LM (``solve=
+levenberg_marquardt.run``; one replay, no read per level solve; alone and
+in ``VisualOdometry``) bit for bit, with equal launch counts once settled, IF and WHILE nodes alone, a
+WHILE body that frees a tensor from before the loop, and captures that
+fail raising.  Marked ``gpu``: without a
 CUDA device they skip (the decision is made in a fixture).  On a machine
 with an NVIDIA GPU (no JAX needed):
 
@@ -63,9 +66,15 @@ def _equal(a, b, fields):
 def _vo_case(path, rows, cols):
     K, b, frames = synthetic.synthesize_stereo_sequence(1 + N_STEPS, rows,
                                                         cols)
+    given = [(f[0], f[2]) for f in frames]
     if path == "intensity":
-        return (K, b, [(f[0], f[2]) for f in frames],
-                AlgorithmParameters(**BENCH_PARAMS), None)
+        return K, b, given, AlgorithmParameters(**BENCH_PARAMS), None
+    if path == "dense":          # L0 (and L1 at 240x320) on gauss_newton.run
+        return K, b, given, AlgorithmParameters(**DENSE), None
+    if path == "lm_bitplanes":
+        return K, b, given, AlgorithmParameters(**dict(
+            BENCH_PARAMS, descriptor=DescriptorType.BITPLANES,
+            poseEstimator="LevenbergMarquardt")), None
     cf = ConfigFile(CONF)
     return (K, b, [f[:2] for f in frames], AlgorithmParameters.from_config(cf),
             stereo.create_stereo_algorithm(cf).as_fn())
@@ -73,20 +82,24 @@ def _vo_case(path, rows, cols):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(120, 160), (240, 320)])
-@pytest.mark.parametrize("path", ["intensity", "stereo_bitplanes"])
+@pytest.mark.parametrize("path", ["intensity", "stereo_bitplanes", "dense",
+                                  "lm_bitplanes"])
 def test_device_vo_graphed_equals_eager(cuda, path, shape):
     """Over 12 steps with keyframes, twice on the same objects (``init``
     re-run), the graphed ``add_frame`` (one step graph, the keyframe
-    branch an IF node) gives the eager step's outputs bit for bit (poses,
-    world poses, iterations, keyframes, f_norm, ...), and the kernels'
-    launch counts, replays and taken IF bodies counted, are the eager
+    branch an IF node, a ``gauss_newton.run`` or LM level a WHILE node)
+    gives the eager step's outputs bit for bit (poses, world poses,
+    iterations, keyframes, f_norm, ...), and the kernels' launch counts,
+    replays and the conditional bodies' runs counted, are the eager
     ones."""
     K, b, frames, params, stereo_fn = _vo_case(path, *shape)
     vo = device_vo.DeviceVO(K, b, shape, params, device=cuda,
                             stereo_fn=stereo_fn)
     ref = device_vo.DeviceVO(K, b, shape, params, device=cuda,
                              stereo_fn=stereo_fn)
-    assert vo._graphs is not None and vo._run_graphs is None
+    assert vo._graphs is not None
+    kernel = {"dense": "fused_linearize",
+              "lm_bitplanes": "irls"}.get(path, "level_gn")
     fields = device_vo.VOStepOutput._fields
     for rerun in range(2):
         vo.state = ref.state = None
@@ -101,7 +114,7 @@ def test_device_vo_graphed_equals_eager(cuda, path, shape):
             state, out = ref._step(state, ref._as_tensor(image),
                                    ref._as_tensor(aux))
             want.append(out)
-        assert _delta(before) == n_graphed and n_graphed["level_gn"] > 0
+        assert _delta(before) == n_graphed and n_graphed[kernel] > 0
         for g, w in zip(got, want):
             _equal(g, w, fields)
         assert sum(bool(w.is_keyframe) for w in want) >= 2
@@ -109,7 +122,8 @@ def test_device_vo_graphed_equals_eager(cuda, path, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["intensity", "stereo_bitplanes"])
+@pytest.mark.parametrize("path", ["intensity", "stereo_bitplanes", "dense",
+                                  "lm_bitplanes"])
 def test_device_vo_chunks_read_free(cuda, path):
     """``add_frames`` in chunks of 1, 3 and 7 (the chunk on the card
     first) replays the step graph with no device-to-host read
@@ -144,7 +158,8 @@ def test_device_vo_chunks_read_free(cuda, path):
                                           auxs[lo:lo + chunk]))
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        assert _delta(before) == n_eager and n_eager["level_gn"] > 0
+        assert _delta(before) == n_eager and n_eager[
+            "irls" if path == "lm_bitplanes" else "level_gn"] > 0
         got = [device_vo.VOStepOutput(*(f[i] for f in o))
                for o in outs for i in range(o.pose.shape[0])]
         assert len(got) == len(want)
@@ -199,6 +214,95 @@ def test_if_nodes_on_the_card(cuda):
     assert len(cache) == 1
 
 
+@pytest.mark.gpu
+def test_while_nodes_on_the_card(cuda):
+    """``graphs.while_loop`` in a captured function: a WHILE node, an IF
+    node nested in its body and a WHILE node in an IF body give the host
+    loop's results bit for bit on every replay as the trip counts change,
+    and count their launches (a fake op module) per run once settled."""
+    import types
+    mod = types.SimpleNamespace(launch_count=0)
+    cache = graphs.GraphCache(cuda, modules=(mod,))
+    x = torch.linspace(0.0, 1.0, 1000, device=cuda)
+    n = torch.zeros((), dtype=torch.int32, device=cuda)
+    flags = torch.zeros(2, dtype=torch.bool, device=cuda)
+
+    def op(t):
+        mod.launch_count += 1
+        return t * 1.5 + 0.25
+
+    def fn():
+        carry = (torch.zeros((), dtype=torch.int32, device=cuda), x.clone())
+
+        def body(c):
+            i, acc = c
+            acc = op(acc)
+            acc = graphs.cond(flags[0] & (i % 2 == 0),
+                              lambda: op(op(acc)) * 0.5, acc.clone())
+            return i + 1, acc
+        i, acc = graphs.while_loop(lambda c: (c[0] < n) & (c[0] < 9), body,
+                                   carry)
+
+        def branch():
+            inner = (torch.zeros((), dtype=torch.int32, device=cuda),
+                     acc.clone())
+            return graphs.while_loop(lambda c: c[0] < n - 1,
+                                     lambda c: (c[0] + 1, op(c[1])),
+                                     inner)[1]
+        return i, graphs.cond(flags[1], branch, acc.clone())
+
+    for m, a, bb in [(3, 1, 1), (0, 1, 0), (12, 0, 1), (5, 1, 1), (1, 0, 0),
+                     (4, 0, 1), (7, 1, 0)]:
+        n.fill_(m)
+        flags.copy_(torch.tensor([bool(a), bool(bb)], device=cuda))
+        graphs.settle()
+        before = mod.launch_count
+        want = fn()                          # eager: the host loops
+        graphs.settle()
+        n_eager = mod.launch_count - before
+        before = mod.launch_count
+        got = [t.clone() for t in cache("k", fn)]
+        graphs.settle()
+        assert mod.launch_count - before == n_eager, (m, a, bb)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (m, a, bb)
+    assert len(cache) == 1
+
+
+@pytest.mark.gpu
+def test_while_body_freeing_an_outer_tensor(cuda):
+    """A WHILE body that drops the last reference to a tensor from before
+    the loop (allocated by the captured function) and then allocates
+    temporaries of its size: every iteration of a replay still reads that
+    tensor, because the body is captured in a memory pool of its own (in
+    the capture's pool the temporaries would take its block, and the
+    second iteration would read them)."""
+    cache = graphs.GraphCache(cuda)
+    base = torch.ones(1 << 20, device=cuda)
+    n = torch.zeros((), dtype=torch.int32, device=cuda)
+
+    def fn():
+        holder = [base * 3.0]          # the outer tensor, held only here
+
+        def body(c):
+            i, acc = c
+            outer = holder.pop()
+            y = acc + outer
+            if not torch.cuda.is_current_stream_capturing():
+                holder.append(outer)   # the host loop reads it again
+            del outer
+            t = torch.full_like(acc, 1000.0)
+            return i + 1, y + t * 0.0
+        carry = (torch.zeros((), dtype=torch.int32, device=cuda),
+                 base.clone())
+        return graphs.while_loop(lambda c: c[0] < n, body, carry)
+
+    for m in (2, 5, 1, 3):
+        n.fill_(m)
+        i, acc = (t.clone() for t in cache("k", fn))
+        assert int(i) == m
+        assert torch.equal(acc, torch.full_like(base, 1.0 + 3.0 * m)), m
+
+
 @pytest.fixture(scope="module")
 def dense_levels(cuda):
     """Dense VO at 376x1241 (L0 131072, L1 32768 points, both on ``run``):
@@ -221,10 +325,11 @@ def dense_levels(cuda):
 @pytest.mark.parametrize("C", ["C1", "C8"])
 @pytest.mark.parametrize("level", [0, 1])
 def test_run_graphed_equals_eager(dense_levels, C, level):
-    """``RunGraphs.run`` (every iteration a replay once its graph exists)
-    against the eager ``gauss_newton.run`` at the dense L0/L1 shapes: every
-    GNState field bit for bit, the same launches, from two starts and on a
-    second template (copied into the graphs' buffers)."""
+    """``RunGraphs.run`` (each level solve one replay of one graph, with
+    no device read once the graph exists) against the eager
+    ``gauss_newton.run`` at the dense L0/L1 shapes: every GNState field
+    bit for bit, the same launches, from two starts and on a second
+    template (copied into the graph's buffers)."""
     vo, ch = dense_levels[C]
     td, cam, opts = vo.state.templates[level], vo._cams[level], vo._opts[level]
     assert not gn.level_kernel_supported(opts, 1, 1, 1, td.pixels.shape[1])
@@ -240,24 +345,77 @@ def test_run_graphed_equals_eager(dense_levels, C, level):
             before = _counts()
             want = gn.run(tdata, ch[level], cam, T0, opts)
             n_eager = _delta(before)
+            got = _no_read_solve(lambda: gn.run(tdata, ch[level], cam, T0,
+                                                opts, graphs=rg), rg)
             before = _counts()
-            got = gn.run(tdata, ch[level], cam, T0, opts, graphs=rg)
+            got = _no_read_solve(lambda: gn.run(tdata, ch[level], cam, T0,
+                                                opts, graphs=rg), rg)
             assert _delta(before) == n_eager and n_eager["fused_linearize"]
             _equal(got, want, gn.GNState._fields)
             iters += int(want.num_iters)
-    assert len(rg._cache) <= 4 and iters > 2 * len(rg._cache)
+    assert len(rg._cache) == 1 and iters > 6
+
+
+def _no_read_solve(solve, holder):
+    """``solve()`` through a graph holder: the first call captures; later
+    ones must be one replay with no device-to-host read
+    (``set_sync_debug_mode("error")`` raises on one)."""
+    if not len(holder._cache or ()):
+        return solve()
+    replays = graphs.replay_count
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = solve()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert graphs.replay_count == replays + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", ["C1", "C8"])
+@pytest.mark.parametrize("level", [0, 1])
+def test_lm_graphed_equals_eager(dense_levels, C, level):
+    """LM's ``gauss_newton.RunGraphs`` (each level solve one replay, no
+    device read) against the eager ``levenberg_marquardt.run`` at the
+    dense L0/L1 shapes, at most 12 iterations: every LMState field bit for
+    bit, the same launches (``irls_reduce`` every iteration at C=8), from
+    two starts."""
+    import dataclasses
+    from bpvo_tpu_torch.solver import levenberg_marquardt as lm
+    vo, ch = dense_levels[C]
+    td, cam = vo.state.templates[level], vo._cams[level]
+    opts = dataclasses.replace(vo._opts[level], max_iterations=12)
+    dev = ch[level].device
+    T1 = torch.tensor([[1.0, -2e-3, 1e-3, 5e-3], [2e-3, 1.0, -1e-3, -2e-3],
+                       [-1e-3, 1e-3, 1.0, 1e-2], [0.0, 0.0, 0.0, 1.0]],
+                      device=dev)
+    holder = gn.RunGraphs(solve=lm.run)
+    for T0 in (torch.eye(4, device=dev), T1, torch.eye(4, device=dev)):
+        before = _counts()
+        want = lm.run(td, ch[level], cam, T0, opts)
+        n_eager = _delta(before)
+        before = _counts()
+        got = _no_read_solve(lambda: lm.run(td, ch[level], cam, T0, opts,
+                                            graphs=holder), holder)
+        assert _delta(before) == n_eager
+        assert n_eager["irls"] > 0 or C == "C1"
+        _equal(got, want, lm.LMState._fields)
+        assert int(want.num_iters) >= 2
+    assert len(holder._cache) == 1
 
 
 @pytest.mark.gpu
 def test_device_vo_with_run_levels_graphed_equals_eager(cuda):
-    """A ``DeviceVO`` whose L0 and L1 go to ``run`` (dense settings) keeps
-    the eager step and replays those levels' iterations: bit for bit the
-    eager step without graphs, with the same launches."""
+    """A ``DeviceVO`` whose L0 and L1 go to ``run`` (dense settings) takes
+    the one-graph step, those levels' loops WHILE nodes in it: bit for bit
+    the eager step without graphs, with the same launches."""
     K, b, frames = synthetic.synthesize_sequence(5)
     params = AlgorithmParameters(**DENSE)
     shape = (synthetic.ROWS, synthetic.COLS)
     vo = device_vo.DeviceVO(K, b, shape, params, device=cuda)
-    assert vo._graphs is None and vo._run_graphs is not None
+    assert vo._graphs is not None
     eager = device_vo.make_vo_step(vo._p, vo._cams, vo._capacities, vo._opts)
     vo.add_frame(*frames[0])
     state = vo.state
@@ -269,16 +427,18 @@ def test_device_vo_with_run_levels_graphed_equals_eager(cuda):
         state, want = eager(state, vo._as_tensor(image), vo._as_tensor(disp))
         assert _delta(before) == n_graphed
         _equal(got, want, device_vo.VOStepOutput._fields)
-    assert len(vo._run_graphs[0]._cache) >= 2
+    assert len(vo._graphs) == 1
 
 
 @pytest.mark.gpu
-def test_visual_odometry_graphed_equals_eager(cuda):
-    """Dense ``VisualOdometry`` (L0 and L1 on ``run``): the pose
-    estimator's iteration graphs against the eager loop, every Result field
-    equal, the same launches."""
+@pytest.mark.parametrize("solver", ["GaussNewton", "LevenbergMarquardt"])
+def test_visual_odometry_graphed_equals_eager(cuda, solver):
+    """Dense ``VisualOdometry`` (L0 and L1 on ``run``; with LM every
+    level): the pose estimator's graphs (one per level, one replay per
+    level solve) against the eager loop, every Result field equal, the
+    same launches."""
     K, b, frames = synthetic.synthesize_sequence(5)
-    params = AlgorithmParameters(**DENSE)
+    params = AlgorithmParameters(**dict(DENSE, poseEstimator=solver))
     shape = (synthetic.ROWS, synthetic.COLS)
     vo = VisualOdometry(K, b, shape, params, device=cuda)
     ref = VisualOdometry(K, b, shape, params, device=cuda)
@@ -294,7 +454,7 @@ def test_visual_odometry_graphed_equals_eager(cuda):
         assert np.array_equal(rg.covariance, re.covariance)
         assert rg.is_keyframe == re.is_keyframe
         assert rg.optimizer_statistics == re.optimizer_statistics
-    assert len(vo._pose_estimator._run_graphs[0]._cache) >= 2
+    assert len(vo._pose_estimator._run_graphs[0]._cache) == 1
 
 
 @pytest.mark.gpu

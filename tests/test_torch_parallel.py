@@ -359,13 +359,10 @@ def test_initialize_refuses():
 def test_hooks_refuse_graphs_lm_and_the_multistart(sequence):
     K, b, *_ = sequence
     tp = convert.params_from_jax(dataclasses.asdict(JParams(**VO_KW)))
-    tv = device_vo.DeviceVO(K, b, (H_IMG, W_IMG), tp, device="cpu")
     lin = lambda *a: None  # noqa: E731
-    with pytest.raises(ValueError, match="graphed"):
-        device_vo.make_vo_step(tp, tv._cams, tv._capacities, tv._opts,
-                               run_graphs=(None,) * 3,
-                               hooks=device_vo.StepHooks(lin))
-    for kw in ({"solver": "LevenbergMarquardt"}, {"multistart_px": 1.0}):
+    # a hooked level has no graph holder (RunGraphs), no LM, no multi-start
+    for kw in ({"run_graphs": (None,)}, {"solver": "LevenbergMarquardt"},
+               {"multistart_px": 1.0}):
         with pytest.raises(ValueError, match="custom linearization"):
             pe._estimate_all((), (None,), (), torch.eye(4), (), 0, 0.5,
                              linearize_factory=lin, **kw)
