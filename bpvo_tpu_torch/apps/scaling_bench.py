@@ -11,8 +11,11 @@ each builds the same synthetic problem (``parallel.dryrun
 ``make_sharded_gn`` over ``--reps`` solves of a fixed 10 iterations
 (tolerances at 1e-12).  Prints one JSON object: per world size the ms per
 solve (rank 0's host clock, synchronized), the speedup and the efficiency
-t_1 / (n t_n).  gloo on CUDA tensors stages every reduction through host
-memory, so its numbers measure the host, not a collective.
+t_1 / (n t_n).  With nccl on CUDA each timed solve is one replay of the
+solve's CUDA graph, the all-reduces captured in it (``"graphed": true``;
+the first, untimed solve captures it).  gloo on CUDA tensors stages every
+reduction through host memory and runs eagerly (``"staged": true``), so
+its numbers measure the host, not a collective.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ def run_rank(args) -> None:
     from bpvo_tpu_torch.parallel.dryrun import synthetic_problem
     from bpvo_tpu_torch.parallel.worker import join
     from bpvo_tpu_torch.solver import gauss_newton as gn
+    from bpvo_tpu_torch.utils import graphs
 
     reducer, dev = join(args)
     try:
@@ -54,6 +58,7 @@ def run_rank(args) -> None:
         ms = (time.perf_counter() - t0) * 1e3 / args.reps
         print("SCALING_RANK " + json.dumps({
             "rank": reducer.rank, "ms_per_solve": ms,
+            "graphed": dev.type == "cuda" and graphs.capturable(reducer, dev),
             "iterations": int(st.num_iters),
             "collective_calls_per_solve": reducer.calls / args.reps,
             "collective_bytes_per_solve": reducer.bytes / args.reps}),
@@ -83,7 +88,8 @@ def run_scaling(sizes=(1, 2), total_points: int = 65536, rows: int = 240,
                   if line.startswith("SCALING_RANK "))
         dt = r0["ms_per_solve"]
         t_base = dt if t_base is None else t_base
-        results[n] = {"ms_per_solve": dt, "speedup": t_base / dt,
+        results[n] = {"ms_per_solve": dt, "graphed": r0["graphed"],
+                      "speedup": t_base / dt,
                       "efficiency": t_base / (dt * n),
                       "iterations": r0["iterations"],
                       "collective_calls_per_solve":

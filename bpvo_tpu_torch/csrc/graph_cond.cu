@@ -18,6 +18,12 @@
 // handle is created on the graph that holds its node.  The graph then runs
 // on the device with no host read of a predicate.
 //
+// A conditional body holds only kernel, memcpy, memset, empty, child-graph
+// and conditional nodes.  bpvo_graph_node_types counts a graph's nodes by
+// type, through its child graphs, so that utils/graphs.py can refuse a
+// segment a body cannot hold (a host node, an event record or wait node: a
+// collective may add them) and name its types before CUDA refuses it.
+//
 // Plain C entry points bound by ctypes (ops/_build.py); each returns the
 // cudaError_t of the calls it made.  The graphs are created and joined
 // outside any stream capture.
@@ -45,6 +51,36 @@ extern "C" int bpvo_graph_num_nodes(void* graph, long long* count) {
   cudaError_t e = cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr,
                                     &n);
   *count = static_cast<long long>(n);
+  return e;
+}
+
+// Add to counts[t] (t < n_types) the nodes of `graph` of type t, counting
+// the nodes of each child graph too (a child-graph node counts as one of
+// type cudaGraphNodeTypeGraph besides).  Conditional nodes count as one;
+// their bodies are not entered.
+extern "C" int bpvo_graph_node_types(void* graph, long long* counts,
+                                     int n_types) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
+  if (e != cudaSuccess || n == 0) return e;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  e = cudaGraphGetNodes(g, nodes, &n);
+  for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType type;
+    e = cudaGraphNodeGetType(nodes[i], &type);
+    if (e != cudaSuccess) break;
+    int t = static_cast<int>(type);
+    if (t >= 0 && t < n_types) counts[t] += 1;
+    if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      e = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (e == cudaSuccess)
+        e = static_cast<cudaError_t>(bpvo_graph_node_types(child, counts,
+                                                           n_types));
+    }
+  }
+  delete[] nodes;
   return e;
 }
 

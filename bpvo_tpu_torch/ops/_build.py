@@ -210,6 +210,7 @@ def _load_library() -> ctypes.CDLL:
     for name, args in (
             ("create", [pp]), ("destroy", [p]),
             ("num_nodes", [p, ctypes.POINTER(ctypes.c_longlong)]),
+            ("node_types", [p, ctypes.POINTER(ctypes.c_longlong), i]),
             ("append_child", [p, pp, p]), ("append_if", [p, pp, p, pp]),
             ("append_while", [p, pp, p, pp, ctypes.POINTER(u64)]),
             ("append_set", [p, pp, u64, p]),

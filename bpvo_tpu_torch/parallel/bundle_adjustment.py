@@ -17,8 +17,21 @@ the robust sigma comes from all edges' residuals at once
 (J, r, valid, sigma), which gives S = J^T W J, b = J^T W r and sum w r^2
 (JAX's ``compute_weights`` and the two dots, bundle_adjustment.py:118-126).
 With a reducer the (H, g, f_sq) of every rank are summed in one all-reduce.
-The (6M)^2 solve is a library call (``torch.linalg.solve_ex``), as JAX's
-is outside any Pallas kernel.
+The (6M)^2 solve is a library call (``linear_system.solve_dense``:
+``torch.linalg.solve_ex``, in cuSOLVER on CUDA), as JAX's is outside any
+Pallas kernel.
+
+Compiled as JAX compiles them (``jit`` and ``jit(shard_map)`` of a
+``lax.scan`` over the iterations): on CUDA with no reducer or a one-rank
+nccl group (``graphs.route``), ``ba_solve``, ``ba_solve_with_depth``, the runners of
+``make_sharded_ba`` and ``make_sharded_ba_2d`` and
+``KeyframeWindow.optimize`` are each one CUDA-graph replay with no host
+read, a graph per window size M (``GraphCache.jit``: the inputs copied
+into static buffers), the fixed iteration count captured unrolled and the
+all-reduces inside.  The edges and the Schur complement's block rows are
+Python-static.  With gloo (host-staged), nccl across cards
+(``graphs.capturable``) or on the CPU they run eagerly;
+``cache=False`` asks for the eager route on CUDA.
 """
 from __future__ import annotations
 
@@ -31,7 +44,9 @@ from bpvo_tpu_torch.core import se3
 from bpvo_tpu_torch.ops import irls as irls_mod
 from bpvo_tpu_torch.parallel import sharded
 from bpvo_tpu_torch.parallel.sharded import global_sigma as _global_sigma
+from bpvo_tpu_torch.solver.linear_system import solve_dense
 from bpvo_tpu_torch.types import InterpolationType, LossFunctionType
+from bpvo_tpu_torch.utils import graphs
 from bpvo_tpu_torch.vo import template_data as td_mod
 from bpvo_tpu_torch.vo import warp as warp_mod
 from bpvo_tpu_torch.vo.device_vo import resolve_device
@@ -157,7 +172,7 @@ def _solve_pose_system(H, g, opts: BAOptions):
     Hm = H.reshape(M * 6, M * 6)
     Hm = Hm + opts.damping * torch.diag(torch.diag(Hm)) + 1e-6 * torch.eye(
         M * 6, dtype=torch.float32, device=dev)
-    delta = -torch.linalg.solve_ex(Hm, g.reshape(M * 6))[0].reshape(M, 6)
+    delta = -solve_dense(Hm, g.reshape(M * 6)).reshape(M, 6)
     delta = torch.where(torch.isfinite(delta), delta, 0.0)
     delta[0] = 0.0   # hard gauge fix on keyframe 0
     return delta
@@ -175,16 +190,36 @@ def _iterate(assemble, poses_init, opts: BAOptions):
     return poses, cost
 
 
+def _compiled(name, fn, templates, channels, cam, poses, opts, reducer,
+              cache, *static):
+    """``fn(templates, channels, cam, poses, opts, reducer, *static)``
+    through ``graphs.route``'s cache (a graph per key and shapes), or
+    eagerly where the route is eager."""
+    graph_cache = graphs.route(cache, templates.points.device, reducer)
+    if graph_cache is None:
+        return fn(templates, channels, cam, poses, opts, reducer, *static)
+    return graph_cache.jit(
+        (name, cam, opts, reducer, *static), (templates, channels, poses),
+        lambda b: fn(b[0], b[1], cam, b[2], opts, reducer, *static))
+
+
 def ba_solve(templates: TemplateData, channels, cam: warp_mod.CameraModel,
-             poses_init, opts: BAOptions, reducer=None):
+             poses_init, opts: BAOptions, reducer=None, cache=None):
     """Windowed BA: (poses (M, 4, 4), final weighted cost).  ``templates``
     stacked along a window axis; with ``reducer`` each rank passes its
     slice of the points.  ``opts.refine_depth`` delegates to
-    ``ba_solve_with_depth``."""
+    ``ba_solve_with_depth``.  ``cache``: None for ``graphs.route``'s route
+    (one replay on CUDA), False for the eager route, or a ``GraphCache``."""
     if opts.refine_depth:
         poses, _, cost = ba_solve_with_depth(templates, channels, cam,
-                                             poses_init, opts, reducer)
+                                             poses_init, opts, reducer,
+                                             cache)
         return poses, cost
+    return _compiled("ba_solve", _ba_solve, templates, channels, cam,
+                     poses_init, opts, reducer, cache)
+
+
+def _ba_solve(templates, channels, cam, poses_init, opts, reducer):
     edges = window_edges(poses_init.shape[0], opts.edge_radius)
     return _iterate(lambda poses: _assemble(templates, channels, cam, poses,
                                             edges, opts, reducer),
@@ -193,14 +228,21 @@ def ba_solve(templates: TemplateData, channels, cam: warp_mod.CameraModel,
 
 def ba_solve_with_depth(templates: TemplateData, channels,
                         cam: warp_mod.CameraModel, poses_init,
-                        opts: BAOptions, reducer=None):
+                        opts: BAOptions, reducer=None, cache=None):
     """Joint pose and inverse-depth windowed BA, the depth block eliminated
     by its Schur complement (JAX bundle_adjustment.py:205-360).  The depth
     block is diagonal (one inverse depth per point), so Hpp' = Hpp - Hpd
     Hdd^-1 Hpd^T is a sum over points of per-keyframe products, summed over
     the ranks in one all-reduce of all (6,6) and (6,) terms.  Pass 2 of an
     edge is one ``irls_reduce_w`` launch on J A (the Jacobian in global
-    increments).  Returns (poses (M,4,4), refined templates, final cost)."""
+    increments).  Returns (poses (M,4,4), refined templates, final cost).
+    ``cache`` as in ``ba_solve``."""
+    return _compiled("ba_solve_with_depth", _ba_solve_with_depth, templates,
+                     channels, cam, poses_init, opts, reducer, cache)
+
+
+def _ba_solve_with_depth(templates, channels, cam, poses_init, opts,
+                         reducer):
     M = poses_init.shape[0]
     edges = window_edges(M, opts.edge_radius)
     loss = _loss(opts)
@@ -304,18 +346,20 @@ def ba_solve_with_depth(templates: TemplateData, channels,
     return poses, templates._replace(points=points), cost
 
 
-def make_sharded_ba(reducer, opts: BAOptions, m_keyframes: int):
+def make_sharded_ba(reducer, opts: BAOptions, m_keyframes: int,
+                    cache=None):
     """Distributed BA (JAX ``make_sharded_ba``): run(templates_shard,
     channels, cam, poses) -> (poses, cost), each rank holding its
     ``sharded.shard_template`` slice of the stacked window's points,
     channels and poses whole; the block system summed over the ranks each
-    iteration."""
+    iteration.  ``cache`` as in ``ba_solve``."""
     def run(templates_shard, channels, cam, poses):
         if templates_shard.points.shape[0] != m_keyframes:
             raise ValueError(f"make_sharded_ba: a window of "
                              f"{templates_shard.points.shape[0]} keyframes, "
                              f"built for {m_keyframes}")
-        return ba_solve(templates_shard, channels, cam, poses, opts, reducer)
+        return ba_solve(templates_shard, channels, cam, poses, opts, reducer,
+                        cache)
     return run
 
 
@@ -358,21 +402,30 @@ def shard_window_2d(templates: TemplateData, rank: int, layout):
     return sharded.shard_template(local, pt_idx, layout.points)
 
 
-def make_sharded_ba_2d(reducer, opts: BAOptions, m_keyframes: int, layout):
+def _ba_solve_2d(templates_loc, channels, cam, poses, opts, reducer,
+                 m_keyframes, kf_idx):
+    return _iterate(lambda P: _assemble_kf_sharded(
+        templates_loc, channels, cam, P, opts, m_keyframes, kf_idx,
+        reducer), poses, opts)
+
+
+def make_sharded_ba_2d(reducer, opts: BAOptions, m_keyframes: int, layout,
+                       cache=None):
     """Distributed BA on a (kf, points) layout of the ranks (JAX
     ``make_sharded_ba_2d``): run(templates_loc, channels, cam, poses) ->
     (poses, cost), ``templates_loc`` this rank's ``shard_window_2d``,
     channels and poses whole; one all-reduce over every rank per
-    iteration.  Matches the pose-only ``ba_solve``."""
+    iteration.  Matches the pose-only ``ba_solve``.  ``cache`` as in
+    ``ba_solve``."""
     if m_keyframes % layout.kf:
         raise ValueError(f"make_sharded_ba_2d: {m_keyframes} keyframes over "
                          f"a kf axis of {layout.kf}")
     kf_idx, _ = layout.coords(0 if reducer is None else reducer.rank)
 
     def run(templates_loc, channels, cam, poses):
-        return _iterate(lambda P: _assemble_kf_sharded(
-            templates_loc, channels, cam, P, opts, m_keyframes, kf_idx,
-            reducer), poses, opts)
+        return _compiled("ba_solve_2d", _ba_solve_2d, templates_loc,
+                         channels, cam, poses, opts, reducer, cache,
+                         m_keyframes, kf_idx)
     return run
 
 
@@ -385,15 +438,20 @@ class KeyframeWindow:
     """Host-side sliding window of keyframes feeding the BA solver.
     Collects (template, channels, pose) at each keyframe and slides when
     full; ``optimize()`` runs windowed BA on ``device`` (split over the
-    ranks of ``reducer`` when given) and returns the refined poses."""
+    ranks of ``reducer`` when given) and returns the refined poses: on
+    CUDA one replay of ``ba_solve``'s graph for the window's size (JAX's
+    ``BundleAdjuster`` keeps a jitted runner per size) and one read.
+    ``cache`` as in ``ba_solve``."""
 
     def __init__(self, max_keyframes: int, cam: warp_mod.CameraModel,
-                 opts: BAOptions = BAOptions(), reducer=None, device="cuda"):
+                 opts: BAOptions = BAOptions(), reducer=None, device="cuda",
+                 cache=None):
         self._max = max_keyframes
         self._cam = cam
         self._opts = opts
         self._reducer = reducer
         self._device = resolve_device(device)
+        self._cache = cache
         self._templates = []
         self._channels = []
         self._poses = []
@@ -425,7 +483,7 @@ class KeyframeWindow:
             templates = sharded.shard_template(
                 templates, self._reducer.rank, self._reducer.world)
         new_poses, _ = ba_solve(templates, channels, self._cam, poses,
-                                self._opts, self._reducer)
+                                self._opts, self._reducer, self._cache)
         new_np = new_poses.cpu().numpy()
         self._poses = [new_np[i] for i in range(M)]
         return new_np

@@ -13,6 +13,15 @@ gloo reduces host tensors only.  With gloo and CUDA tensors every buffer
 is staged explicitly: copied into pinned host memory, reduced there and
 copied back (``staged`` is then true).  Times taken on that route measure
 the copies and the host, not a collective on the card.
+
+In a CUDA graph: an nccl all-reduce is captured (it does no host work);
+the counts are registered with ``utils.graphs`` (``register_counter``), so
+every replay advances ``calls`` and ``bytes`` by what the capture counted,
+and ``graphs.settle()`` adds those of an all-reduce in a conditional body
+times the body's runs: once settled, ``stats()`` equals an eager run's.  A
+gloo all-reduce of a CUDA tensor cannot be captured (the staging copies
+synchronize with the host) and raises inside a capture: the gloo route is
+eager by choice of backend (``graphs.route``).
 """
 from __future__ import annotations
 
@@ -21,7 +30,18 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from bpvo_tpu_torch.utils import graphs
+
 BACKENDS = ("gloo", "nccl")
+
+
+class _Count:
+    """One count of a ``Reducer``, advanced by CUDA-graph replays as the
+    kernel wrappers' ``launch_count`` is."""
+    __slots__ = ("launch_count", "__weakref__")
+
+    def __init__(self):
+        self.launch_count = 0
 
 
 class Reducer:
@@ -37,12 +57,21 @@ class Reducer:
         self.backend = backend
         self.rank = dist.get_rank(group)
         self.world = dist.get_world_size(group)
-        self.calls = 0
-        self.bytes = 0
+        self._calls, self._bytes = _Count(), _Count()
+        graphs.register_counter(self._calls)
+        graphs.register_counter(self._bytes)
+
+    @property
+    def calls(self) -> int:
+        return self._calls.launch_count
+
+    @property
+    def bytes(self) -> int:
+        return self._bytes.launch_count
 
     def reset(self) -> None:
-        self.calls = 0
-        self.bytes = 0
+        self._calls.launch_count = 0
+        self._bytes.launch_count = 0
 
     def stats(self) -> Dict[str, int]:
         return {"calls": self.calls, "bytes": self.bytes}
@@ -50,9 +79,15 @@ class Reducer:
     def _all_reduce(self, buf, op):
         """All-reduce ``buf`` in place (staged through pinned host memory
         for gloo and a CUDA tensor); returns it."""
-        self.calls += 1
-        self.bytes += buf.numel() * buf.element_size()
-        if self.backend == "gloo" and buf.device.type == "cuda":
+        staged = self.backend == "gloo" and buf.device.type == "cuda"
+        if staged and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "Reducer: a gloo all-reduce of a CUDA tensor stages through "
+                "host memory and cannot be captured in a CUDA graph (the "
+                "gloo route is eager)")
+        self._calls.launch_count += 1
+        self._bytes.launch_count += buf.numel() * buf.element_size()
+        if staged:
             host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
             host.copy_(buf)      # synchronous: the device's work is done
             dist.all_reduce(host, op=op, group=self.group)

@@ -19,10 +19,13 @@ starts N ranks (``multihost.launch``), each of which runs:
    per step.
 
 The parent checks that every rank exited 0, that the ranks' poses are
-bitwise equal, and prints one JSON object.  With ``--backend gloo
---device cuda`` all ranks share cuda:0 and every reduction is staged
-through pinned host memory: its times measure the host, not a
-collective.  Exit code 0 only when every check holds.
+bitwise equal, and prints one JSON object.  With ``--backend nccl
+--device cuda`` (a card a rank) the VO chunks and the BA are CUDA-graph
+replays with the all-reduces captured (``"graphed": true``).  With
+``--backend gloo --device cuda`` all ranks share cuda:0, every reduction
+is staged through pinned host memory and the step is eager (``"staged":
+true``): its times measure the host, not a collective.  Exit code 0 only
+when every check holds.
 """
 from __future__ import annotations
 
@@ -78,6 +81,7 @@ def run_rank(args) -> dict:
     from bpvo_tpu_torch.parallel import bundle_adjustment as ba
     from bpvo_tpu_torch.parallel import multihost, sharded, sharded_vo
     from bpvo_tpu_torch.parallel.worker import join
+    from bpvo_tpu_torch.utils import graphs
     from bpvo_tpu_torch.vo.device_vo import DeviceVO
 
     reducer, dev = join(args)
@@ -106,6 +110,8 @@ def run_rank(args) -> dict:
         res = {"rank": reducer.rank, "world": reducer.world,
                "backend": reducer.backend, "device": str(dev),
                "staged": reducer.backend == "gloo" and dev.type == "cuda",
+               "graphed": dev.type == "cuda" and graphs.capturable(reducer,
+                                                                   dev),
                "keyframe_events": kf_events, "vo_ms_per_step": vo_ms,
                "collectives": stats, "finite": bool(np.isfinite(world).all())}
         if reducer.rank == 0:
@@ -168,6 +174,7 @@ def run(procs: int, backend: str, device: str, rows: int, cols: int,
             "keyframe_events": r0["keyframe_events"],
             "max_abs_vs_device_vo": r0["max_abs_vs_device_vo"],
             "pose_atol": POSE_ATOL, "staged": r0["staged"],
+            "graphed": r0["graphed"],
             "vo_ms_per_step": [r["vo_ms_per_step"] for r in ranks],
             "collectives_per_step": r0["collectives"],
             "ba_cost": r0["ba_cost"], "ba_collectives": r0["ba_collectives"],

@@ -24,6 +24,7 @@ import torch
 import torch.distributed as dist
 
 from bpvo_tpu_torch.parallel.collectives import BACKENDS, Reducer
+from bpvo_tpu_torch.utils import graphs
 
 DEFAULT_TIMEOUT_S = 60.0
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -41,6 +42,12 @@ def initialize(backend: str, world_size: int, rank: int, address: str,
                device: Optional[torch.device] = None) -> Reducer:
     """Join the default process group at ``address`` (a ``tcp://host:port``
     init method, e.g. on a ``free_port()``) and return its ``Reducer``.
+    ``timeout_s`` bounds every eager collective (the group's warm-ups and
+    the collectives of a capture), so a rank whose peers call another
+    collective, or none, fails in that time instead of hanging.  A
+    replayed CUDA graph's collectives are not watched: the graphed routes
+    compute every branch and loop predicate from reduced values, so every
+    rank replays the same collectives.
     ``device`` is this rank's device: with ``nccl`` each rank needs a
     device of its own, so two ranks that would share one raise (NCCL
     cannot place them), and the default is ``cuda:<rank>``."""
@@ -64,7 +71,11 @@ def initialize(backend: str, world_size: int, rank: int, address: str,
 
 
 def shutdown() -> None:
+    """Destroy the default group, after every CUDA graph of the process
+    (``graphs.release``): a graph holding a captured NCCL collective keeps
+    its communicator from being destroyed."""
     if dist.is_initialized():
+        graphs.release()
         dist.destroy_process_group()
 
 

@@ -7,7 +7,14 @@ relative poses Z_ij ~ T_i T_j^-1 with 6x6 information matrices.  The edge
 residual is r_ij = log(Z_ij^-1 T_i(d_i) T_j(d_j)^-1) with right increments
 T_k(d) = T_k exp(d_k); its Jacobian comes from forward-mode autodiff
 (``torch.func.jacfwd``, where JAX uses ``jax.jacfwd``) through the closed
-form ``se3.log``, and the normal equations are one dense (6N, 6N) solve.
+form ``se3.log``, and the normal equations are one dense (6N, 6N) solve
+(``linear_system.solve_dense``, cuSOLVER on CUDA).
+
+On CUDA ``optimize`` is one CUDA-graph replay with no host read (JAX jits
+it and scans the iterations): a graph per (node count, edge count), the
+inputs copied into its static buffers (``GraphCache.jit``), the fixed
+iteration count captured unrolled, ``jacfwd``'s batched jvps included.
+On the CPU, or with ``cache=False``, it runs eagerly.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ import numpy as np
 import torch
 
 from bpvo_tpu_torch.core import se3
+from bpvo_tpu_torch.solver.linear_system import solve_dense
+from bpvo_tpu_torch.utils import graphs
 from bpvo_tpu_torch.vo.device_vo import resolve_device
 
 
@@ -35,12 +44,15 @@ def edge_residuals(poses, deltas, edge_idx, measurements_inv):
 
 
 def optimize(poses_init, edge_idx, measurements, information,
-             opts: PoseGraphOptions = PoseGraphOptions(), device="cuda"):
+             opts: PoseGraphOptions = PoseGraphOptions(), device="cuda",
+             cache=None):
     """Optimize (N, 4, 4) poses given (E, 2) edge indices, (E, 4, 4)
     measured relative poses and (E, 6, 6) information matrices (arrays or
     tensors), ``opts.max_iterations`` GN steps with no host read.  Node 0
     is the gauge.  Returns (poses (N, 4, 4), chi2 of the last
-    linearization), tensors on ``device``."""
+    linearization), tensors on ``device``.  ``cache``: None for the graphed
+    route on CUDA (``graphs.route``), False for the eager route, or a
+    ``GraphCache``."""
     dev = resolve_device(device)
     f32 = torch.float32
 
@@ -48,10 +60,18 @@ def optimize(poses_init, edge_idx, measurements, information,
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
                                else a).to(device=dev, dtype=dtype)
 
-    poses = t(poses_init)
-    edge_idx = t(edge_idx, torch.int64)
-    meas_inv = se3.inverse(t(measurements))
-    info = t(information)
+    inputs = (t(poses_init), t(edge_idx, torch.int64), t(measurements),
+              t(information))
+    graph_cache = graphs.route(cache, dev)
+    if graph_cache is None:
+        return _optimize(*inputs, opts)
+    return graph_cache.jit(("pose_graph", opts), inputs,
+                           lambda b: _optimize(*b, opts))
+
+
+def _optimize(poses, edge_idx, measurements, info, opts: PoseGraphOptions):
+    dev, f32 = poses.device, torch.float32
+    meas_inv = se3.inverse(measurements)
     N, E = poses.shape[0], edge_idx.shape[0]
     eye_n = torch.eye(N * 6, dtype=f32, device=dev)
     prior = torch.zeros(N * 6, N * 6, dtype=f32, device=dev)
@@ -70,7 +90,7 @@ def optimize(poses_init, edge_idx, measurements, information,
         g = Jf.T @ Lr
         chi2 = torch.dot(r.reshape(-1), Lr)
         H = H + opts.damping * eye_n
-        delta = -torch.linalg.solve_ex(H, g)[0].reshape(N, 6)
+        delta = -solve_dense(H, g).reshape(N, 6)
         delta = torch.where(torch.isfinite(delta), delta, 0.0)
         delta[0] = 0.0
         poses = poses @ se3.exp(delta)

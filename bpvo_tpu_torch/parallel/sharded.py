@@ -27,6 +27,7 @@ import torch
 
 from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.solver import mestimator
+from bpvo_tpu_torch.utils.graphs import route
 from bpvo_tpu_torch.vo.template_data import TemplateData
 
 # the point axis of each TemplateData field, counted from the end (so a
@@ -106,19 +107,50 @@ def linearize_sharded(tdata: TemplateData, channels, cam, opts: gn.GNOptions,
         reduce=reducer.sum if reducer is not None else gn._no_reduce)
 
 
-def make_sharded_gn(reducer, opts: gn.GNOptions):
-    """The distributed GN runner (JAX ``make_sharded_gn``):
-    run(tdata_shard, channels, cam, T_init) -> GNState, ``tdata_shard``
-    this rank's ``shard_template``, ``channels`` the whole image.  Every
-    field is replicated but the weights, which stay this rank's (C,
-    K_local).  ``reducer`` a ``collectives.Reducer``, or None for one
-    process with no collectives.  Eager: one host read per iteration, as
-    ``gauss_newton.run``."""
+def _solve_sharded(tdata_shard, channels, cam, T_init, opts: gn.GNOptions,
+                   reducer=None) -> gn.GNState:
+    """``gauss_newton.run`` with ``linearize_sharded`` as its
+    linearization (the solve a ``make_sharded_gn`` graph captures)."""
+    lin = linearize_sharded(tdata_shard, channels, cam, opts, reducer)
+    return gn.run(tdata_shard, channels, cam, T_init, opts, linearize_fn=lin)
+
+
+def make_sharded_gn(reducer, opts: gn.GNOptions, cache=None):
+    """The distributed GN runner (JAX ``make_sharded_gn``, a
+    ``jit(shard_map(gn.run))``): run(tdata_shard, channels, cam, T_init)
+    -> GNState, ``tdata_shard`` this rank's ``shard_template``,
+    ``channels`` the whole image.  Every field is replicated but the
+    weights, which stay this rank's (C, K_local).  ``reducer`` a
+    ``collectives.Reducer``, or None for one process with no collectives.
+
+    On CUDA with no reducer or a one-rank nccl group (``graphs.route``),
+    a solve is
+    one replay of a ``gauss_newton.RunGraphs`` graph (one per shape, its
+    key carrying the reducer) with no host read: iteration 0, then the
+    WHILE node of the others with the (H, g, f_sq) all-reduce in its body
+    and the sigma's max and histogram all-reduces in the IF node inside
+    it.  Every predicate is computed from reduced values, so every rank
+    runs the same iterations and branches.  With gloo (host-staged), nccl
+    across cards (``graphs.capturable``: NCCL's event nodes cannot sit in
+    the bodies), ``cache=False`` or on the CPU the solve is eager: one
+    host read per iteration, as ``gauss_newton.run``.  ``cache`` a ``GraphCache`` to
+    capture in (the tests' CPU stand-ins)."""
     sopts = sharded_options(opts)
+    owned, holders = {}, {}
 
     def run(tdata_shard, channels, cam, T_init) -> gn.GNState:
-        lin = linearize_sharded(tdata_shard, channels, cam, sopts, reducer)
-        return gn.run(tdata_shard, channels, cam, T_init, sopts,
-                      linearize_fn=lin)
+        graph_cache = route(cache, channels.device, reducer, owned)
+        if graph_cache is None or sopts.verbose or sopts.max_iterations == 0:
+            return _solve_sharded(tdata_shard, channels, cam, T_init, sopts,
+                                  reducer)
+        # a holder a shape (its buffers are fixed at its first run)
+        shapes = (tuple(channels.shape),
+                  tuple(tuple(t.shape) for t in tdata_shard))
+        holder = holders.get(shapes)
+        if holder is None:
+            holder = holders[shapes] = gn.RunGraphs(graph_cache,
+                                                    solve=_solve_sharded)
+        return holder.run(tdata_shard, channels, cam, T_init, sopts,
+                          reducer=reducer)
 
     return run

@@ -12,11 +12,21 @@ Every rank runs ``vo.device_vo.make_vo_step`` with the three hooks:
 - each level's GN reduces (H, g, f_sq) and the sigma histogram over the
   ranks (``sharded.linearize_sharded``);
 - the good-point count and the warm-start gate's cost are summed over the
-  ranks (``count_reduce``), so the keyframe decision, read on the host
-  once per frame, is the same on every rank.
+  ranks (``count_reduce``), so the keyframe decision is the same on every
+  rank.
 
-The step is eager (a hooked step has no CUDA graph).  ``scan_fn`` is a
-loop over frames, the counterpart of ``lax.scan``.
+Every predicate of the step (the keyframe decision, each level's exit and
+sigma tests, the warm-start gate) is computed from reduced values, so every
+rank takes the same branches and runs the same iterations, and runs the
+same collectives in the same order.  On CUDA with no reducer or a
+one-rank nccl group (``graphs.route``) the step is one CUDA graph (``device_vo.StepGraph``,
+JAX's ``jit(shard_map(step))``): ``step_fn`` is one replay with no host
+read, the keyframe branch an IF node holding the sharded template build and
+the re-estimate's WHILE nodes, the all-reduces captured inside the bodies;
+``scan_fn`` copies its chunk in once and replays back to back, the outputs
+stacked on the card (``lax.scan``).  With gloo (host-staged), nccl across
+cards (``graphs.capturable``) or on the CPU the step is eager: the keyframe decision and each level's exit test are
+read on the host, and ``scan_fn`` is a loop over frames.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from bpvo_tpu_torch.config import AlgorithmParameters
 from bpvo_tpu_torch.ops import imgproc, pyramid, selection
 from bpvo_tpu_torch.parallel import sharded
 from bpvo_tpu_torch.solver import gauss_newton as gn
+from bpvo_tpu_torch.utils import graphs
 from bpvo_tpu_torch.vo import device_vo
 from bpvo_tpu_torch.vo import template_data as td_mod
 from bpvo_tpu_torch.vo import warp as warp_mod
@@ -67,7 +78,7 @@ def _round_capacities(capacities, world: int):
 
 
 def make_sharded_vo(reducer, K, baseline: float, image_size,
-                    p: AlgorithmParameters, device="cuda"):
+                    p: AlgorithmParameters, device="cuda", cache=None):
     """The distributed VO (JAX ``make_sharded_vo``): (init_fn, step_fn,
     scan_fn) for this rank.
 
@@ -79,7 +90,12 @@ def make_sharded_vo(reducer, K, baseline: float, image_size,
     ``collectives.Reducer``, or None for one process with no collectives.
     GaussNewton only (the sharded linearization hooks ``gauss_newton.run``;
     LM is a single-device option).  ``device`` names this rank's device
-    ("cuda" unless the caller asks for the CPU)."""
+    ("cuda" unless the caller asks for the CPU).  ``cache``: None for the
+    route ``graphs.route`` picks (the step graph on CUDA with no reducer or
+    a one-rank nccl group), False for the eager step, or a ``GraphCache`` to capture
+    in (the tests' CPU stand-ins).  On the graphed route the returned state
+    is the step graph's buffers, which the next step overwrites (JAX's
+    step donates it); the outputs are the caller's."""
     dev = device_vo.resolve_device(device)
     rank, world = (0, 1) if reducer is None else (reducer.rank,
                                                   reducer.world)
@@ -111,10 +127,14 @@ def make_sharded_vo(reducer, K, baseline: float, image_size,
     def count_reduce(t):
         return t if reducer is None else reducer.sum(t)[0]
 
-    step = device_vo.make_vo_step(p, cams, capacities, opts,
-                                  hooks=device_vo.StepHooks(
-                                      linearize_factory, count_reduce,
-                                      build_templates_fn))
+    hooks = device_vo.StepHooks(linearize_factory, count_reduce,
+                                build_templates_fn)
+    step = device_vo.make_vo_step(p, cams, capacities, opts, hooks=hooks)
+    graph_cache = graphs.route(cache, dev, reducer, {})
+    step_graph = None if graph_cache is None else device_vo.StepGraph(
+        device_vo._make_front(p, cams, opts, False, hooks),
+        device_vo._make_commit(p, cams, capacities, opts, hooks=hooks),
+        (rows, cols), dev, graph_cache)
 
     def as_tensor(a):
         return torch.as_tensor(a, dtype=torch.float32).to(dev)
@@ -133,9 +153,14 @@ def make_sharded_vo(reducer, K, baseline: float, image_size,
             last_weights=torch.ones_like(templates[p.maxTestLevel].pixels))
 
     def step_fn(state: VOState, image, disparity):
-        return step(state, as_tensor(image), as_tensor(disparity))
+        if step_graph is None:
+            return step(state, as_tensor(image), as_tensor(disparity))
+        state, out = step_graph.step(state, image, disparity)
+        return state, graphs.clone(out)
 
     def scan_fn(state: VOState, images, disparities):
+        if step_graph is not None:
+            return step_graph.chunk(state, images, disparities)
         outs = []
         for image, disparity in zip(images, disparities):
             state, out = step_fn(state, image, disparity)

@@ -24,6 +24,13 @@ then prints ``WORKER_OK mode=<mode> rank=<R> world=<N>``.  The modes:
 - ``ba2d``: ``bundle_adjustment.make_sharded_ba_2d`` with ``kf`` keyframe
   coordinates on a stacked window (``td_*``), ``channels`` (M, C, H, W),
   ``cam``, ``poses`` and ``ba_opts`` (JSON); writes poses and cost.
+
+With ``--rerun`` the ``gn`` and ``vo`` modes also run their graphed route
+through ``utils.graphs.RerunCache`` (its "replays" rerun the captured
+function, the branches read on the host), the first call and a replay,
+and write its outputs and collective counts under ``rerun_`` names: on
+gloo, where no CUDA graph runs, it rehearses the graphed route's buffers
+and branches across processes (every rank must take the same ones).
 """
 from __future__ import annotations
 
@@ -53,40 +60,60 @@ def _json(data, key):
     return json.loads(str(data[key]))
 
 
-def mode_gn(data, reducer, dev):
+def _caches(args, dev):
+    """The routes to run: ("", the default route) and, with ``--rerun``,
+    ("rerun_", a ``RerunCache``)."""
+    from bpvo_tpu_torch.utils import graphs
+    return [("", None)] + ([("rerun_", graphs.RerunCache(dev))]
+                           if args.rerun else [])
+
+
+def mode_gn(data, reducer, dev, args):
     from bpvo_tpu_torch.parallel import sharded
     td = convert.template_from_numpy(_prefixed(data, "td_"), dev)
     shard = sharded.shard_template(td, reducer.rank, reducer.world)
     opts = convert.gn_options_from_jax(types.SimpleNamespace(
         **_json(data, "opts")))
-    st = sharded.make_sharded_gn(reducer, opts)(
-        shard, torch.from_numpy(data["channels"]).to(dev), _cam(data),
-        torch.from_numpy(data["T_init"]).to(dev))
-    return {"T": st.T, "num_iters": st.num_iters, "weights": st.weights}
-
-
-def mode_vo(data, reducer, dev):
-    from bpvo_tpu_torch.parallel import sharded_vo
-    images, disps = data["images"], data["disparities"]
-    p = convert.params_from_jax(_json(data, "params"))
-    init_fn, _, scan_fn = sharded_vo.make_sharded_vo(
-        reducer, data["K"], float(data["baseline"]), images.shape[1:], p,
-        device=dev)
-    state = init_fn(images[0], disps[0])
-    reducer.reset()
-    outs, at = [], 1
-    for n in data["chunks"]:
-        state, out = scan_fn(state, images[at:at + n], disps[at:at + n])
-        outs.append(out)
-        at += n
-    res = {f: torch.cat([getattr(o, f) for o in outs])
-           for f in ("pose", "pose_world", "is_keyframe", "iters")}
-    res.update(collective_calls=reducer.calls,
-               collective_bytes=reducer.bytes, steps=at - 1)
+    res = {}
+    for prefix, cache in _caches(args, dev):
+        run = sharded.make_sharded_gn(reducer, opts, cache=cache)
+        for _ in range(2 if cache is not None else 1):  # a replay
+            reducer.reset()
+            st = run(shard, torch.from_numpy(data["channels"]).to(dev),
+                     _cam(data), torch.from_numpy(data["T_init"]).to(dev))
+        res.update({prefix + "T": st.T, prefix + "num_iters": st.num_iters,
+                    prefix + "weights": st.weights,
+                    prefix + "collective_calls": reducer.calls,
+                    prefix + "collective_bytes": reducer.bytes})
     return res
 
 
-def mode_ba(data, reducer, dev):
+def mode_vo(data, reducer, dev, args):
+    from bpvo_tpu_torch.parallel import sharded_vo
+    images, disps = data["images"], data["disparities"]
+    p = convert.params_from_jax(_json(data, "params"))
+    res = {}
+    for prefix, cache in _caches(args, dev):
+        init_fn, _, scan_fn = sharded_vo.make_sharded_vo(
+            reducer, data["K"], float(data["baseline"]), images.shape[1:],
+            p, device=dev, cache=cache)
+        state = init_fn(images[0], disps[0])
+        reducer.reset()
+        outs, at = [], 1
+        for n in data["chunks"]:
+            state, out = scan_fn(state, images[at:at + n],
+                                 disps[at:at + n])
+            outs.append(out)
+            at += n
+        res.update({prefix + f: torch.cat([getattr(o, f) for o in outs])
+                    for f in ("pose", "pose_world", "is_keyframe", "iters")})
+        res.update({prefix + "collective_calls": reducer.calls,
+                    prefix + "collective_bytes": reducer.bytes,
+                    prefix + "steps": at - 1})
+    return res
+
+
+def mode_ba(data, reducer, dev, args):
     from bpvo_tpu_torch.parallel import bundle_adjustment as ba
     templates = convert.template_from_numpy(_prefixed(data, "td_"), dev)
     M = templates.points.shape[0]
@@ -99,7 +126,7 @@ def mode_ba(data, reducer, dev):
     return {"poses": win.optimize()}
 
 
-def mode_ba2d(data, reducer, dev):
+def mode_ba2d(data, reducer, dev, args):
     from bpvo_tpu_torch.parallel import bundle_adjustment as ba
     from bpvo_tpu_torch.parallel import multihost
     templates = convert.template_from_numpy(_prefixed(data, "td_"), dev)
@@ -153,13 +180,16 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", choices=sorted(MODES), required=True)
     ap.add_argument("--inp", required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--rerun", action="store_true",
+                    help="gn, vo: also run the graphed route through "
+                         "graphs.RerunCache (rerun_ outputs)")
     rank_args(ap)
     args = ap.parse_args(argv)
     reducer, dev = join(args)
     try:
         with np.load(args.inp) as f:
             data = dict(f)
-        res = MODES[args.mode](data, reducer, dev)
+        res = MODES[args.mode](data, reducer, dev, args)
         np.savez(os.path.join(args.out, f"rank{args.rank}.npz"),
                  **{k: v.cpu().numpy() if torch.is_tensor(v) else v
                     for k, v in res.items()})

@@ -535,7 +535,9 @@ class RunGraphs:
         if self._cache is None:
             self._cache = graphs_mod.GraphCache(channels.device)
         self._load(tdata, channels, T_init)
-        key = (opts, cam, *sorted(static.items()))
+        # the shapes too: holders of several shapes may share a cache
+        key = (opts, cam, tuple(channels.shape), self._td.pixels.shape,
+               *sorted(static.items()))
         out = self._cache(key, lambda: self._solve(
             self._td, self._channels, cam, self._T_in, opts, **static))
         # the next replay overwrites the graph's outputs

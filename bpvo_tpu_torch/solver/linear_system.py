@@ -56,3 +56,21 @@ def solve(H, g):
     ok = finite & (torch.max(torch.abs(H @ dp - g))
                    <= 1e-3 * (1.0 + torch.max(torch.abs(g))))
     return dp, ok
+
+
+def solve_dense(A, b):
+    """``torch.linalg.solve_ex(A, b)[0]`` (a dense solve outside any kernel
+    of this package: bundle adjustment's (6M)^2 and the pose graph's
+    (6N)^2 systems).  On CUDA the LU runs in cuSOLVER, chosen here: the
+    default may pick MAGMA, whose LU works partly on the host and
+    synchronizes with it, which a CUDA-graph capture refuses; cuSOLVER's
+    ``getrf``/``getrs`` stay on the device.  The preference is restored
+    after the call."""
+    if A.device.type != "cuda":
+        return torch.linalg.solve_ex(A, b)[0]
+    saved = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.solve_ex(A, b)[0]
+    finally:
+        torch.backends.cuda.preferred_linalg_library(saved)

@@ -68,6 +68,30 @@ The capture holds ``ops._build.count_lock``, under which every wrapper
 counts, so a launch counted by another thread (a data loader's stereo
 matcher) waits until the capture is over and is not taken for the graph's.
 
+Other counts advance the same way: a ``parallel.collectives.Reducer``
+registers its ``calls`` and ``bytes`` (``register_counter``), so a replay
+adds a captured all-reduce's call and bytes, and ``settle()`` those of an
+all-reduce in a conditional body times its runs.  An nccl all-reduce does
+no host work and is captured: in place on one rank it adds no node; across
+cards ProcessGroupNCCL runs it on a stream of its own, joined to the
+capturing stream by events, which the capture turns into dependencies,
+and NCCL adds an event wait and an event record node beside its kernel
+(``scripts/nccl_graph_nodes.py``).  A conditional body holds
+only kernel, memcpy, memset, empty, child-graph and conditional nodes;
+``_Joined`` counts each body segment's node types (``node_types``) and
+raises, naming the type, on any other (a host node, an event record or
+wait node).
+
+``GraphCache.jit(key, inputs, fn)`` is ``jax.jit`` for a function of
+tensors: the inputs copied into static buffers of the key, ``fn`` of the
+buffers replayed, copies of its outputs returned.  ``route(cache, device,
+reducer)`` is the rule the distributed layer's entry points share: the
+graphed route on CUDA with no reducer or a one-rank nccl group; the eager
+route for gloo (its host staging cannot be captured), for nccl across
+cards (``capturable``), on the CPU unless a cache is given (the tests'
+stand-ins), when asked (``cache=False``), and inside another cache's run
+(whose graph then captures the call).
+
 Captures run in CUDA's thread-local mode: another thread may go on
 allocating, copying and launching on its own streams while this one
 captures (a loader thread prefetching frames and running a matcher); only
@@ -80,6 +104,7 @@ import ctypes
 import gc
 import threading
 import warnings
+import weakref
 
 import torch
 
@@ -101,10 +126,126 @@ _bodies = []
 _running = threading.local()
 
 
+# the counts besides the ops modules' that replays advance (weak
+# references: a dropped Reducer's counts leave the list)
+_counters = []
+
+# CUDA graph node types (cudaGraphNodeType), and those a conditional body
+# may hold
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semaphore_signal",
+              "ext_semaphore_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+BODY_NODE_TYPES = frozenset(("kernel", "memcpy", "memset", "graph", "empty",
+                             "conditional"))
+
+
 def op_modules():
     """The ``ops`` modules whose wrappers count kernel launches."""
     from bpvo_tpu_torch.ops import census, fused_linearize, irls, level_gn, sgm
     return (census, fused_linearize, irls, level_gn, sgm)
+
+
+def register_counter(obj):
+    """Count ``obj.launch_count`` as the ``ops`` modules' counts are
+    counted: a replay adds its captured advance (``Reducer``'s calls and
+    bytes)."""
+    _counters.append(weakref.ref(obj))
+
+
+def counted():
+    """The ``ops`` modules and every live registered counter."""
+    live = [(r, r()) for r in _counters]
+    _counters[:] = [r for r, o in live if o is not None]
+    return op_modules() + tuple(o for _, o in live if o is not None)
+
+
+def in_run():
+    """Whether this thread is inside a ``GraphCache`` run (a warm-up, a
+    capture or a stand-in's rerun)."""
+    return getattr(_running, "cache", None) is not None
+
+
+def capturable(reducer, device) -> bool:
+    """Whether ``reducer``'s collectives on ``device`` can be captured in
+    the graphed routes: no reducer, an nccl group of one rank, or any on
+    the CPU (where only a stand-in "captures").  gloo stages CUDA tensors
+    through host memory.  Across cards NCCL puts an event wait and an
+    event record node beside each captured all-reduce's kernel (its graph
+    mixing; measured at 2 and 4 ranks, scripts/nccl_graph_nodes.py), which
+    the IF and WHILE bodies holding the collectives cannot hold, so an
+    nccl group of more ranks runs eagerly."""
+    if reducer is None or torch.device(device).type != "cuda":
+        return True
+    return reducer.backend == "nccl" and reducer.world == 1
+
+
+def route(cache, device, reducer=None, owned=None):
+    """The ``GraphCache`` a graphed entry point of the distributed layer
+    runs through, or None for its eager route.  ``cache``: False asks for
+    the eager route; a cache is taken as given (a CPU stand-in in the
+    tests); None means, on CUDA when ``capturable``, a cache of the
+    caller's own (made in ``owned``, a dict the caller keeps, one a
+    device) or without ``owned`` the device's ``default_cache``, and the
+    eager route otherwise.  Inside another cache's run the call is eager,
+    and so part of that run's graph.  A choice made from the arguments
+    alone: nothing falls back."""
+    if cache is False or in_run():
+        return None
+    if cache is not None:
+        return cache
+    device = torch.device(device)
+    if device.type != "cuda" or not capturable(reducer, device):
+        return None
+    if owned is None:
+        return default_cache(device)
+    if device not in owned:
+        owned[device] = GraphCache(device)
+    return owned[device]
+
+
+# every GraphCache of the process (``release``)
+_caches = weakref.WeakSet()
+
+
+def release():
+    """Destroy every CUDA graph the process's caches hold, after the
+    device's work is done: NCCL keeps a communicator alive while a graph
+    that captured one of its collectives exists, so a group is destroyed
+    only after its graphs (``multihost.shutdown`` calls this).  Each
+    key's next call captures anew."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for cache in list(_caches):
+        cache.clear()
+    _default_caches.clear()
+    gc.collect()
+
+
+# the process's caches of the functions graphed without an owner
+# (bundle adjustment, the pose graph), one a device, as jax.jit's cache
+_default_caches = {}
+
+
+def default_cache(device):
+    """This process's ``GraphCache`` on ``device`` for functions that have
+    no owner to hold one: its graphs and buffers live as long as the
+    process, as ``jax.jit``'s compiled programs do."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    cache = _default_caches.get(device)
+    if cache is None:
+        cache = _default_caches[device] = GraphCache(device)
+    return cache
+
+
+def clone(x):
+    """A copy of a structure of tensors (tuples, lists, named tuples)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    items = [clone(item) for item in x]
+    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
 
 
 def _leaves(x):
@@ -235,31 +376,52 @@ class _Joined:
     predicate, items)`` and ``("while", predicate, items)``; holding it
     keeps the segments' memory pools and the predicates alive.
     ``replay()`` launches the graph on the current stream and returns the
-    static outputs."""
+    static outputs.  ``node_types`` counts the captured nodes by type:
+    ``"top"`` the segments outside any body, ``"if"`` and ``"while"``
+    those in bodies (through child graphs); a body segment with a type a
+    conditional body cannot hold raises, naming it."""
 
     def __init__(self, items, outputs, device):
         self.items, self.outputs, self.device = items, outputs, device
         self._lib = lib = _build.library()
+        self.node_types = {"top": {}, "if": {}, "while": {}}
         self._graph, self._exec = ctypes.c_void_p(), ctypes.c_void_p()
         self._check(lib.bpvo_graph_create(ctypes.byref(self._graph)))
-        self._append(self._graph, items)
+        self._append(self._graph, items, "top")
         self._check(lib.bpvo_graph_instantiate(ctypes.byref(self._exec),
                                                self._graph))
 
     def _check(self, rc):
         _build.launch(self._lib, "CUDA graph", rc)
 
-    def _append(self, graph, items):
-        """Append ``items`` to ``graph`` as a chain; returns its last node
-        (null when it added none)."""
+    def _types(self, segment):
+        """{type name: count} of a segment's nodes, through child graphs."""
+        counts = (ctypes.c_longlong * len(NODE_TYPES))()
+        self._check(self._lib.bpvo_graph_node_types(segment, counts,
+                                                    len(NODE_TYPES)))
+        return {name: n for name, n in zip(NODE_TYPES, counts) if n}
+
+    def _append(self, graph, items, where):
+        """Append ``items`` to ``graph`` as a chain (``where``: "top", or
+        the kind of the body they fill); returns its last node (null when
+        it added none)."""
         lib, tail = self._lib, ctypes.c_void_p()
         for kind, *rest in items:
             if kind == "graph":
                 segment = ctypes.c_void_p(rest[0].raw_cuda_graph())
-                n = ctypes.c_longlong()
-                self._check(lib.bpvo_graph_num_nodes(segment,
-                                                     ctypes.byref(n)))
-                if n.value:
+                types = self._types(segment)
+                refused = sorted(set(types) - BODY_NODE_TYPES)
+                if where != "top" and refused:
+                    raise RuntimeError(
+                        f"graphs: a segment of a {where.upper()} body holds "
+                        f"{', '.join(refused)} node(s), which a conditional "
+                        f"body cannot hold (its nodes: {types}); a "
+                        f"collective or an op that adds them cannot run "
+                        f"inside graphs.cond or graphs.while_loop")
+                total = self.node_types[where]
+                for name, n in types.items():
+                    total[name] = total.get(name, 0) + n
+                if types:
                     self._check(lib.bpvo_graph_append_child(
                         graph, ctypes.byref(tail), segment))
                 continue
@@ -268,13 +430,13 @@ class _Joined:
             if kind == "if":
                 self._check(lib.bpvo_graph_append_if(
                     graph, ctypes.byref(tail), ptr, ctypes.byref(body)))
-                self._append(body, body_items)
+                self._append(body, body_items, "if")
             else:
                 handle = ctypes.c_ulonglong()
                 self._check(lib.bpvo_graph_append_while(
                     graph, ctypes.byref(tail), ptr, ctypes.byref(body),
                     ctypes.byref(handle)))
-                body_tail = self._append(body, body_items)
+                body_tail = self._append(body, body_items, "while")
                 self._check(lib.bpvo_graph_append_set(
                     body, ctypes.byref(body_tail), handle, ptr))
         return tail
@@ -285,11 +447,19 @@ class _Joined:
                                                 ctypes.c_void_p(stream)))
         return self.outputs
 
-    def __del__(self):
+    def close(self):
+        """Destroy the joined graph and drop the segments (their torch
+        graphs are destroyed when collected)."""
         if self._exec:
             self._lib.bpvo_graph_exec_destroy(self._exec)
+            self._exec = ctypes.c_void_p()
         if self._graph:
             self._lib.bpvo_graph_destroy(self._graph)
+            self._graph = ctypes.c_void_p()
+        self.items = self.outputs = None
+
+    def __del__(self):
+        self.close()
 
 
 class _Body:
@@ -307,9 +477,14 @@ class GraphCache:
     tensors or tuples of them) through the key's graph."""
 
     def __init__(self, device, modules=None):
+        _caches.add(self)
         self.device = torch.device(device)
         self._modules = modules
+        # the counts of the call in progress (``counted()`` at its start)
+        self._counted = None
         self._entries = {}
+        # the static buffers of ``jit``, by key
+        self._inputs = {}
         self._stream = None
         self._phase = None
         # conditional bodies the warm-up ran (the size of the counters)
@@ -323,6 +498,15 @@ class GraphCache:
 
     def __len__(self):
         return len(self._entries)
+
+    def clear(self):
+        """Destroy every graph of this cache (and its ``jit`` buffers); a
+        key's next call captures it again."""
+        for captured, _ in self._entries.values():
+            if hasattr(captured, "close"):
+                captured.close()
+        self._entries.clear()
+        self._inputs.clear()
 
     def __contains__(self, key):
         return key in self._entries
@@ -340,8 +524,26 @@ class GraphCache:
                 mod.launch_count += n
         return out
 
+    def jit(self, key, inputs, fn):
+        """``fn(buffers)`` through the graph of ``key`` (``jax.jit`` of a
+        function of tensors): ``inputs`` (a structure of tensors) copied
+        into static buffers of ``key`` and the shapes and dtypes of its
+        tensors (made at the key's first call), ``fn`` run or replayed on
+        them; returns copies of its outputs, which the next replay would
+        overwrite."""
+        key = (key, tuple((tuple(t.shape), t.dtype) for t in
+                          _leaves(inputs)))
+        bufs = self._inputs.get(key)
+        if bufs is None:
+            bufs = self._inputs[key] = clone(inputs)
+        else:
+            copy_into(bufs, inputs)
+        return clone(self(key, lambda: fn(bufs)))
+
     def _mods(self):
-        return self._modules if self._modules is not None else op_modules()
+        if self._modules is not None:
+            return self._modules
+        return self._counted if self._counted is not None else counted()
 
     @contextlib.contextmanager
     def _running(self, phase):
@@ -353,7 +555,14 @@ class GraphCache:
             _running.cache, self._phase = outer
 
     def _first_call(self, key, fn):
-        mods = self._mods()
+        self._counted = None
+        self._counted = mods = self._mods()
+        try:
+            return self._warm_up_and_capture(key, fn, mods)
+        finally:
+            self._counted = None
+
+    def _warm_up_and_capture(self, key, fn, mods):
         self._n_bodies = 0
         with self._running("warm-up"):
             out = self._warm_up(fn)
@@ -538,3 +747,47 @@ class GraphCache:
             return _Joined(self._items[0], outputs, self.device)
         finally:
             self._pools = self._segment = self._items = None
+
+
+class _Rerun:
+    """``RerunCache``'s stand-in for a captured graph: each replay runs the
+    function again (a ``cond`` body only when its predicate is true) and
+    copies its results into the outputs of the first replay."""
+
+    def __init__(self, fn, cache):
+        self.fn, self.cache, self.outputs = fn, cache, None
+        self.held = ((cache._modules or op_modules()) if cache.hold_counts
+                     else ())
+
+    def replay(self):
+        counts = [m.launch_count for m in self.held]
+        with self.cache._running("rerun"):
+            new = self.fn()
+        for m, n in zip(self.held, counts):
+            m.launch_count = n
+        if self.outputs is None:
+            self.outputs = new
+        else:
+            for dst, src in zip(_leaves(self.outputs), _leaves(new)):
+                dst.copy_(src)
+        return self.outputs
+
+
+class RerunCache(GraphCache):
+    """A ``GraphCache`` that captures nothing, for the CPU: the first call
+    runs the function (the warm-up), and each "replay" runs it again
+    (``cond`` and ``while_loop`` then read their predicates on the host)
+    into the outputs of the first replay, the static outputs a graph
+    overwrites.  It rehearses a graphed route's buffers, copies and
+    branches where no CUDA graph runs, collectives included (every rank
+    must take the same branches).  Launches and collectives count as the
+    reruns make them, so the counts equal an eager run's; with
+    ``hold_counts`` (a class attribute) a rerun's launches are not counted,
+    as a replay that enters no wrapper."""
+    hold_counts = False
+
+    def _warm_up(self, fn):
+        return fn()
+
+    def _capture(self, fn):
+        return _Rerun(fn, self)

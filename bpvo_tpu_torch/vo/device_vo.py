@@ -323,11 +323,12 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
     ``_make_front``, then ``_make_commit`` with one host read of the
     keyframe decision.  ``aux`` is the disparity, or the right image when
     ``stereo_fn`` is given.  ``DeviceVO`` captures the same functions as
-    one CUDA graph.
+    one CUDA graph (``StepGraph``).
 
     ``hooks`` are the distributed layer's (``StepHooks``;
-    ``parallel/sharded_vo.py``).  A hooked step is eager: a level with a
-    custom linearization runs ``gauss_newton.run`` op by op."""
+    ``parallel/sharded_vo.py``): a level with a custom linearization runs
+    ``gauss_newton.run`` (eagerly a host loop; in a ``StepGraph`` its
+    first iteration and a WHILE node, the collectives inside)."""
     cams = tuple(cams)
     front = _make_front(p, cams, opts_per_level, stereo_fn is not None,
                         hooks)
@@ -341,20 +342,102 @@ def make_vo_step(p: AlgorithmParameters, cams, capacities,
     return step
 
 
-def _clone(x):
-    """A copy of a structure of tensors (tuples, named tuples)."""
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    items = [_clone(item) for item in x]
-    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
-
-
 class _StepBuffers(NamedTuple):
     """The static buffers of the step graph: the frame, and the state it
     reads and writes in place."""
     image: torch.Tensor
     aux: torch.Tensor
     state: VOState
+
+
+class StepGraph:
+    """A VO step as one CUDA graph over static buffers (JAX's jitted
+    step): ``front`` and ``commit`` (``_make_front`` and ``_make_commit``,
+    with any ``StepHooks``) captured by ``cache`` with the keyframe branch
+    an IF node and every ``gauss_newton.run`` or LM loop a WHILE node; the
+    frame and the state are copied into the buffers, the new state
+    written over them.  ``step`` is one replay and no device read;
+    ``chunk`` copies a chunk of frames to the device once and replays
+    back to back (JAX's ``lax.scan``), its outputs stacked on the device.
+    The returned state is the buffers, which the next step overwrites
+    (JAX's step donates its state); another state is copied in."""
+
+    def __init__(self, front, commit, image_size, device, cache):
+        self._front, self._commit = front, commit
+        self._image_size = tuple(image_size)
+        self.device = device
+        self.cache = cache
+        self._bufs: _StepBuffers = None
+
+    def _load_state(self, state: VOState):
+        """Copy a state the buffers do not hold (after ``init``, or one set
+        by the caller) into them."""
+        try:
+            graphs.copy_into(self._bufs.state, state)
+        except ValueError as e:
+            raise ValueError(f"DeviceVO: the state does not fit the step "
+                             f"graph's buffers: {e}") from None
+
+    def step(self, state: VOState, image, aux):
+        """One replay of the step graph on the frame (tensors on the
+        device, or host arrays) from ``state``; returns (the buffers'
+        state, the graph's outputs)."""
+        if self._bufs is None:
+            rows, cols = self._image_size
+            self._bufs = _StepBuffers(
+                image=torch.empty(rows, cols, dtype=torch.float32,
+                                  device=self.device),
+                aux=torch.empty(rows, cols, dtype=torch.float32,
+                                device=self.device),
+                state=graphs.clone(state))
+        b = self._bufs
+        if state is not b.state:
+            self._load_state(state)
+        for dst, src in ((b.image, image), (b.aux, aux)):
+            src = torch.as_tensor(src)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"DeviceVO: frame of shape "
+                                 f"{tuple(src.shape)}, expected "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+
+        def fn():
+            st = b.state
+            fr = self._front(st.templates, st.T_kf, st.T_delta, b.image,
+                             b.aux)
+            new_state, out = self._commit(st, fr)
+            graphs.copy_into(st, new_state)
+            return out
+
+        # keyed by this object too: the graph writes this object's buffers
+        return b.state, self.cache(("step", self), fn)
+
+    def chunk(self, state: VOState, images, auxs):
+        """The steps of a chunk of (N, H, W) frames: one copy to the
+        device, N replays, outputs stacked (N, ...) on the device; returns
+        (the buffers' state, the stacked outputs)."""
+        images, auxs = self._as_chunk(images), self._as_chunk(auxs)
+        outs = None
+        for i in range(images.shape[0]):
+            state, out = self.step(state, images[i], auxs[i])
+            if outs is None:
+                outs = VOStepOutput(*(
+                    t.new_empty((images.shape[0],) + tuple(t.shape))
+                    for t in out))
+            for dst, src in zip(outs, out):
+                dst[i].copy_(src)
+        return state, outs
+
+    def _as_chunk(self, frames):
+        """(N, H, W) float32 on the device from an array, a tensor or a
+        sequence of either: one copy to the device."""
+        if isinstance(frames, (list, tuple)) and frames and isinstance(
+                frames[0], torch.Tensor):
+            return torch.stack([f.to(self.device, torch.float32)
+                                for f in frames])
+        return torch.as_tensor(np.asarray(frames) if isinstance(
+            frames, (list, tuple)) else frames, dtype=torch.float32).to(
+                self.device)
 
 
 class DeviceVO:
@@ -423,7 +506,7 @@ class DeviceVO:
                                   stereo_fn is not None)
         self._commit = _make_commit(p, self._cams, self._capacities,
                                     self._opts, stereo_fn)
-        self._bufs: _StepBuffers = None
+        self._sg: StepGraph = None
         self.state: VOState = None
 
     def _as_tensor(self, a):
@@ -464,47 +547,18 @@ class DeviceVO:
                                      self._as_tensor(aux))
         return out
 
-    def _load_state(self, state: VOState):
-        """Copy a state the buffers do not hold (after ``init``, or one set
-        by the caller) into them."""
-        try:
-            graphs.copy_into(self._bufs.state, state)
-        except ValueError as e:
-            raise ValueError(f"DeviceVO: the state does not fit the step "
-                             f"graph's buffers: {e}") from None
+    def _step_graph(self) -> StepGraph:
+        """The step graph over ``self._graphs`` (made at the first graphed
+        step, and again if the cache was replaced)."""
+        if self._sg is None or self._sg.cache is not self._graphs:
+            self._sg = StepGraph(self._front, self._commit,
+                                 self._image_size, self.device, self._graphs)
+        return self._sg
 
     def _graphed_step(self, image, aux) -> VOStepOutput:
         """One replay of the step graph on the frame (tensors on the card,
         or host arrays); returns the graph's outputs."""
-        if self._bufs is None:
-            rows, cols = self._image_size
-            self._bufs = _StepBuffers(
-                image=torch.empty(rows, cols, dtype=torch.float32,
-                                  device=self.device),
-                aux=torch.empty(rows, cols, dtype=torch.float32,
-                                device=self.device),
-                state=_clone(self.state))
-        b = self._bufs
-        if self.state is not b.state:
-            self._load_state(self.state)
-        for dst, src in ((b.image, image), (b.aux, aux)):
-            src = torch.as_tensor(src)
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"DeviceVO: frame of shape "
-                                 f"{tuple(src.shape)}, expected "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(src)
-
-        def fn():
-            st = b.state
-            fr = self._front(st.templates, st.T_kf, st.T_delta, b.image,
-                             b.aux)
-            new_state, out = self._commit(st, fr)
-            graphs.copy_into(st, new_state)
-            return out
-
-        out = self._graphs("step", fn)
-        self.state = b.state
+        self.state, out = self._step_graph().step(self.state, image, aux)
         return out
 
     def add_frames(self, images, auxs) -> VOStepOutput:
@@ -519,27 +573,8 @@ class DeviceVO:
         if self._graphs is None:
             outs = [self.add_frame(i, d) for i, d in zip(images, auxs)]
             return VOStepOutput(*(torch.stack(f) for f in zip(*outs)))
-        images, auxs = self._as_chunk(images), self._as_chunk(auxs)
-        outs = None
-        for i in range(images.shape[0]):
-            out = self._graphed_step(images[i], auxs[i])
-            if outs is None:
-                outs = VOStepOutput(*(
-                    t.new_empty((images.shape[0],) + tuple(t.shape))
-                    for t in out))
-            for dst, src in zip(outs, out):
-                dst[i].copy_(src)
+        self.state, outs = self._step_graph().chunk(self.state, images, auxs)
         return outs
-
-    def _as_chunk(self, frames):
-        """(N, H, W) float32 on the card from an array, a tensor or a
-        sequence of either: one copy to the card."""
-        if isinstance(frames, (list, tuple)) and frames and isinstance(
-                frames[0], torch.Tensor):
-            return torch.stack([f.to(self.device, torch.float32)
-                                for f in frames])
-        return self._as_tensor(np.asarray(frames) if isinstance(
-            frames, (list, tuple)) else frames)
 
     def point_cloud(self):
         """Point cloud of the current keyframe's template at maxTestLevel,

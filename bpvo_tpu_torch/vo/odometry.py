@@ -114,7 +114,10 @@ class VisualOdometry:
         (``parallel/bundle_adjustment.py``; JAX odometry.py:141-152).
         ``group``: a ``parallel.collectives.Reducer`` to split the points
         over its ranks (each rank runs this VisualOdometry on the same
-        frames), or None."""
+        frames), or None.  On CUDA each optimize is one replay of the
+        window size's BA graph (with no reducer or a one-rank nccl group)
+        and one
+        read of the refined poses."""
         from bpvo_tpu_torch.parallel.bundle_adjustment import (BAOptions,
                                                                KeyframeWindow)
         self._ba_window = KeyframeWindow(

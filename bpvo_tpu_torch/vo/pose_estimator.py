@@ -111,8 +111,9 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
 
     The distributed hooks (JAX bpvo_tpu/vo/device_vo.py:113-172):
     ``linearize_factory(level, tdata, channels, cam, opts)`` returns the
-    ``linearize_fn`` of a level, which then always takes the eager
-    ``gauss_newton.run`` (never the level kernel, never ``run_graphs``);
+    ``linearize_fn`` of a level, which then always takes
+    ``gauss_newton.run`` (never the level kernel, never ``run_graphs``; in
+    a captured step its loop is a WHILE node of the step's graph);
     ``count_reduce`` sums a tensor over the ranks (the good-point count).
 
     Returns (T, iters (L,), f_norm (L,), g (L, 6), status (L,), frac_good,
@@ -123,9 +124,9 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
     if linearize_factory is not None and (
             solver != "GaussNewton" or run_graphs is not None
             or multistart_px > 0):
-        raise ValueError("a custom linearization runs Gauss-Newton on the "
-                         "eager gauss_newton.run only: no LM, no run_graphs,"
-                         " no multi-start")
+        raise ValueError("a custom linearization runs Gauss-Newton on "
+                         "gauss_newton.run only: no LM, no run_graphs, no "
+                         "multi-start")
     n_levels = len(channels)
     if start_level < 0:
         start_level = n_levels - 1

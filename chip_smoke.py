@@ -189,7 +189,17 @@
    poses.  One ``{"zoo_phase": ...}`` JSON line.
 
 13. Distributed phase (``bpvo_tpu_torch.parallel``): in this process a
-   world-1 ``nccl`` group; the sharded GN at 376x1241 (K = 16384) bit for
+   world-1 ``nccl`` group.  Every graphed path (one CUDA-graph replay a
+   call, the all-reduces captured) is held bit for bit to its eager route
+   (``cache=False``; outputs, launches and collectives), its replay run
+   under ``set_sync_debug_mode("error")`` (no read), with the graphed and
+   eager ms alternated in one call and the node types of its graphs (in
+   IF and WHILE bodies apart) printed: the sharded GN, the sharded VO's
+   ``scan_fn`` chunks and ``step_fn`` steps (and host ops a step), the
+   last BA window's ``ba_solve``, ``make_sharded_ba`` and
+   ``make_sharded_ba_2d``, ``ba_solve_with_depth`` and the pose graph (a
+   chain of POSE_GRAPH_N nodes with a loop closure).  The sharded GN at
+   376x1241 (K = 16384) bit for
    bit the same route with no reducer, at LINEAR and at CUBIC sampling
    (the gather route: no ``fused_linearize`` launch); the sharded VO, intensity and
    Bit-Planes, with the dry run's parameters over 1+4 frames in 2
@@ -213,7 +223,8 @@
    shape; ``ba_solve_with_depth`` at M = 4, K = 16384 (counted) within
    BA_DEPTH_ATOL of the CPU's plain run; the collective calls and bytes
    per step beside JAX's count; ``apps.scaling_bench`` at world 1 (nccl)
-   and world 2 (gloo, host-staged).  One ``{"distributed_phase": ...}``
+   and world 2 (gloo, host-staged, eager); every multi-process run under
+   a wall timeout of DIST_TIMEOUT_S.  One ``{"distributed_phase": ...}``
    JSON line.
 
 Any failure exits non-zero.  The line before the last is a JSON object with
@@ -2530,6 +2541,96 @@ BA_DEPTH_M, BA_DEPTH_ITERS = 4, 4
 JAX_STEP_ALL_REDUCES, JAX_STEP_ALL_REDUCE_BYTES = 19, 25468
 
 
+DIST_TIMEOUT_S = 300           # each multi-process run's wall timeout
+DIST_ROUNDS = 3                # alternated eager/graphed timing rounds
+POSE_GRAPH_N = 8               # the pose graph: a chain and a loop closure
+
+
+def _bitwise(a, b):
+    """Two structures of tensors equal bit for bit, leaf by leaf."""
+    import torch
+    from bpvo_tpu_torch.utils import graphs
+    la, lb = graphs._leaves(a), graphs._leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _alternated_ms(eager, graphed, rounds=DIST_ROUNDS, setup=None):
+    """Host ms of ``eager()`` and ``graphed()`` (each ending in a sync), in
+    turns eager, graphed, graphed, eager for ``rounds`` rounds (host time
+    varies ~2x between calls, so only times taken together compare).  With
+    ``setup``, each is timed as ``fn(setup(fn))``, the setup untimed.
+    Returns (eager ms, graphed ms): the mean of each."""
+    import torch
+    ms = {"eager": [], "graphed": []}
+    for _ in range(rounds):
+        for name, fn in (("eager", eager), ("graphed", graphed),
+                         ("graphed", graphed), ("eager", eager)):
+            arg = () if setup is None else (setup(fn),)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(*arg)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3)
+    return (sum(ms["eager"]) / len(ms["eager"]),
+            sum(ms["graphed"]) / len(ms["graphed"]))
+
+
+def _graphed_vs_eager(label, fn, smi, reducer=None):
+    """``fn(cache)`` on its eager route (``cache=False``) and its graphed
+    one (a cache of its own: the first call captures, later calls are one
+    replay each with no device read): bitwise, the same launches and
+    collectives, ms alternated.  Returns the record; fails on a
+    difference."""
+    import torch
+    from bpvo_tpu_torch.utils import graphs
+    cache = graphs.GraphCache(torch.device("cuda",
+                                           torch.cuda.current_device()))
+
+    def stats():
+        return reducer.stats() if reducer is not None else {}
+    _reset_counts()
+    s0 = stats()
+    want = fn(False)
+    n_e, c_e = _counts(), _stat_delta(s0, stats())
+    first = fn(cache)
+    _reset_counts()
+    s0, r0 = stats(), graphs.replay_count
+    with _sync_errors():
+        got = fn(cache)
+    replays = graphs.replay_count - r0
+    n_g, c_g = _counts(), _stat_delta(s0, stats())
+    same = (_bitwise(got, want) and _bitwise(first, want) and n_g == n_e
+            and c_g == c_e)
+    ms_e, ms_g = _alternated_ms(lambda: fn(False), lambda: fn(cache))
+    rec = {"graphed_equals_eager": same, "replays": replays,
+           "reads": 0, "ms": ms_g, "ms_eager": ms_e, "launches": n_g,
+           "collectives": c_g, "node_types": _node_types(cache)}
+    print(f"{label} graphed vs eager: {ms_g:.3f} vs {ms_e:.3f} ms a call "
+          f"(alternated) on {smi}; {replays} replay, no read; bitwise "
+          f"(outputs, launches, collectives): {same}; launches {n_g}, "
+          f"collectives {c_g}; node types {rec['node_types']}")
+    _require(same, f"{label}: graphed differs from eager ({n_g} vs {n_e}, "
+                   f"{c_g} vs {c_e})")
+    _require(replays == 1, f"{label}: {replays} replays a call")
+    return rec
+
+
+def _stat_delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _node_types(cache):
+    """The node types of every graph of ``cache``, summed: {"top": ...,
+    "if": ..., "while": ...} (``graphs._Joined.node_types``)."""
+    out = {"top": {}, "if": {}, "while": {}}
+    for captured, _ in cache._entries.values():
+        for where, types in captured.node_types.items():
+            for name, n in types.items():
+                out[where][name] = out[where].get(name, 0) + n
+    return out
+
+
 def distributed_phase(dev, smi):
     """Phase 13 (see the module docstring): the distributed layer on the
     card.  Returns (the ``distributed_phase`` JSON object, {path: launch
@@ -2549,6 +2650,7 @@ def distributed_phase(dev, smi):
     from bpvo_tpu_torch.parallel import sharded_vo
     from bpvo_tpu_torch.solver import gauss_newton as gn
     from bpvo_tpu_torch.types import InterpolationType
+    from bpvo_tpu_torch.utils import graphs
     from bpvo_tpu_torch.vo import device_vo
 
     t0 = time.perf_counter()
@@ -2569,28 +2671,60 @@ def distributed_phase(dev, smi):
         opts = gn.GNOptions(function_tolerance=1e-4,
                             parameter_tolerance=1e-6)
         T0 = torch.eye(4, dtype=torch.float32, device=dev)
+        # the eager route (cache=False) and the graphed one (one replay a
+        # solve, the all-reduces captured), each with its counts
+        run_e = sharded.make_sharded_gn(reducer, opts, cache=False)
+        gn_cache = graphs.GraphCache(dev)
+        run_g = sharded.make_sharded_gn(reducer, opts, cache=gn_cache)
+        # the counts settled (_counts) before the collectives are read
+        _reset_counts()
         reducer.reset()
-        st = sharded.make_sharded_gn(reducer, opts)(tdata, ch, cam, T0)
-        gn_stats = reducer.stats()     # one solve's
+        st_e = run_e(tdata, ch, cam, T0)
+        n_e, gn_stats = _counts(), reducer.stats()     # one solve's
+        st_first = run_g(tdata, ch, cam, T0)           # warm-up, capture
+        _reset_counts()
+        reducer.reset()
+        r0 = graphs.replay_count
+        with _sync_errors():
+            st = run_g(tdata, ch, cam, T0)             # one replay, no read
+        replays = graphs.replay_count - r0
+        n_g, stats_g = _counts(), reducer.stats()
+        graphed_same = (_bitwise(st, st_e) and _bitwise(st_first, st_e)
+                        and stats_g == gn_stats and n_g == n_e)
         st_none = sharded.make_sharded_gn(None, opts)(tdata, ch, cam, T0)
         st_run = gn.run(tdata, ch, cam, T0, opts)
-        same = all(torch.equal(a, b) for a, b in zip(st, st_none))
+        same = _bitwise(st, st_none)
         d_run = float((st.T - st_run.T).abs().max())
-        gn_ms = _host_ms(lambda: sharded.make_sharded_gn(reducer, opts)(
-            tdata, ch, cam, T0))
-        gn_ms_none = _host_ms(lambda: sharded.make_sharded_gn(None, opts)(
-            tdata, ch, cam, T0))
+        gn_ms_e, gn_ms = _alternated_ms(
+            lambda: run_e(tdata, ch, cam, T0),
+            lambda: run_g(tdata, ch, cam, T0))
+        run_none = sharded.make_sharded_gn(None, opts)
+        gn_ms_none = _host_ms(lambda: run_none(tdata, ch, cam, T0))
+        types = _node_types(gn_cache)
         out["sharded_gn"] = {"iterations": int(st.num_iters),
-                             "ms": gn_ms, "ms_no_reducer": gn_ms_none,
+                             "ms": gn_ms, "ms_eager": gn_ms_e,
+                             "ms_no_reducer": gn_ms_none,
+                             "replays_per_solve": replays,
+                             "reads_per_solve": 0,
+                             "graphed_equals_eager": graphed_same,
                              "nccl_equals_no_reducer": same,
                              "max_abs_vs_gauss_newton_run": d_run,
-                             "collectives_per_solve": gn_stats}
+                             "collectives_per_solve": gn_stats,
+                             "collectives_per_solve_graphed": stats_g,
+                             "launches_per_solve": n_g,
+                             "node_types": types}
         print(f"sharded GN 376x1241 K=16384 (nccl, world 1): "
-              f"{int(st.num_iters)} iterations, {gn_ms:.3f} ms a solve "
-              f"({gn_ms_none:.3f} with no reducer) on {smi}; bitwise the "
-              f"no-reducer route: {same}; max |T - "
-              f"gauss_newton.run T| {d_run:.3e}; collectives per solve "
-              f"{gn_stats}")
+              f"{int(st.num_iters)} iterations; graphed {gn_ms:.3f} ms a "
+              f"solve ({replays} replay, no read), eager {gn_ms_e:.3f} ms, "
+              f"alternated; graphed with no reducer {gn_ms_none:.3f} ms; on "
+              f"{smi}; graphed bitwise eager (state, collectives, launches): "
+              f"{graphed_same}; bitwise the no-reducer route: {same}; max "
+              f"|T - gauss_newton.run T| {d_run:.3e}; collectives per solve "
+              f"{gn_stats} (graphed {stats_g}); launches {n_g}; node types "
+              f"{types}")
+        _require(graphed_same, f"sharded GN: graphed differs from eager "
+                               f"({stats_g} vs {gn_stats}, {n_g} vs {n_e})")
+        _require(replays == 1, f"sharded GN: {replays} replays a solve")
         _require(same, "sharded GN: world-1 nccl differs from no reducer")
         _require(bool(torch.isfinite(st.T).all()), "sharded GN: non-finite")
         # CUBIC sampling: the gather route, no fused_linearize launch
@@ -2620,29 +2754,83 @@ def distributed_phase(dev, smi):
             key = "intensity" if c1 else "bitplanes"
             p = AlgorithmParameters(**dryrun.DRYRUN_PARAMS, descriptor=desc)
 
-            def run_sharded(red):
-                init_fn, _, scan_fn = sharded_vo.make_sharded_vo(
-                    red, K, baseline, shape, p, device=dev)
+            def make(red, cache=None):
+                return (red, cache, sharded_vo.make_sharded_vo(
+                    red, K, baseline, shape, p, device=dev, cache=cache))
+
+            def run_sharded(route, steps=False, no_reads=True):
+                """Init, then the frames in dryrun.CHUNKS chunks through
+                ``scan_fn`` (graphed and ``no_reads``: under the sync debug
+                mode, so a read raises; not on the call that captures), or
+                one by one through ``step_fn`` (``steps``)."""
+                red, cache, (init_fn, step_fn, scan_fn) = route
                 state = init_fn(images[0], disps[0])
                 if red is not None:
                     red.reset()
                 outs, ms = [], []
                 for lo, hi in dryrun.CHUNKS:
                     t = time.perf_counter()
-                    state, o = scan_fn(state, images[lo:hi], disps[lo:hi])
+                    if steps:
+                        for i in range(lo, hi):
+                            state, o = step_fn(state, images[i], disps[i])
+                            outs.append(device_vo.VOStepOutput(
+                                *(x[None] for x in o)))
+                    else:
+                        with _sync_errors(no_reads and cache is not False):
+                            state, o = scan_fn(state, images[lo:hi],
+                                               disps[lo:hi])
+                        outs.append(o)
                     torch.cuda.synchronize()
                     ms.append((time.perf_counter() - t) * 1e3 / (hi - lo))
-                    outs.append(o)
-                return (torch.cat([o.pose_world for o in outs]),
-                        torch.cat([o.is_keyframe for o in outs]), ms,
-                        state)
+                stacked = device_vo.VOStepOutput(
+                    *(torch.cat(f) for f in zip(*outs)))
+                return (stacked.pose_world, stacked.is_keyframe, ms, state,
+                        stacked)
 
-            run_sharded(reducer)                   # warm-up
+            vo_cache = graphs.GraphCache(dev)
+            graphed, eager = make(reducer, vo_cache), make(reducer, False)
+            run_sharded(graphed, no_reads=False)   # warm-up and capture
             _reset_counts()
-            world, kf, ms, state = run_sharded(reducer)
+            r0 = graphs.replay_count
+            world, kf, ms, state, g_out = run_sharded(graphed)
+            replays = graphs.replay_count - r0
             launches[name] = _counts()
             stats = reducer.stats()
-            world_none, kf_none, _, _ = run_sharded(None)
+            # the eager route (cache=False) and the graphed step_fn
+            _reset_counts()
+            *_, e_out = run_sharded(eager)
+            e_launches, e_stats = _counts(), reducer.stats()
+            *_, s_out = run_sharded(graphed, steps=True)
+            graphed_same = (_bitwise(g_out, e_out) and _bitwise(s_out, e_out)
+                            and e_stats == stats
+                            and e_launches == launches[name])
+            n_steps = int(e_out.pose.shape[0])
+            inits = {}
+
+            def steps_of(route):
+                """The steps through ``step_fn``, timed from an untimed
+                ``init_fn`` state."""
+                init_fn, step_fn, _ = route[2]
+
+                def steps(state):
+                    for i in range(1, n_steps + 1):
+                        state, _ = step_fn(state, images[i], disps[i])
+                inits[steps] = init_fn
+                return steps
+            seq_e, seq_g = _alternated_ms(
+                steps_of(eager), steps_of(graphed),
+                setup=lambda fn: inits[fn](images[0], disps[0]))
+            host_ops = {}
+            for label, (_, _, (init_fn, step_fn, _)) in (
+                    ("eager", eager), ("graphed", graphed)):
+                held = [init_fn(images[0], disps[0])]
+
+                def one(i, step_fn=step_fn, held=held):
+                    held[0], _ = step_fn(held[0], images[1 + i],
+                                         disps[1 + i])
+                host_ops[label] = _host_ops(one, n_steps)
+            world_none, kf_none, _, _, _ = run_sharded(make(None),
+                                                       no_reads=False)
             single = device_vo.DeviceVO(K, baseline, shape, p, device=dev)
             want = single.add_frames(images, disps).pose_world
             # the rule witness: DeviceVO with gauss_newton.run at every
@@ -2680,6 +2868,13 @@ def distributed_phase(dev, smi):
             res = {
                 "keyframes": kf.cpu().numpy().astype(int).tolist(),
                 "ms_per_step_by_chunk": ms,
+                "graphed_equals_eager": graphed_same,
+                "replays_per_step": replays / n_steps,
+                "reads_per_chunk": 0,
+                "ms_per_step_eager": seq_e / n_steps,
+                "ms_per_step_graphed": seq_g / n_steps,
+                "host_ops_per_step": host_ops,
+                "node_types": _node_types(vo_cache),
                 "nccl_equals_no_reducer": bool(
                     torch.equal(world, world_none)
                     and torch.equal(kf, kf_none)),
@@ -2716,6 +2911,19 @@ def distributed_phase(dev, smi):
                   f"{res['collective_calls_per_step']:.2f} calls, "
                   f"{res['collective_bytes_per_step']:.0f} B; launches "
                   f"{launches[name]}")
+            print(f"{name} graphed (one replay a step, chunks read-free) "
+                  f"vs eager, alternated: {res['ms_per_step_graphed']:.3f} "
+                  f"vs {res['ms_per_step_eager']:.3f} ms a step ("
+                  f"{n_steps} steps through step_fn) on {smi}; host ops a "
+                  f"step {host_ops}; bitwise eager (poses, iterations, "
+                  f"keyframes, collectives, launches): {graphed_same}; "
+                  f"replays a step {res['replays_per_step']:.2f}; node "
+                  f"types {res['node_types']}")
+            _require(graphed_same, f"{name}: graphed differs from eager "
+                                   f"({stats} vs {e_stats}, "
+                                   f"{launches[name]} vs {e_launches})")
+            _require(replays == n_steps, f"{name}: {replays} replays for "
+                                         f"{n_steps} steps")
             w = res["rule_witness"]
             print(f"{name} rule witness: hooked at DeviceVO's sigma rule "
                   f"bitwise DeviceVO on gauss_newton.run "
@@ -2758,7 +2966,7 @@ def distributed_phase(dev, smi):
         multihost.shutdown()
 
     # 2. world 2, gloo, two processes on cuda:0 (host-staged)
-    res2 = dryrun.run(2, "gloo", "cuda", *shape)
+    res2 = dryrun.run(2, "gloo", "cuda", *shape, timeout_s=DIST_TIMEOUT_S)
     _require(res2["ok"], f"dryrun world 2 gloo: {res2}")
     out["dryrun_gloo_world2"] = res2
     print(f"dryrun 2 ranks gloo on cuda:0 (host-staged, not a collective on "
@@ -2822,6 +3030,34 @@ def distributed_phase(dev, smi):
         "irls_reduce ba edge", win._templates[0], win._channels[1],
         vo._cams[0], gn.GNOptions())
 
+    # the last window's BA graphed (one replay, as optimize ran it) and
+    # eager, bitwise, ms alternated; make_sharded_ba(_2d) on the nccl group
+    M_last = len(win._templates)
+    stacked = ba.stack_templates(win._templates)
+    chans = torch.stack(win._channels)
+    poses0 = torch.from_numpy(np.stack(win._poses)).to(dev)
+    cam0 = vo._cams[vo._p.maxTestLevel]
+    reducer = multihost.initialize(
+        "nccl", 1, 0, f"tcp://127.0.0.1:{multihost.free_port()}",
+        device=dev)
+    try:
+        layout = multihost.RankLayout(1, 1)
+        cases = {
+            "ba_solve": lambda c: ba.ba_solve(stacked, chans, cam0, poses0,
+                                              opts_ba, cache=c),
+            "make_sharded_ba": lambda c: ba.make_sharded_ba(
+                reducer, opts_ba, M_last, cache=c)(stacked, chans, cam0,
+                                                   poses0),
+            "make_sharded_ba_2d": lambda c: ba.make_sharded_ba_2d(
+                reducer, opts_ba, M_last, layout, cache=c)(stacked, chans,
+                                                           cam0, poses0)}
+        out["ba_graphed"] = {"M": M_last}
+        for label, fn in cases.items():
+            out["ba_graphed"][label] = _graphed_vs_eager(label, fn, smi,
+                                                         reducer)
+    finally:
+        multihost.shutdown()
+
     # ba_solve_with_depth at M = 4, K = 16384: card vs the CPU's plain run
     M = BA_DEPTH_M
     stacked = ba.stack_templates(win._templates[:M])
@@ -2829,13 +3065,13 @@ def distributed_phase(dev, smi):
     poses0 = torch.from_numpy(np.stack(win._poses[:M])).to(dev)
     d_opts = ba.BAOptions(max_iterations=BA_DEPTH_ITERS, refine_depth=True)
     _reset_counts()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     pd, td_d, cost_d = ba.ba_solve_with_depth(stacked, chans, vo._cams[0],
                                               poses0, d_opts)
-    torch.cuda.synchronize()
-    depth_ms = (time.perf_counter() - t) * 1e3
-    launches["ba_depth"] = _counts()
+    launches["ba_depth"] = _counts()          # the graph's first call
+    out["ba_depth_graphed"] = _graphed_vs_eager(
+        "ba_solve_with_depth", lambda c: ba.ba_solve_with_depth(
+            stacked, chans, vo._cams[0], poses0, d_opts, cache=c), smi)
+    depth_ms = out["ba_depth_graphed"]["ms"]
     cpu = [ba.TemplateData(*(x.cpu() for x in stacked)), chans.cpu()]
     pc, _, cost_c = ba.ba_solve_with_depth(cpu[0], cpu[1], vo._cams[0],
                                            poses0.cpu(), d_opts)
@@ -2856,13 +3092,36 @@ def distributed_phase(dev, smi):
              f"ba_solve_with_depth: irls_reduce launched "
              f"{launches['ba_depth']['irls_reduce']}, expected {want_d}")
     del vo, win, stacked, chans
+
+    # the pose graph: a chain of POSE_GRAPH_N noisy odometry poses and a
+    # loop closure, graphed against eager
+    from bpvo_tpu_torch.core import se3
+    from bpvo_tpu_torch.parallel import pose_graph
+    g = torch.Generator().manual_seed(0)
+    n = POSE_GRAPH_N
+    truth = se3.exp(torch.cat([0.02 * torch.randn(n, 3, generator=g),
+                               0.3 * torch.randn(n, 3, generator=g)], 1))
+    edges = np.concatenate([pose_graph.sequential_edges(n), [[0, n - 1]]])
+    meas = truth[edges[:, 0]] @ se3.inverse(truth[edges[:, 1]])
+    noisy = truth @ se3.exp(0.01 * torch.randn(n, 6, generator=g))
+    args = [x.to(dev) for x in (noisy, torch.from_numpy(edges), meas,
+                                torch.eye(6).expand(len(edges), 6, 6))]
+    out["pose_graph"] = _graphed_vs_eager(
+        "pose_graph", lambda c: pose_graph.optimize(*args, device=dev,
+                                                    cache=c), smi)
     _lap(t0, "distributed: BA")
 
     # 4. collectives against JAX's count; the scaling bench
     sc = {"world1_nccl": scaling_bench.run_scaling(
-        (1,), backend="nccl", device="cuda", reps=10),
+        (1,), backend="nccl", device="cuda", reps=10,
+        timeout_s=DIST_TIMEOUT_S),
         "world2_gloo": scaling_bench.run_scaling(
-        (1, 2), backend="gloo", device="cuda", reps=10)}
+        (1, 2), backend="gloo", device="cuda", reps=10,
+        timeout_s=DIST_TIMEOUT_S)}
+    _require(all(v["graphed"] for v in sc["world1_nccl"]["by_world"].values())
+             and not any(v["graphed"] for v in
+                         sc["world2_gloo"]["by_world"].values()),
+             f"scaling_bench: nccl graphed, gloo eager: {sc}")
     out["scaling_bench"] = sc
     for name in ("sharded_vo", "sharded_vo_bitplanes"):
         print(f"collectives per step, {name}: "
@@ -2874,7 +3133,7 @@ def distributed_phase(dev, smi):
               f"(MULTICHIP_r05.json)")
     for name, r in sc.items():
         print(f"scaling_bench {name} ({r['points']} points, "
-              f"{'host-staged' if r['staged'] else 'on the card'}): " + ", ".join(
+              f"{'host-staged, eager' if r['staged'] else 'on the card, graphed'}): " + ", ".join(
                   f"world {n}: {v['ms_per_solve']:.3f} ms a solve, "
                   f"efficiency {v['efficiency']:.3f}"
                   for n, v in r["by_world"].items()) + f" on {smi}")

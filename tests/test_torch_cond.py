@@ -44,6 +44,16 @@ POSE_ATOL_E = 2.3e-3       # accepted delta (e), ROADMAP C
 N_STEPS = 12
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Whole-frame runs of small ops: one torch thread keeps the suite's
+    workers from waiting on each other's spinning thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # graphs.cond and the launch counts of IF bodies
 # ---------------------------------------------------------------------------

@@ -37,46 +37,28 @@ from test_torch_gauss_newton import _gn_problem, _np_template
 N_FRAMES = 11                  # the initial frame and 10 steps
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Whole-frame runs of small ops: one torch thread keeps the suite's
+    workers from waiting on each other's spinning thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _leaves(x):
     if isinstance(x, torch.Tensor):
         return [x]
     return [t for item in x for t in _leaves(item)]
 
 
-class _Rerun:
-    """A stand-in for a captured graph: each replay runs the function
-    again with the launch counts held, an IF body only when its predicate
-    is true (``graphs.cond`` in the "rerun" phase), and copies its results
-    into the outputs of the first replay."""
-
-    def __init__(self, fn, cache):
-        self.fn, self.cache, self.outputs = fn, cache, None
-        self.modules = cache._modules or graphs.op_modules()
-
-    def replay(self):
-        counts = [m.launch_count for m in self.modules]
-        with self.cache._running("rerun"):
-            new = self.fn()
-        for m, n in zip(self.modules, counts):
-            m.launch_count = n
-        if self.outputs is None:
-            self.outputs = new
-        else:
-            for dst, src in zip(_leaves(self.outputs), _leaves(new)):
-                dst.copy_(src)
-        return self.outputs
-
-
-class ReplayStandIn(graphs.GraphCache):
+class ReplayStandIn(graphs.RerunCache):
     """``GraphCache`` on the CPU: the warm-up runs the function, the
     "capture" records it without running it (as a capture runs no
-    kernel), a replay reruns it into static outputs (``_Rerun``)."""
-
-    def _warm_up(self, fn):
-        return fn()
-
-    def _capture(self, fn):
-        return _Rerun(fn, self)
+    kernel), a replay reruns it into static outputs with the launch counts
+    held (``graphs.RerunCache`` with ``hold_counts``)."""
+    hold_counts = True
 
 
 # ---------------------------------------------------------------------------

@@ -524,3 +524,36 @@ def test_broken_capture_raises(cuda):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "raised:" in proc.stdout
+
+
+@pytest.mark.gpu
+def test_refused_node_type_in_a_body_raises(cuda):
+    """A conditional body holds only kernel, memcpy, memset, empty,
+    child-graph and conditional nodes: an IF or WHILE body whose segment
+    holds an event record node (an external event recorded in the
+    capture) raises when the graph is joined, naming the type, and no graph
+    is kept; the same segment outside a body is joined, its node counted.
+    The graphs' node types are reported (``node_types``)."""
+    x = torch.ones(8, device=cuda)
+    pred = torch.ones((), dtype=torch.bool, device=cuda)
+    event = torch.cuda.Event(external=True)
+
+    def recorded():
+        event.record()
+        return x + 1
+
+    cache = graphs.GraphCache(cuda)
+    with pytest.raises(RuntimeError, match="event_record"):
+        cache("if", lambda: graphs.cond(pred, lambda: (recorded(),),
+                                        (x * 2,)))
+    n = torch.zeros((), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="event_record"):
+        cache("while", lambda: graphs.while_loop(
+            lambda c: c[0] < 3, lambda c: (c[0] + 1, recorded()),
+            (n.clone(), x.clone())))
+    assert "if" not in cache and "while" not in cache
+    cache("top", recorded)
+    assert torch.equal(cache("top", recorded), x + 1)
+    joined = cache._entries["top"][0]
+    assert joined.node_types["top"].get("event_record") == 1
+    assert joined.node_types["if"] == joined.node_types["while"] == {}

@@ -5,7 +5,8 @@ their inputs and outputs npz files, against the JAX package on a mesh of
 conftest's 8 virtual devices, as tests/test_multiprocess.py runs JAX's own
 workers: 2-rank sharded GN (and at capacity 1001, padding masked), 2-rank
 sharded VO over 4 frames with a keyframe, 4-rank 2-D BA (kf 2 x points 2),
-all at atol 5e-4 with the ranks bitwise equal, and a 2-rank
+all at atol 5e-4 with the ranks bitwise equal (the GN and VO ranks also
+through ``graphs.RerunCache``, equal to their eager runs), and a 2-rank
 ``KeyframeWindow`` (pose-only at 5e-4, depth Schur at 1e-3); the dry run and the scaling
 bench at a small size; a rank whose peer never comes fails at the group's
 timeout instead of hanging."""
@@ -52,29 +53,44 @@ def _template_arrays(tdata):
     return {f"td_{k}": np.asarray(v) for k, v in tdata._asdict().items()}
 
 
-def _run(tmp_path, mode, world, **inputs):
+def _run(tmp_path, mode, world, args=(), **inputs):
     """Spawn ``world`` ranks of the worker; each rank's outputs."""
     inp = str(tmp_path / "in.npz")
     np.savez(inp, **inputs)
     done = multihost.launch(WORKER, ["--mode", mode, "--inp", inp, "--out",
                                      str(tmp_path), "--backend", "gloo",
-                                     "--device", "cpu", "--threads", "1"],
-                            world, TIMEOUT_S)
+                                     "--device", "cpu", "--threads", "1",
+                                     *args], world, TIMEOUT_S)
     for r, d in enumerate(done):
         assert d.returncode == 0, f"rank {r}: {d.returncode}\n{d.stdout[-3000:]}"
         assert f"WORKER_OK mode={mode} rank={r} world={world}" in d.stdout
     outs = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
     for o in outs[1:]:
         for k in o:
-            if k != "weights":       # the weights stay per rank
+            if not k.endswith("weights"):   # the weights stay per rank
                 np.testing.assert_array_equal(o[k], outs[0][k], err_msg=k)
     return outs
+
+
+def _rerun_equals_eager(outs):
+    """Each rank's ``--rerun`` outputs (the graphed route through
+    ``graphs.RerunCache``) equal its eager ones bit for bit, collective
+    counts included; ``_run`` holds the ranks equal to each other, so
+    both ranks ran the same iterations and took the same branches."""
+    for o in outs:
+        keys = [k for k in o if k.startswith("rerun_")]
+        assert keys
+        for k in keys:
+            np.testing.assert_array_equal(o[k], o[k[len("rerun_"):]],
+                                          err_msg=k)
 
 
 @pytest.mark.parametrize("capacity", [2048, 1001])
 def test_two_rank_sharded_gn(tmp_path, capacity):
     """Against JAX's ``make_sharded_gn`` on a 2-device mesh; at capacity
-    1001 the second rank's last slot is padding (masked)."""
+    1001 the second rank's last slot is padding (masked).  Each rank also
+    runs the graphed route through the stand-in (``--rerun``): equal to
+    its eager run."""
     I0, I1, D, cam, T_true = render_pair(
         [0.001, -0.002, 0.001, 0.01, -0.005, 0.015])
     tdata, _ = build_template(I0, D, cam, capacity=capacity)
@@ -84,9 +100,10 @@ def test_two_rank_sharded_gn(tmp_path, capacity):
     st = jsh.make_sharded_gn(mesh, opts)(jsh.shard_template(tdata, mesh),
                                          jnp.asarray(I1)[None], cam,
                                          jnp.eye(4))
-    outs = _run(tmp_path, "gn", 2, **_template_arrays(tdata),
+    outs = _run(tmp_path, "gn", 2, ("--rerun",), **_template_arrays(tdata),
                 channels=np.asarray(I1, np.float32)[None], cam=_cam(cam),
                 opts=_json(opts), T_init=np.eye(4, dtype=np.float32))
+    _rerun_equals_eager(outs)
     np.testing.assert_allclose(outs[0]["T"], np.asarray(st.T), atol=ATOL)
     assert abs(int(outs[0]["num_iters"]) - int(st.num_iters)) <= 1
     half = (capacity + capacity % 2) // 2
@@ -98,7 +115,9 @@ def test_two_rank_sharded_gn(tmp_path, capacity):
 def test_two_rank_sharded_vo(tmp_path):
     """The whole sharded VO step over 4 frames in two chunks, a keyframe
     among them, against JAX's ``make_sharded_vo`` on a 2-device mesh: world
-    poses at atol 5e-4, the same keyframe flags."""
+    poses at atol 5e-4, the same keyframe flags.  Each rank also runs the
+    graphed route through the stand-in (``--rerun``): equal to its eager
+    run, keyframes and iterations included."""
     p = JParams(minSaliency=2.0, numPyramidLevels=3, functionTolerance=1e-4,
                 parameterTolerance=1e-6, maxIterations=50,
                 minTranslationMagToKeyFrame=0.04)
@@ -117,9 +136,10 @@ def test_two_rank_sharded_vo(tmp_path):
                              jnp.asarray(disps[lo:hi]))
         world.append(np.asarray(out.pose_world))
         kf.append(np.asarray(out.is_keyframe))
-    outs = _run(tmp_path, "vo", 2, images=images, disparities=disps, K=K,
-                baseline=np.float32(cam.baseline), params=_json(p),
-                chunks=np.array([2, 2]))
+    outs = _run(tmp_path, "vo", 2, ("--rerun",), images=images,
+                disparities=disps, K=K, baseline=np.float32(cam.baseline),
+                params=_json(p), chunks=np.array([2, 2]))
+    _rerun_equals_eager(outs)
     np.testing.assert_allclose(outs[0]["pose_world"], np.concatenate(world),
                                atol=ATOL)
     np.testing.assert_array_equal(outs[0]["is_keyframe"],

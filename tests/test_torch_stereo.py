@@ -37,6 +37,16 @@ TWIST = (0.0, 0.0, 0.0, 0.01, 0.0, 0.02)
 POSE_ATOL = 3e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Whole-frame runs of small ops: one torch thread keeps the suite's
+    workers from waiting on each other's spinning thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.as_tensor(np.array(a, np.float32))
 

@@ -56,6 +56,16 @@ from test_torch_zoo import _gather_problem, _np_template
 LIMIT = 5                      # the loops' iteration limit
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Whole-frame runs of small ops: one torch thread keeps the suite's
+    workers from waiting on each other's spinning thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fake_op_module():
     mod = types.SimpleNamespace(launch_count=0)
 
