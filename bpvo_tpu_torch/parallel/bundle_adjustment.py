@@ -470,20 +470,47 @@ class KeyframeWindow:
             self._channels.pop(0)
             self._poses.pop(0)
 
+    def _solve(self, templates, channels, poses):
+        """``ba_solve`` over keyframes (lists of templates and channels,
+        poses as host arrays), the points split over the reducer's
+        ranks."""
+        templates = stack_templates(templates)
+        channels = torch.stack(channels)
+        poses = torch.from_numpy(np.stack(poses)).to(self._device)
+        if self._reducer is not None:
+            templates = sharded.shard_template(
+                templates, self._reducer.rank, self._reducer.world)
+        return ba_solve(templates, channels, self._cam, poses, self._opts,
+                        self._reducer, self._cache)
+
+    def graphed(self) -> bool:
+        """Whether ``optimize`` replays graphs (``graphs.route``)."""
+        return graphs.route(self._cache, self._device,
+                            self._reducer) is not None
+
+    def capture(self, template: TemplateData, channels):
+        """Capture the graph of every window size from 2 to the window's
+        (JAX's ``BundleAdjuster`` jits a runner per size), on inputs of a
+        keyframe's shapes (``template`` and ``channels``, placeholders),
+        so that no optimize pays a capture.  On the eager route it does
+        nothing.  The warm-ups on these inputs are thrown away, their
+        launches and collectives not counted; a singular system there
+        gives a zero step (delta (q))."""
+        if not self.graphed():
+            return
+        eye = np.eye(4, dtype=np.float32)
+        with graphs.uncounted():
+            for m in range(2, self._max + 1):
+                self._solve([template] * m, [channels] * m, [eye] * m)
+
     def optimize(self) -> np.ndarray:
         """Run BA over the current window; returns the refined (M, 4, 4)
         poses (one read of the device)."""
         M = len(self._templates)
         if M < 2:
             return np.asarray(self._poses)
-        templates = stack_templates(self._templates)
-        channels = torch.stack(self._channels)
-        poses = torch.from_numpy(np.stack(self._poses)).to(self._device)
-        if self._reducer is not None:
-            templates = sharded.shard_template(
-                templates, self._reducer.rank, self._reducer.world)
-        new_poses, _ = ba_solve(templates, channels, self._cam, poses,
-                                self._opts, self._reducer, self._cache)
+        new_poses, _ = self._solve(self._templates, self._channels,
+                                   self._poses)
         new_np = new_poses.cpu().numpy()
         self._poses = [new_np[i] for i in range(M)]
         return new_np

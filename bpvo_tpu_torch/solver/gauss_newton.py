@@ -20,9 +20,9 @@ plain sampling, ``irls_reduce_w`` at C > 1) and the sigma re-estimate
 under ``utils.graphs.cond`` (JAX's ``lax.cond``); everything, sigma and the
 exit test included, stays on the device.  Eagerly the loop reads its exit
 test once per iteration (and the sigma test once); captured in a CUDA
-graph it is a WHILE node and reads nothing.  ``RunGraphs`` (the entry
-points hold one per level on CUDA) makes each level solve one replay; a
-``DeviceVO`` step graph holds its ``run`` levels' loops itself.  Verbose
+graph it is a WHILE node and reads nothing: ``DeviceVO``'s step graph and
+``VisualOdometry``'s estimate graph hold their ``run`` levels' loops so.
+``RunGraphs`` makes one level solve alone one replay (the sharded GN).  Verbose
 runs stay on the host loop.  Levenberg-Marquardt is in
 ``solver/levenberg_marquardt.py``.
 """
@@ -153,15 +153,13 @@ def run_level(tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
                    band_overflow=bo)
 
 
-def solve_level(tdata, channels, cam, T_init, opts: GNOptions,
-                graphs=None) -> GNState:
+def solve_level(tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
     """A level solve by the route JAX takes on the TPU: ``run_level`` where
-    ``level_kernel_supported``, ``run`` elsewhere (with the level's
-    ``RunGraphs``, if given)."""
+    ``level_kernel_supported``, ``run`` elsewhere."""
     C, rows, cols = channels.shape
     if level_kernel_supported(opts, C, rows, cols, tdata.pixels.shape[1]):
         return run_level(tdata, channels, cam, T_init, opts)
-    return run(tdata, channels, cam, T_init, opts, graphs=graphs)
+    return run(tdata, channels, cam, T_init, opts)
 
 
 def _sigma_unstable(delta_scale, scale, opts: GNOptions):
@@ -494,8 +492,9 @@ class RunGraphs:
     (options, camera).  A level solve is then one replay and no read of
     the device.
 
-    Held per level by whatever owns the level's buffers
-    (``PoseEstimator``); the level's shapes are fixed at the first run.
+    Held by whatever owns the level's buffers (the sharded GN of
+    ``parallel/sharded.py``); the level's shapes are fixed at the first
+    run.
     The template is copied in when a run brings another template object,
     the channels and T_init on every run.  ``cache`` is the ``GraphCache``
     (default: one on the channels' device).  ``solve(tdata, channels, cam,

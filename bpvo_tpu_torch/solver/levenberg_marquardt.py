@@ -17,10 +17,10 @@ linearizations are ``gauss_newton``'s gather route (``reduce_w``:
 ``lax.while_loop``) and the sigma re-estimate ``utils.graphs.cond``: the
 state and the exit test stay on the device.  Eagerly the loop reads its
 exit test and its sigma test in one copy an iteration; captured in a CUDA
-graph it is a WHILE node and reads nothing.  A ``gauss_newton.RunGraphs``
-made with ``solve=run`` (the entry points hold one per level on CUDA)
-makes each level solve one replay; a ``DeviceVO`` step graph holds its LM
-loops itself.
+graph it is a WHILE node and reads nothing: ``DeviceVO``'s step graph and
+``VisualOdometry``'s estimate graph hold their LM loops so.  A
+``gauss_newton.RunGraphs`` made with ``solve=run`` makes one level solve
+alone one replay.
 """
 from __future__ import annotations
 

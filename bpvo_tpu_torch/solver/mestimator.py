@@ -90,8 +90,9 @@ def masked_median_sort(x, valid):
     xs = torch.sort(torch.where(valid, x, float("inf"))).values
     n = torch.sum(valid)
     mid = n // 2
-    lo = xs[torch.clamp(mid - 1, min=0)]
-    hi = xs[torch.clamp(mid, min=0)]
+    # torch.take: indexing by a 0-d tensor would read it on the host
+    lo = torch.take(xs, torch.clamp(mid - 1, min=0))
+    hi = torch.take(xs, torch.clamp(mid, min=0))
     med = torch.where((n % 2 == 1) | (n < 3), hi, 0.5 * (lo + hi))
     return torch.where(n > 0, med, 0.0)
 

@@ -2,10 +2,11 @@
 and, through IF and WHILE nodes, of ``jax.lax.cond`` and
 ``jax.lax.while_loop``.
 
-JAX runs a ``DeviceVO`` step, and each ``gn.run`` level, as one compiled
-program.  Here a function over tensors that stay at fixed addresses (its
-static buffers) is captured once as a CUDA graph and replayed; inputs that
-change between calls are copied into those buffers first.  ``GraphCache``
+JAX runs a ``DeviceVO`` step, ``VisualOdometry``'s pyramid, templates and
+estimate, and each ``gn.run`` level, each as one compiled program.  Here a
+function over tensors that stay at fixed addresses (its static buffers) is
+captured once as a CUDA graph and replayed; inputs that change between
+calls are copied into those buffers first.  ``GraphCache``
 holds the graphs of one owner, keyed by a Python-static key (level, shapes,
 options), as ``jax.jit`` keys its compiled programs by the static
 arguments.
@@ -83,8 +84,9 @@ raises, naming the type, on any other (a host node, an event record or
 wait node).
 
 ``GraphCache.jit(key, inputs, fn)`` is ``jax.jit`` for a function of
-tensors: the inputs copied into static buffers of the key, ``fn`` of the
-buffers replayed, copies of its outputs returned.  ``route(cache, device,
+tensors: the inputs copied into static buffers of the key (those named by
+``held`` only when another object arrives), ``fn`` of the buffers
+replayed, copies of its outputs returned.  ``route(cache, device,
 reducer)`` is the rule the distributed layer's entry points share: the
 graphed route on CUDA with no reducer or a one-rank nccl group; the eager
 route for gloo (its host staging cannot be captured), for nccl across
@@ -246,6 +248,22 @@ def clone(x):
         return x.clone()
     items = [clone(item) for item in x]
     return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+
+@contextlib.contextmanager
+def uncounted(mods=None):
+    """Launches counted in the block (by the ``ops`` modules and the
+    registered counters, or by ``mods``) are taken back after it: work
+    that stands in for no real call (a warm-up on placeholder inputs, a
+    body the warm-up does not take)."""
+    with _build.count_lock:
+        mods = counted() if mods is None else mods
+        counts = [mod.launch_count for mod in mods]
+        try:
+            yield
+        finally:
+            for mod, n in zip(mods, counts):
+                mod.launch_count = n
 
 
 def _leaves(x):
@@ -449,13 +467,15 @@ class _Joined:
 
     def close(self):
         """Destroy the joined graph and drop the segments (their torch
-        graphs are destroyed when collected)."""
+        graphs are destroyed when collected).  Uses no module global, so
+        that it also runs at interpreter exit, after ``ctypes`` is gone
+        (a graph a module-level object held)."""
         if self._exec:
             self._lib.bpvo_graph_exec_destroy(self._exec)
-            self._exec = ctypes.c_void_p()
+            self._exec = None
         if self._graph:
             self._lib.bpvo_graph_destroy(self._graph)
-            self._graph = ctypes.c_void_p()
+            self._graph = None
         self.items = self.outputs = None
 
     def __del__(self):
@@ -524,20 +544,30 @@ class GraphCache:
                 mod.launch_count += n
         return out
 
-    def jit(self, key, inputs, fn):
+    def jit(self, key, inputs, fn, held=()):
         """``fn(buffers)`` through the graph of ``key`` (``jax.jit`` of a
         function of tensors): ``inputs`` (a structure of tensors) copied
         into static buffers of ``key`` and the shapes and dtypes of its
         tensors (made at the key's first call), ``fn`` run or replayed on
         them; returns copies of its outputs, which the next replay would
-        overwrite."""
+        overwrite.  ``held``: positions of items of ``inputs`` (a tuple)
+        copied in only when the item is another object than the one the
+        key's buffers hold (a keyframe's templates, passed again on every
+        frame until the next keyframe); the key keeps that object."""
         key = (key, tuple((tuple(t.shape), t.dtype) for t in
                           _leaves(inputs)))
-        bufs = self._inputs.get(key)
-        if bufs is None:
-            bufs = self._inputs[key] = clone(inputs)
-        else:
+        entry = self._inputs.get(key)
+        if entry is None:
+            bufs = clone(inputs)
+        elif not held:
+            bufs = entry[0]
             copy_into(bufs, inputs)
+        else:
+            bufs, srcs = entry
+            fresh = [i for i, item in enumerate(inputs)
+                     if item is not srcs.get(i)]
+            copy_into([bufs[i] for i in fresh], [inputs[i] for i in fresh])
+        self._inputs[key] = (bufs, {i: inputs[i] for i in held})
         return clone(self(key, lambda: fn(bufs)))
 
     def _mods(self):
@@ -618,13 +648,8 @@ class GraphCache:
     def _discard(self, fn):
         """Run ``fn`` (a body the warm-up does not take); its result and
         its launches are thrown away."""
-        with _build.count_lock:
-            counts = [mod.launch_count for mod in self._mods()]
-            try:
-                fn()
-            finally:
-                for mod, n in zip(self._mods(), counts):
-                    mod.launch_count = n
+        with uncounted(self._mods()):
+            fn()
 
     def _capture_while(self, pred_fn, body, carry):
         seen = set()

@@ -3,9 +3,21 @@
 
 ``VisualOdometry(K, baseline, image_size, params, device)`` then
 ``add_frame(image, disparity) -> Result``.  The descriptor pyramids,
-templates and level solves run on ``device``; the keyframe bookkeeping, the
-trajectory and the Result live on the host, with one read of the device per
-pose estimate.
+templates and pose estimates run on ``device``; the keyframe bookkeeping,
+the trajectory, the Result and the point cloud live on the host.
+
+On CUDA (no verbose level) the three programs JAX jits are CUDA graphs of
+one ``utils.graphs.GraphCache``, a graph per static key: the frame's
+descriptor pyramid (``_process_frame``: parameters, levels, image shape),
+the keyframe's templates (``_set_templates_all``: parameters, capacities,
+cameras) and the whole coarse-to-fine estimate (``_estimate_all``,
+``PoseEstimator.estimate``).  A frame that is not a keyframe is then one
+replay of the frame graph, one of the estimate graph and one read of the
+device; a keyframe adds a replay of the template graph and, when the
+candidate becomes the keyframe, a second estimate replay and read.  The
+graphs' outputs are copied out, so no tensor a frame or the BA window
+keeps is a buffer a later replay overwrites.  On the CPU, or with a
+verbose level, the same functions run eagerly.
 """
 from __future__ import annotations
 
@@ -17,6 +29,7 @@ import torch
 from bpvo_tpu_torch.config import AlgorithmParameters
 from bpvo_tpu_torch.ops import pyramid, selection
 from bpvo_tpu_torch.types import KeyFramingReason, Result
+from bpvo_tpu_torch.utils import graphs as graphs_mod
 from bpvo_tpu_torch.vo import device_vo
 from bpvo_tpu_torch.vo import warp as warp_mod
 from bpvo_tpu_torch.vo.point_cloud import PointCloud
@@ -31,28 +44,43 @@ def _numpy(x) -> np.ndarray:
 
 class _Frame:
     """One frame's descriptor pyramid, plus its templates once it is the
-    keyframe (reference VisualOdometryFrame)."""
+    keyframe (reference VisualOdometryFrame).  ``graphs``: the
+    ``GraphCache`` the pyramid and the templates run through (JAX's
+    ``_process_frame`` and ``_set_templates_all``), or None (eager)."""
 
     def __init__(self):
         self.clear()
 
     def set_data(self, image, disparity, n_levels: int,
-                 p: AlgorithmParameters, device):
+                 p: AlgorithmParameters, device, graphs=None):
         self.image = image
         self.disparity = torch.as_tensor(disparity, dtype=torch.float32).to(
             device)
         self.templates = None
-        self.channels = device_vo._compute_channels_pyr(
-            torch.as_tensor(image, dtype=torch.float32).to(device), p,
-            n_levels)
+        image = torch.as_tensor(image, dtype=torch.float32).to(device)
+        if graphs is None:
+            self.channels = device_vo._compute_channels_pyr(image, p,
+                                                            n_levels)
+        else:
+            self.channels = graphs.jit(
+                ("frame", p, n_levels), (image,),
+                lambda b: device_vo._compute_channels_pyr(b[0], p, n_levels))
 
     @property
     def has_template(self) -> bool:
         return self.templates is not None
 
-    def set_template(self, cams, p: AlgorithmParameters, capacities):
-        self.templates = device_vo._build_templates(
-            self.channels, self.disparity, cams, p, capacities)
+    def set_template(self, cams, p: AlgorithmParameters, capacities,
+                     graphs=None):
+        if graphs is None:
+            self.templates = device_vo._build_templates(
+                self.channels, self.disparity, cams, p, capacities)
+        else:
+            self.templates = graphs.jit(
+                ("templates", p, capacities, cams),
+                (self.channels, self.disparity),
+                lambda b: device_vo._build_templates(b[0], b[1], cams, p,
+                                                     capacities))
 
     def clear(self):
         self.channels = ()
@@ -67,7 +95,14 @@ class _Frame:
 
 class VisualOdometry:
     """``VisualOdometry(K, baseline, image_size, params, device)`` then
-    ``add_frame(image, disparity) -> Result`` (reference vo.h:31-105)."""
+    ``add_frame(image, disparity) -> Result`` (reference vo.h:31-105).
+
+    Routes, chosen statically by device and configuration (as
+    ``DeviceVO``'s): on CUDA with no verbose level the pyramid, the
+    templates and each pose estimate are replays of graphs of
+    ``self._graphs`` (a ``GraphCache``; see the module docstring); on the
+    CPU, or with a verbose level (a line per iteration), ``self._graphs``
+    is None and they run eagerly."""
 
     def __init__(self, K, baseline: float, image_size,
                  params: Optional[AlgorithmParameters] = None, device="cuda"):
@@ -87,6 +122,11 @@ class VisualOdometry:
             selection.capacity_for_level(p, r, c, l)
             for l, (r, c) in enumerate(shapes))
         self._pose_estimator = PoseEstimator(p)
+        # the graphed route (see the class docstring)
+        self._graphs = graphs_mod.GraphCache(self.device) if (
+            self.device.type == "cuda" and not any(
+                o.verbose for o in self._pose_estimator._opts_for(
+                    p.numPyramidLevels))) else None
         self._trajectory = Trajectory()
         self._T_kf = np.eye(4, dtype=np.float32)
         self._ref, self._cur, self._prev = _Frame(), _Frame(), _Frame()
@@ -114,15 +154,30 @@ class VisualOdometry:
         (``parallel/bundle_adjustment.py``; JAX odometry.py:141-152).
         ``group``: a ``parallel.collectives.Reducer`` to split the points
         over its ranks (each rank runs this VisualOdometry on the same
-        frames), or None.  On CUDA each optimize is one replay of the
-        window size's BA graph (with no reducer or a one-rank nccl group)
-        and one
-        read of the refined poses."""
+        frames), or None.  On CUDA with no reducer or a one-rank nccl
+        group each optimize is one replay of the window size's BA graph
+        (in ``self._graphs`` on the graphed route) and one read of the
+        refined poses; the graphs of every size from 2 to ``window_size``
+        are captured here, on a placeholder keyframe of the real shapes
+        (a zero frame's channels and template at maxTestLevel), so the
+        frame loop pays no capture."""
         from bpvo_tpu_torch.parallel.bundle_adjustment import (BAOptions,
                                                                KeyframeWindow)
+        cache = self._graphs if self._graphs is not None and \
+            graphs_mod.capturable(group, self.device) else None
         self._ba_window = KeyframeWindow(
             window_size, self._cams[self._p.maxTestLevel],
-            ba_options or BAOptions(), reducer=group, device=self.device)
+            ba_options or BAOptions(), reducer=group, device=self.device,
+            cache=cache)
+        if self._ba_window.graphed():
+            with graphs_mod.uncounted():
+                frame = _Frame()
+                zeros = torch.zeros(self._rows, self._cols,
+                                    dtype=torch.float32, device=self.device)
+                self._set_data(frame, zeros, zeros)
+                self._set_template(frame)
+            lvl = self._p.maxTestLevel
+            self._ba_window.capture(frame.templates[lvl], frame.channels[lvl])
 
     def refined_keyframe_poses(self) -> np.ndarray:
         """(N_kf, 4, 4) camera-to-world poses of the keyframes in the BA
@@ -175,19 +230,30 @@ class VisualOdometry:
                 self._trajectory.poses.append(T)
             if "ref_image" in data.files:
                 self._ref = _Frame()
-                self._ref.set_data(data["ref_image"], data["ref_disparity"],
-                                   p.numPyramidLevels, p, self.device)
-                self._ref.set_template(self._cams, p, self._capacities)
+                self._set_data(self._ref, data["ref_image"],
+                               data["ref_disparity"])
+                self._set_template(self._ref)
             if "prev_image" in data.files:
                 self._prev = _Frame()
-                self._prev.set_data(data["prev_image"],
-                                    data["prev_disparity"],
-                                    p.numPyramidLevels, p, self.device)
+                self._set_data(self._prev, data["prev_image"],
+                               data["prev_disparity"])
+
+    def _set_data(self, frame: _Frame, image, disparity):
+        """The frame's pyramid: one replay of the frame graph (graphed)."""
+        frame.set_data(image, disparity, self._p.numPyramidLevels, self._p,
+                       self.device, self._graphs)
+
+    def _set_template(self, frame: _Frame):
+        """The keyframe's templates: one replay of the template graph."""
+        frame.set_template(self._cams, self._p, self._capacities,
+                           self._graphs)
 
     def _estimate(self, T_init, **kw):
+        """One pose estimate (one replay of its graph, graphed) and its
+        one device read."""
         return self._pose_estimator.estimate(
-            self._ref.templates, self._cur.channels, self._cams,
-            torch.as_tensor(T_init, dtype=torch.float32).to(self.device), **kw)
+            self._ref.templates, self._cur.channels, self._cams, T_init,
+            graphs=self._graphs, **kw)
 
     def add_frame(self, image, disparity) -> Result:
         """Estimate the motion of ``image`` wrt the current keyframe
@@ -197,13 +263,12 @@ class VisualOdometry:
         if tuple(image.shape) != (self._rows, self._cols):
             raise ValueError(f"image size {tuple(image.shape)} != "
                              f"{(self._rows, self._cols)}")
-        self._cur.set_data(image, disparity, p.numPyramidLevels, p,
-                           self.device)
+        self._set_data(self._cur, image, disparity)
 
         if not self._ref.has_template:
             # first frame (vo.cc:133-139)
             self._ref, self._cur = self._cur, self._ref
-            self._ref.set_template(self._cams, p, self._capacities)
+            self._set_template(self._ref)
             self._trajectory.push(self._T_kf)
             return Result(pose=np.eye(4), covariance=np.eye(6),
                           is_keyframe=True,
@@ -228,7 +293,7 @@ class VisualOdometry:
                 # no candidate: the current frame becomes the keyframe
                 # (vo.cc:166-177)
                 self._ref, self._cur = self._cur, self._ref
-                self._ref.set_template(self._cams, p, self._capacities)
+                self._set_template(self._ref)
                 pose = T_est @ np.linalg.inv(self._T_kf)
                 self._T_kf = np.eye(4, dtype=np.float32)
             else:
@@ -239,14 +304,13 @@ class VisualOdometry:
                 used_candidate = True
                 self._prev, self._ref = self._ref, self._prev
                 self._prev.clear()
-                self._ref.set_template(self._cams, p, self._capacities)
+                self._set_template(self._ref)
                 if p.keyframeReestimateStartLevel >= 0:
                     start2 = min(max(p.keyframeReestimateStartLevel,
                                      p.maxTestLevel),
                                  len(self._cur.channels) - 1)
-                    alt = torch.as_tensor(
-                        (T_est @ np.linalg.inv(self._T_kf)).astype(np.float32)
-                    ).to(self.device)
+                    alt = (T_est @ np.linalg.inv(self._T_kf)).astype(
+                        np.float32)
                 else:
                     start2, alt = -1, None
                 T_est, stats = self._estimate(np.eye(4, dtype=np.float32),
@@ -293,13 +357,30 @@ class VisualOdometry:
     def _extract_point_cloud(self) -> Optional[PointCloud]:
         """(reference vo.cc:260-281): the keyframe's template points at
         maxTestLevel, grey-coloured from its image, weighted by the last IRLS
-        weights."""
+        weights.  One device read (``_cloud_read``): the template's mask,
+        points and pixel positions, the weights and, for an image on the
+        device, its values there."""
         p = self._p
         if not self._ref.has_template:
             return None
         td = self._ref.templates[p.maxTestLevel]
-        valid = td.valid.cpu().numpy()
-        pts = td.points.cpu().numpy()[valid]
+        K = td.capacity
+        scale = 1 << p.maxTestLevel
+        ys = torch.clamp(td.rows * scale, 0, self._rows - 1)
+        xs = torch.clamp(td.cols * scale, 0, self._cols - 1)
+        w = self._pose_estimator.last_weights()
+        has_w = w is not None and w.shape[1] == K
+        image = self._ref.image
+        on_device = (isinstance(image, torch.Tensor)
+                     and image.device == td.valid.device)
+        parts = [td.valid, td.points, ys, xs] + ([w[0]] if has_w else []) \
+            + ([image[ys, xs]] if on_device else [])
+        host = self._cloud_read(parts)
+        valid = host[:K] != 0
+        pts = host[K:4 * K].reshape(K, 3)[valid].astype(np.float32)
+        ys = host[4 * K:5 * K][valid].astype(np.int64)
+        xs = host[5 * K:6 * K][valid].astype(np.int64)
+        rest = host[6 * K:]
         if p.warpType == "DisparitySpace":
             # the template holds (x-cx, y-cy, d): back-project for the cloud
             cam = self._cams[p.maxTestLevel]
@@ -307,15 +388,19 @@ class VisualOdometry:
             pts = warp_mod.make_points(
                 cam, xyd[:, 0] + cam.cx, xyd[:, 1] + cam.cy,
                 torch.clamp(xyd[:, 2], min=1e-3)).numpy()
-        w = self._pose_estimator.last_weights()
-        if w is not None and w.shape[1] == td.capacity:
-            weights = w[0].cpu().numpy()[valid]
+        if has_w:
+            weights, rest = rest[:K][valid], rest[K:]
         else:
             weights = np.ones(len(pts), np.float32)
-        scale = 1 << p.maxTestLevel
-        ys = np.clip(td.rows.cpu().numpy()[valid] * scale, 0, self._rows - 1)
-        xs = np.clip(td.cols.cpu().numpy()[valid] * scale, 0, self._cols - 1)
-        c = _numpy(self._ref.image)[ys, xs].astype(np.uint8)
+        c = (rest[valid] if on_device else _numpy(image)[ys, xs]).astype(
+            np.uint8)
         colors = np.stack([c, c, c, np.full_like(c, 255)], axis=1)
         return PointCloud(points=pts.astype(np.float32), colors=colors,
                           weights=weights.astype(np.float32))
+
+    @staticmethod
+    def _cloud_read(parts) -> np.ndarray:
+        """The point cloud's one device -> host copy: ``parts`` flattened
+        into float64, which holds each of their values exactly."""
+        return torch.cat([t.reshape(-1).to(torch.float64)
+                          for t in parts]).cpu().numpy()

@@ -4,12 +4,19 @@
 Each Gauss-Newton level is solved by ``gauss_newton.solve_level``: the
 one-launch level kernel on levels it takes, ``gauss_newton.run`` on the
 others.  Levenberg-Marquardt levels run ``levenberg_marquardt.run`` (never
-the level kernel, as in the JAX package).  On CUDA ``PoseEstimator``
-replays each ``run`` level solve from one CUDA graph (a
-``gauss_newton.RunGraphs`` per level, solving LM's levels with
-``levenberg_marquardt.run``).  With ``coarseInitOffsetPx`` > 0 a
-multi-start probe picks the start among five candidates.  The level chain stays on the device;
-``PoseEstimator.estimate`` reads its results back in one copy.
+the level kernel, as in the JAX package).  With ``coarseInitOffsetPx`` > 0
+a multi-start probe picks the start among five candidates.
+
+``PoseEstimator.estimate`` given a ``utils.graphs.GraphCache`` runs the
+whole chain (the warm-start gate, the multi-start, every level solve, the
+good-point fraction) as one CUDA graph (JAX's jitted ``_estimate_all``),
+a graph per static key: the options per level, the level range, the
+thresholds, the solver, whether an alternative start is given and the
+multi-start offset.  Its inputs are copied into the key's static buffers:
+the templates only when another template object arrives (at keyframes),
+the channels and the starts on every call.  Every ``gauss_newton.run`` or
+LM level is a WHILE node of that graph.  Without a cache the chain runs
+eagerly.  Either way ``estimate`` reads its results back in one copy.
 """
 from __future__ import annotations
 
@@ -91,29 +98,28 @@ def _multistart(templates, channels, cams, T, opts_per_level,
     costs = torch.stack([robust_cost(Tc) for Tc in cands])
     costs = torch.cat([costs[:1] * 0.999, costs[1:]])
     best = torch.argmin(costs)
-    return cands[best], best
+    # index_select, not cands[best]: a 0-d index is read on the host
+    return torch.index_select(cands, 0, best.reshape(1))[0], best
 
 
 def _estimate_all(templates, channels, cams, T_init, opts_per_level,
                   max_test_level: int, good_threshold: float,
                   min_points: int = 0, solver: str = "GaussNewton",
                   start_level: int = -1, alt_init=None,
-                  multistart_px: float = 0.0, run_graphs=None,
-                  linearize_factory=None, count_reduce=None):
+                  multistart_px: float = 0.0, linearize_factory=None,
+                  count_reduce=None):
     """Coarse-to-fine estimation from ``start_level`` (default: coarsest)
     down to ``max_test_level``.  ``alt_init`` is taken instead of ``T_init``
     when its photometric cost at the start level is not higher.
-    ``run_graphs`` (a ``gauss_newton.RunGraphs`` per level, for LM one
-    made with ``solve=levenberg_marquardt.run``) replays the level solves
-    that take ``gauss_newton.run`` or LM, one graph each.  ``solver`` is
-    "GaussNewton" or "LevenbergMarquardt"; ``multistart_px`` > 0 runs the
-    multi-start probe (``_multistart``) first.
+    ``solver`` is "GaussNewton" or "LevenbergMarquardt"; ``multistart_px``
+    > 0 runs the multi-start probe (``_multistart``) first.  No host read:
+    in a function a ``GraphCache`` captures, every ``gauss_newton.run`` or
+    LM loop is a WHILE node.
 
     The distributed hooks (JAX bpvo_tpu/vo/device_vo.py:113-172):
     ``linearize_factory(level, tdata, channels, cam, opts)`` returns the
     ``linearize_fn`` of a level, which then always takes
-    ``gauss_newton.run`` (never the level kernel, never ``run_graphs``; in
-    a captured step its loop is a WHILE node of the step's graph);
+    ``gauss_newton.run`` (never the level kernel);
     ``count_reduce`` sums a tensor over the ranks (the good-point count).
 
     Returns (T, iters (L,), f_norm (L,), g (L, 6), status (L,), frac_good,
@@ -121,12 +127,10 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
     not solved keep zeros and STATUS_MAX_ITERATIONS."""
     if solver not in ("GaussNewton", "LevenbergMarquardt"):
         raise ValueError(f"unknown poseEstimator {solver!r}")
-    if linearize_factory is not None and (
-            solver != "GaussNewton" or run_graphs is not None
-            or multistart_px > 0):
+    if linearize_factory is not None and (solver != "GaussNewton"
+                                          or multistart_px > 0):
         raise ValueError("a custom linearization runs Gauss-Newton on "
-                         "gauss_newton.run only: no LM, no run_graphs, no "
-                         "multi-start")
+                         "gauss_newton.run only: no LM, no multi-start")
     n_levels = len(channels)
     if start_level < 0:
         start_level = n_levels - 1
@@ -154,12 +158,10 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
                             cams[level], opts_per_level[level]))
         elif solver == "LevenbergMarquardt":
             st = lm.run(templates[level], channels[level], cams[level], T,
-                        opts_per_level[level],
-                        graphs=run_graphs and run_graphs[level])
+                        opts_per_level[level])
         else:
             st = gn.solve_level(templates[level], channels[level],
-                                cams[level], T, opts_per_level[level],
-                                graphs=run_graphs and run_graphs[level])
+                                cams[level], T, opts_per_level[level])
         enough = templates[level].num_valid >= min_points
         T = torch.where(enough, st.T, T)
         iters[level] = torch.where(enough, st.num_iters, 0).to(torch.int32)
@@ -176,6 +178,23 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
             torch.stack(status), frac, finest.H, finest.weights, bo)
 
 
+def _estimate_packed(templates, channels, cams, starts, opts_per_level,
+                     max_test_level: int, good_threshold: float,
+                     min_points: int, solver: str, start_level: int,
+                     with_alt: bool, multistart_px: float):
+    """``_estimate_all`` from ``starts[0]`` (with ``with_alt``,
+    ``starts[1]`` the gated alternative), its results packed for the
+    host's one read: (packed (52 + 9 L,) f32: T, H, g per level, iters,
+    f_norm and status per level, frac_good; the finest weights)."""
+    T, iters, fs, g, status, frac, H, w, _ = _estimate_all(
+        templates, channels, cams, starts[0], opts_per_level,
+        max_test_level, good_threshold, min_points, solver, start_level,
+        starts[1] if with_alt else None, multistart_px)
+    return torch.cat([T.reshape(-1), H.reshape(-1), g.reshape(-1),
+                      iters.to(torch.float32), fs, status.to(torch.float32),
+                      frac.reshape(1)]), w
+
+
 class PoseEstimator:
     def __init__(self, p: AlgorithmParameters):
         self._p = p
@@ -184,46 +203,66 @@ class PoseEstimator:
         self._last_weights = None
         self._last_H = None
         self._last_frac = 1.0
-        self._run_graphs = None
-
-    def _level_graphs(self, channels_pyr):
-        """One graph holder per level on CUDA (a ``gauss_newton.RunGraphs``
-        solving with ``gauss_newton.run``, or ``levenberg_marquardt.run``
-        for LM: each level solve one replay), None on the CPU."""
-        if (self._run_graphs is None
-                and channels_pyr[0].device.type == "cuda"):
-            solve = (lm.run if self._p.poseEstimator == "LevenbergMarquardt"
-                     else gn.run)
-            self._run_graphs = tuple(gn.RunGraphs(solve=solve)
-                                     for _ in range(len(channels_pyr)))
-        return self._run_graphs
+        # the starts' pinned staging on CUDA (``_starts``)
+        self._pinned = None
 
     def _opts_for(self, n_levels: int):
         return tuple(self._fine_opts if lvl == self._p.maxTestLevel
                      else self._coarse_opts for lvl in range(n_levels))
 
+    def _starts(self, T_init, alt_init, device):
+        """(2, 4, 4) f32 on ``device``: ``T_init`` and ``alt_init`` (or
+        ``T_init`` again), host arrays.  On CUDA one asynchronous copy
+        from pinned memory, which the host rewrites only at the next
+        estimate, after this one's read has waited for the copy."""
+        host = np.stack([T_init, T_init if alt_init is None else alt_init]
+                        ).astype(np.float32)
+        if device.type != "cuda":
+            return torch.from_numpy(host).to(device)
+        if self._pinned is None:
+            self._pinned = torch.empty((2, 4, 4), dtype=torch.float32,
+                                       pin_memory=True)
+        self._pinned.numpy()[...] = host
+        return self._pinned.to(device, non_blocking=True)
+
+    @staticmethod
+    def _read(packed) -> np.ndarray:
+        """The estimate's one device -> host copy."""
+        return packed.cpu().numpy()
+
     def estimate(self, templates: Sequence, channels_pyr: Sequence, cams,
                  T_init, start_level: int = -1, alt_init=None,
-                 multistart_px: float = 0.0):
-        """Coarse-to-fine estimate from the (4,4) tensor ``T_init``;
+                 multistart_px: float = 0.0, graphs=None):
+        """Coarse-to-fine estimate from ``T_init`` ((4,4) host array);
         ``start_level`` >= 0 starts below the coarsest level, ``alt_init``
-        is a cost-gated alternative start.
+        is a cost-gated alternative start.  ``graphs``: a
+        ``utils.graphs.GraphCache`` that runs the whole estimate as one
+        graph of the static key (the templates copied into its buffers
+        when another template object arrives), or None for the eager
+        chain.  One device read either way.
 
         Returns (T_est (4,4) np.float32, per-level OptimizerStatistics from
         maxTestLevel up)."""
         p = self._p
         n_levels = len(channels_pyr)
-        T, iters, fs, g, status, frac, H, w, _ = _estimate_all(
-            tuple(templates), tuple(channels_pyr), tuple(cams), T_init,
-            self._opts_for(n_levels), p.maxTestLevel, p.goodPointThreshold,
-            _MIN_POINTS_PER_LEVEL, p.poseEstimator, start_level, alt_init,
-            multistart_px, self._level_graphs(channels_pyr))
+        starts = self._starts(T_init, alt_init, channels_pyr[0].device)
+        static = (self._opts_for(n_levels), p.maxTestLevel,
+                  p.goodPointThreshold, _MIN_POINTS_PER_LEVEL,
+                  p.poseEstimator, start_level, alt_init is not None,
+                  multistart_px)
+        cams = tuple(cams)
+        if graphs is None:
+            packed, w = _estimate_packed(tuple(templates),
+                                         tuple(channels_pyr), cams, starts,
+                                         *static)
+        else:
+            packed, w = graphs.jit(
+                ("estimate", cams, *static),
+                (templates, tuple(channels_pyr), starts),
+                lambda b: _estimate_packed(b[0], b[1], cams, b[2], *static),
+                held=(0,))
         self._last_weights = w
-        # one device -> host copy of everything the host reads
-        host = torch.cat([T.reshape(-1), H.reshape(-1), g.reshape(-1),
-                          iters.to(torch.float32), fs,
-                          status.to(torch.float32),
-                          frac.reshape(1)]).cpu().numpy()
+        host = self._read(packed)
         T_np = host[:16].reshape(4, 4).copy()
         self._last_H = host[16:52].reshape(6, 6).astype(np.float64)
         end = 52 + 6 * n_levels

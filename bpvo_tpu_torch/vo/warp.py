@@ -5,6 +5,7 @@ reference rigid_body_warp.h, disparity_space_warp.{h,cc}).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -149,13 +150,19 @@ def disparity_space_make_points(cam: CameraModel, x, y, d):
     return torch.stack([x - cam.cx, y - cam.cy, d], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _disparity_space_matrices(cam: CameraModel, device: str):
+    """G and G^-1 on ``device``, copied there once: a copy from the host
+    on every call could not be captured into a CUDA graph."""
+    return disparity_space_G(cam, device), disparity_space_G_inv(cam, device)
+
+
 def disparity_space_project(cam: CameraModel, T, points):
     """Warp disparity-space points (N, 3) by the rigid pose T and project:
     pw = (G T G^-1) (p, 1), (u, v) = pw[:2] / pw[3] + (cx, cy).  Returns
     (u, v, w), w = pw[3] > 0 iff the point is in front of the camera."""
-    dev = points.device
-    H = (disparity_space_G(cam, dev) @ T.to(torch.float32)
-         @ disparity_space_G_inv(cam, dev))
+    G, G_inv = _disparity_space_matrices(cam, str(points.device))
+    H = G @ T.to(torch.float32) @ G_inv
     q = torch.cat([points, torch.ones_like(points[:, :1])], dim=-1)
     pw = q @ H.T
     wi = 1.0 / pw[:, 3]

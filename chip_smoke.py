@@ -88,22 +88,28 @@
    launches: fused_linearize = gauss_newton.run iterations (+ one sigma pass
    per sigma re-estimate at C=8), irls_reduce = sigma re-estimates at C=1,
    level_gn = the L2 and L3 solves, each > 0.
-   ``VisualOdometry.add_frame`` replays each ``gauss_newton.run`` level
-   solve from one CUDA graph (its iterations a WHILE node); the run is
-   first made eager (the pose estimator's graphs withheld), counting the
-   iterations and the sigma re-estimates (the calls of its sigma
-   function), and the graphed run must equal it bit for bit with the same
-   launches.
-9. Graph phase: each of the four VO paths eager and graphed in this
-   process (the two ``DeviceVO`` paths over all N_STEPS (30) steps, the
-   dense ``VisualOdometry`` paths over the first GRAPH_STEPS (15); the
-   graphed route is the entry point; the eager one is ``DeviceVO``'s step
-   function, or ``VisualOdometry`` with its pose estimator's graphs
-   withheld), each route once to warm up, once timed
-   and once under torch.profiler: poses, iterations and keyframes must be
-   bitwise equal; per route it prints p50/p90 ms of keyframe and other
-   steps and the top-level host ops per step (a graph replay counted as
-   one op).  The ``DeviceVO`` paths add a third route, ``add_frames`` in
+   ``VisualOdometry.add_frame`` replays its frame, template and estimate
+   graphs (each ``gauss_newton.run`` level a WHILE node of the
+   estimate's); the run is first made eager (``_graphs = None``),
+   counting the iterations and the sigma re-estimates (the calls of its
+   sigma function), and the graphed run must equal it bit for bit with the
+   same launches.
+9. Graph phase: each VO path eager and graphed in this process (the two
+   ``DeviceVO`` paths and three ``VisualOdometry`` cells over all N_STEPS
+   (30) steps: bench.py's intensity settings, conf/perf_bitplanes.cfg
+   with the disparity given, and the intensity settings with the
+   multi-start (``coarseInitOffsetPx`` VO_MULTISTART_PX); the dense
+   ``VisualOdometry`` paths over the first GRAPH_STEPS (15); the graphed
+   route is the entry point; the eager one is ``DeviceVO``'s step
+   function, or ``VisualOdometry`` with ``_graphs = None``), each route
+   once to warm up, once timed and once under torch.profiler: poses,
+   iterations and keyframes (and a ``VisualOdometry``'s covariances and
+   statuses) must be bitwise equal, with equal launches; per route it
+   prints p50/p90 ms of keyframe and other steps, the top-level host ops
+   per step (a graph replay counted as one op), the replays and device
+   reads (calls that synchronize, torch's sync debug mode) per step, and
+   for ``VisualOdometry`` the first call (warm-up and capture) of each
+   graph key.  The ``DeviceVO`` paths add a third route, ``add_frames`` in
    CHUNKS chunks of 10 with each chunk on the card first and its replays
    under ``torch.cuda.set_sync_debug_mode("error")`` (a read of the device
    fails the run): bitwise equal to the eager route, the same launch
@@ -129,8 +135,9 @@
    ``RunGraphs`` (LM's made with ``solve=levenberg_marquardt.run``): ms
    per solve, one replay a solve under ``set_sync_debug_mode("error")``,
    bitwise, the same launches (a ``level_solve_phase`` JSON line).
-   Between the first four paths and the WHILE paths, after those
-   CPU-only profiler sessions, a second ``profiling.trace`` of 2 warmed
+   Between the two ``DeviceVO`` paths and the ``VisualOdometry`` cells,
+   after those paths' CPU-only profiler sessions and before any over
+   WHILE-node replays, a second ``profiling.trace`` of 2 warmed
    ``DeviceVO`` steps with the tools phase's checks.
 10. Probe phase (``bpvo_tpu_torch.probes``, the GPU counterparts of the JAX
    package's Mosaic probe scripts): with its launch counts set to 0, the
@@ -178,8 +185,8 @@
    ZOO_JAX_LEVEL_ROUTE), ATE within JAX's own plus ZOO_ATE_MARGIN,
    iterations per frame within ZOO_ITERS_CELL of JAX's per cell and within
    ZOO_ITERS_POOLED of JAX's summed over each solver's cells, ms and
-   iterations per frame printed per cell; the LM cells again eager (the
-   pose estimator's graph holders withheld): each graphed LM cell's
+   iterations per frame printed per cell; the LM cells again eager
+   (``VisualOdometry._graphs = None``): each graphed LM cell's
    trajectory and per-frame iterations bit for bit the eager cell's; the gather
    route (Bit-Planes, CUBIC_HERMITE: irls_reduce inside gauss_newton.run's
    CUDA graphs) and dense DescriptorFields1 (fused_linearize at C = 5) over
@@ -216,11 +223,14 @@
    the sharded VO and to the default ``DeviceVO`` printed;
    ``fused_linearize`` against plain at its L0; then ``python -m
    bpvo_tpu_torch.parallel.dryrun``'s checks with 2 gloo ranks on cuda:0
-   (host-staged); ``VisualOdometry.enable_bundle_adjustment(8)`` over
-   1+30 frames (counted): every keyframe event's refined window within
-   BA_ATOL_JAX of JAX's, the ms of each optimize, ``irls_reduce``
-   launched 2(M-1) times an iteration, checked against plain at the edge
-   shape; ``ba_solve_with_depth`` at M = 4, K = 16384 (counted) within
+   (host-staged); ``VisualOdometry.enable_bundle_adjustment(8)`` (its
+   ms: the capture of every window size) over 1+30 frames (counted):
+   every keyframe event's refined window within BA_ATOL_JAX of JAX's, the
+   ms of each optimize, ``irls_reduce`` launched 2(M-1) times an
+   iteration, checked against plain at the edge shape; the keyframe
+   steps' p50/p90 with the sizes captured at enable against captured in
+   the frame loop, alternated (``_ba_capture_arms``), the refined windows
+   bitwise equal; ``ba_solve_with_depth`` at M = 4, K = 16384 (counted) within
    BA_DEPTH_ATOL of the CPU's plain run; the collective calls and bytes
    per step beside JAX's count; ``apps.scaling_bench`` at world 1 (nccl)
    and world 2 (gloo, host-staged, eager); every multi-process run under
@@ -306,6 +316,7 @@ STEP_LABEL = "vo_step_"  # the profiler label of a step in the graph phase
 # steps of the graph phase (30 before the app phase came; cut to keep the
 # script's wall near its earlier ~190 s)
 GRAPH_STEPS = 15
+VO_MULTISTART_PX = 2.0   # the graph phase's multi-start VisualOdometry cell
 LM_GRAPH_STEPS = 10      # the Bit-Planes LM DeviceVO path's steps
 TRACE_CHUNK_TIMEOUT_S = 240  # a chunk path's trace in a process of its own
 LEVEL_SOLVE_REPS = 5     # timed solves a route in level_solve_phase
@@ -936,11 +947,12 @@ def gn_kernel_phase(K, baseline, frames, dev):
 
 
 def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
-    """VisualOdometry over 1+N_STEPS frames of dense VO, once eager (its
-    pose estimator's graphs withheld), counting what the launches must
-    be, then the graphed, counted and timed run (each ``run`` level solve
-    one replay) that must equal the eager one bit for bit and is checked
-    against the JAX reference.  Returns the launch counts of the counted
+    """VisualOdometry over 1+N_STEPS frames of dense VO, once eager
+    (``_graphs = None``), counting what the launches must be, then the
+    graphed, counted and timed run (the frame, template and estimate
+    graphs; each ``run`` level a WHILE node of the estimate's) that must
+    equal the eager one bit for bit and is checked against the JAX
+    reference.  Returns the launch counts of the counted
     run."""
     import numpy as np
     import torch
@@ -957,7 +969,7 @@ def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
         vo = VisualOdometry(K, baseline, tuple(images[0].shape), params,
                             device=dev)
         if not graphed:
-            vo._pose_estimator._level_graphs = lambda channels_pyr: None
+            vo._graphs = None
         vo.add_frame(images[0], disps[0])
         res, t_ms = [], []
         for image, disp in zip(images[1:], disps[1:]):
@@ -1161,41 +1173,96 @@ def level_solve_phase(K, baseline, frames, dev, smi):
     return out
 
 
+@contextlib.contextmanager
+def _sync_count():
+    """Counts the calls in the block that synchronize with the card
+    (``torch.cuda.set_sync_debug_mode("warn")``'s warnings: a device ->
+    host read, an item, or a blocking copy from pageable host memory);
+    yields a one-item list that holds the count after the block."""
+    import warnings
+    import torch
+    n = [0]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield n
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n[0] = sum("synchroniz" in str(w.message) for w in caught)
+
+
 def _host_ops(run_step, n):
     """Top-level host ops of each of ``n`` steps (``run_step(i)``), counted
     as scripts/profile_torch_vo.py counts them: the ops torch.profiler
     records directly under the step's label, plus one for each CUDA-graph
-    replay in the step (a replay is no PyTorch op)."""
+    replay in the step (a replay is no PyTorch op).  Returns (host ops,
+    replays, device reads) a step, the reads counted by ``_sync_count``
+    (the steps' frames are on the card, so a synchronizing call is a
+    read)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from bpvo_tpu_torch.utils import graphs
-    replays = []
+    replays, reads = [], []
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for i in range(n):
             r0 = graphs.replay_count
-            with record_function(f"{STEP_LABEL}{i}"):
+            with _sync_count() as syncs, record_function(f"{STEP_LABEL}{i}"):
                 run_step(i)
             replays.append(graphs.replay_count - r0)
+            reads.append(syncs[0])
     steps = {e.name: e for e in prof.events()
              if e.name.startswith(STEP_LABEL)}
-    return [len(steps[f"{STEP_LABEL}{i}"].cpu_children) + replays[i]
-            for i in range(n)]
+    return ([len(steps[f"{STEP_LABEL}{i}"].cpu_children) + replays[i]
+             for i in range(n)], replays, reads)
+
+
+def _key_label(key):
+    """A ``VisualOdometry`` graph key (``GraphCache.jit``'s) as a short
+    label: the graph's name and, for an estimate, its start level,
+    alternative start and multi-start offset."""
+    name = key[0][0]
+    if name == "estimate":
+        start, alt, ms = key[0][-3:]
+        return f"estimate start={start} alt={alt} multistart={ms}"
+    return name
+
+
+def _timed_first_calls(cache, out):
+    """Time each first call (warm-up and capture) of ``cache``'s keys into
+    ``out`` ({label: ms}, host clock between syncs)."""
+    import torch
+    first_call = cache._first_call
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = first_call(key, fn)
+        torch.cuda.synchronize()
+        out[_key_label(key)] = (time.perf_counter() - t) * 1e3
+        return result
+    cache._first_call = timed
 
 
 def graph_phase(name, make_vo, frames, dev, smi, chunked=False,
                 jax_ref=None):
     """One VO path, eager and graphed, in this process: each route once to
     warm up (the graphs' captures), once timed (host clock, each step
-    ending in a sync) and once under torch.profiler for its host ops per
-    step.  The graphed route is
-    the entry point (``add_frame``); the eager one is ``DeviceVO``'s step
-    function, or ``VisualOdometry`` with its pose estimator's graphs
-    withheld.  ``chunked`` (a ``DeviceVO``) adds ``chunk_route``.  Poses, iterations and
-    keyframes must be equal bit for bit, and the timed passes' launch
-    counts equal.  ``jax_ref`` ((the JAX reference, its key prefix, atol),
-    a ``DeviceVO``): the steps' poses within atol of JAX's ``DeviceVO``
-    on the same frames, the same keyframes.
-    Returns {route: {"p50_ms", "p90_ms", "kf_p50_ms", "kf_p90_ms",
-    "other_p50_ms", "other_p90_ms", "host_ops_other", "host_ops_kf"}}."""
+    ending in a sync) and once under torch.profiler for its host ops,
+    replays and device reads per step.  The graphed route is the entry
+    point (``add_frame``); the eager one is ``DeviceVO``'s step function,
+    or ``VisualOdometry`` with ``_graphs = None``.  A graphed
+    ``VisualOdometry`` pass takes over its predecessor's cache (its keys
+    captured, as one object running on holds them), and the first call of
+    each key (warm-up and capture) is timed.  ``chunked`` (a ``DeviceVO``)
+    adds ``chunk_route``.  Poses, iterations and keyframes (for
+    ``VisualOdometry`` also covariances and statuses) must be equal bit for
+    bit, and the timed passes' launch counts equal.  ``jax_ref`` ((the JAX
+    reference, its key prefix, atol), a ``DeviceVO``): the steps' poses
+    within atol of JAX's ``DeviceVO`` on the same frames, the same
+    keyframes.  Returns {route: {"p50_ms", "p90_ms", "kf_p50_ms",
+    "kf_p90_ms", "other_p50_ms", "other_p90_ms", "host_ops_other",
+    "host_ops_kf", "replays_other", "replays_kf", "reads_other",
+    "reads_kf"}, and for ``VisualOdometry`` "first_call_ms"}."""
     import numpy as np
     import torch
     from bpvo_tpu_torch import VisualOdometry
@@ -1203,23 +1270,21 @@ def graph_phase(name, make_vo, frames, dev, smi, chunked=False,
     images = [torch.as_tensor(f[0]).to(dev) for f in frames]
     auxs = [torch.as_tensor(f[1]).to(dev) for f in frames]
     n = len(images) - 1
+    first_call_ms = {}
 
     def route(graphed):
         vo = make_vo()
         if isinstance(vo, VisualOdometry):
             holder = [vo]
+            if graphed:
+                _timed_first_calls(vo._graphs, first_call_ms)
 
             def reset():
                 # a new VisualOdometry (it has no reset) that takes over
-                # the run graphs its predecessor captured, as one object
-                # running on would hold them
-                run_graphs = holder[0]._pose_estimator._run_graphs
+                # the cache its predecessor captured into
+                cache = holder[0]._graphs
                 holder[0] = make_vo()
-                if graphed:
-                    holder[0]._pose_estimator._run_graphs = run_graphs
-                else:
-                    holder[0]._pose_estimator._level_graphs = (
-                        lambda channels_pyr: None)
+                holder[0]._graphs = cache if graphed else None
                 holder[0].add_frame(images[0], auxs[0])
 
             def step(i):
@@ -1257,22 +1322,25 @@ def graph_phase(name, make_vo, frames, dev, smi, chunked=False,
             runs.append(([_summary(o) for o in outs], np.array(t_ms), counts))
         reset()
         torch.cuda.synchronize()
-        ops = np.array(_host_ops(step, n))
-        return runs[1], ops
+        return runs[1], _host_ops(step, n)
 
-    (res_e, t_e, n_e), ops_e = route(False)
-    (res_g, t_g, n_g), ops_g = route(True)
+    (res_e, t_e, n_e), prof_e = route(False)
+    (res_g, t_g, n_g), prof_g = route(True)
     kf = np.array([r[2] for r in res_e])
     same = _same(res_e, res_g)
     out = {}
-    for label, t_ms, ops in (("eager", t_e, ops_e), ("graphed", t_g, ops_g)):
+    for label, t_ms, (ops, replays, reads) in (("eager", t_e, prof_e),
+                                               ("graphed", t_g, prof_g)):
         r = {"p50_ms": float(np.percentile(t_ms, 50)),
              "p90_ms": float(np.percentile(t_ms, 90))}
         for part, sel in (("kf", kf), ("other", ~kf)):
             if sel.any():
                 r[f"{part}_p50_ms"] = float(np.percentile(t_ms[sel], 50))
                 r[f"{part}_p90_ms"] = float(np.percentile(t_ms[sel], 90))
-                r[f"host_ops_{part}"] = float(np.median(ops[sel]))
+                r[f"host_ops_{part}"] = float(np.median(np.array(ops)[sel]))
+                r[f"replays_{part}"] = float(np.median(
+                    np.array(replays)[sel]))
+                r[f"reads_{part}"] = float(np.median(np.array(reads)[sel]))
         out[label] = r
         print(f"graph phase {name} {label}: per-frame ms p50 "
               f"{r['p50_ms']:.3f} p90 {r['p90_ms']:.3f}; keyframe steps p50 "
@@ -1281,7 +1349,17 @@ def graph_phase(name, make_vo, frames, dev, smi, chunked=False,
               f"{r.get('other_p50_ms', math.nan):.3f} p90 "
               f"{r.get('other_p90_ms', math.nan):.3f}; top-level host ops "
               f"per other step {r.get('host_ops_other', math.nan):.0f}, per "
-              f"keyframe step {r.get('host_ops_kf', math.nan):.0f} on {smi}")
+              f"keyframe step {r.get('host_ops_kf', math.nan):.0f}; replays "
+              f"and device reads per other step "
+              f"{r.get('replays_other', math.nan):.0f} / "
+              f"{r.get('reads_other', math.nan):.0f}, per keyframe step "
+              f"{r.get('replays_kf', math.nan):.0f} / "
+              f"{r.get('reads_kf', math.nan):.0f} (median) on {smi}")
+    if first_call_ms:
+        out["graphed"]["first_call_ms"] = first_call_ms
+        print(f"graph phase {name}: first call of each key (warm-up and "
+              f"capture, once a key) ms "
+              + ", ".join(f"{k} {v:.1f}" for k, v in first_call_ms.items()))
     print(f"graph phase {name}: {n} steps, {int(kf.sum())} keyframes; "
           f"graphed and eager poses, iterations and keyframes bitwise equal: "
           f"{same}; launches eager {n_e}, graphed {n_g}")
@@ -1427,7 +1505,9 @@ def trace_chunk_main(path):
 
 
 def _summary(out):
-    """(poses, iterations, keyframe flag) of a step's output."""
+    """(poses, iterations, keyframe flag) of a step's output; for a
+    ``Result`` the pose and the covariance, and the iterations and
+    statuses."""
     import numpy as np
     import torch
     if isinstance(out, tuple):      # a VOStepOutput
@@ -1435,9 +1515,10 @@ def _summary(out):
                            out.pose_world.reshape(-1),
                            out.f_norm]).cpu().numpy(),
                 out.iters.cpu().numpy(), bool(out.is_keyframe))
-    return (np.asarray(out.pose), np.array(
-        [st.num_iterations for st in out.optimizer_statistics]),
-        bool(out.is_keyframe))
+    return (np.concatenate([np.ravel(out.pose), np.ravel(out.covariance)]),
+            np.array([(st.num_iterations, st.status.value)
+                      for st in out.optimizer_statistics]),
+            bool(out.is_keyframe))
 
 
 def _same(res_a, res_b):
@@ -2276,13 +2357,17 @@ def zoo_phase(dev, smi, tsukuba_root, latch_bits):
                  f"summed over the cells, JAX {n_jax}")
     _lap(t0, "zoo eval_descriptors")
 
-    # the LM cells again with the pose estimator's LM graphs withheld (the
-    # eager host loops): each graphed cell (every level solve one replay of
-    # a RunGraphs solving levenberg_marquardt.run) must give the eager
-    # cell's trajectory and per-frame iterations bit for bit
-    from bpvo_tpu_torch.vo import pose_estimator as pe
-    level_graphs = pe.PoseEstimator._level_graphs
-    pe.PoseEstimator._level_graphs = lambda self, channels_pyr: None
+    # the LM cells again on VisualOdometry's eager route (``_graphs =
+    # None``: the eager host loops): each graphed cell (every estimate one
+    # replay of its graph, every LM level a WHILE node in it) must give
+    # the eager cell's trajectory and per-frame iterations bit for bit
+    from bpvo_tpu_torch.vo import odometry
+    init = odometry.VisualOdometry.__init__
+
+    def eager_init(self, *a, **k):
+        init(self, *a, **k)
+        self._graphs = None
+    odometry.VisualOdometry.__init__ = eager_init
     traj_e = {}
     try:
         t = time.perf_counter()
@@ -2291,7 +2376,7 @@ def zoo_phase(dev, smi, tsukuba_root, latch_bits):
             ("LevenbergMarquardt",), device=dev, trajectories=traj_e)
         wall_e = time.perf_counter() - t
     finally:
-        pe.PoseEstimator._level_graphs = level_graphs
+        odometry.VisualOdometry.__init__ = init
     lm_eager = {}
     for desc in ZOO_DESCRIPTORS:
         tag = f"{desc}+LevenbergMarquardt"
@@ -2631,6 +2716,76 @@ def _node_types(cache):
     return out
 
 
+def _ba_capture_arms(K, baseline, shape, params, frames, window, want,
+                     dev, smi):
+    """BA through ``VisualOdometry`` with its window sizes captured at
+    ``enable_bundle_adjustment`` ("after") against captured in the frame
+    loop at each size's first optimize ("before": a ``KeyframeWindow`` on
+    a fresh cache, no capture ahead), alternated before, after, after,
+    before in this call.  Every arm's frames run on one warm
+    ``VisualOdometry`` cache (its frame, template and estimate keys
+    captured by an untimed run), so the keyframe steps differ only by BA.
+    Each add_frame is timed (host clock to a sync); every arm's refined
+    windows must equal ``want`` (the checked run's) bit for bit.  Returns
+    the JSON object: keyframe-step p50/p90 per run, and the enable ms of
+    the "after" runs."""
+    import numpy as np
+    import torch
+    from bpvo_tpu_torch import VisualOdometry
+    from bpvo_tpu_torch.parallel import bundle_adjustment as ba
+    from bpvo_tpu_torch.utils import graphs
+
+    images = [torch.as_tensor(f[0]).to(dev) for f in frames]
+    disps = [torch.as_tensor(f[1]).to(dev) for f in frames]
+    warm = VisualOdometry(K, baseline, shape, params, device=dev)
+    for image, disp in zip(images, disps):
+        warm.add_frame(image, disp)
+
+    def run(after):
+        vo = VisualOdometry(K, baseline, shape, params, device=dev)
+        enable_ms = None
+        if after:       # the sizes' graphs in a fresh cache of the window's
+            vo._graphs = graphs.GraphCache(dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            vo.enable_bundle_adjustment(window)
+            torch.cuda.synchronize()
+            enable_ms = (time.perf_counter() - t) * 1e3
+        else:
+            vo._ba_window = ba.KeyframeWindow(
+                window, vo._cams[vo._p.maxTestLevel], ba.BAOptions(),
+                device=dev, cache=graphs.GraphCache(dev))
+        vo._graphs = warm._graphs
+        kf_ms, refined = [], []
+        for i, (image, disp) in enumerate(zip(images, disps)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = vo.add_frame(image, disp)
+            torch.cuda.synchronize()
+            if res.is_keyframe and i > 0:
+                kf_ms.append((time.perf_counter() - t) * 1e3)
+                refined.append(vo.refined_keyframe_poses())
+        same = len(refined) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(refined, want))
+        return {"arm": "after" if after else "before",
+                "kf_p50_ms": float(np.percentile(kf_ms, 50)),
+                "kf_p90_ms": float(np.percentile(kf_ms, 90)),
+                "kf_max_ms": float(max(kf_ms)), "enable_ms": enable_ms,
+                "refined_bitwise_checked_run": bool(same)}
+    runs = [run(after) for after in (False, True, True, False)]
+    for r in runs:
+        print(f"BA capture arms: {r['arm']:6s} keyframe steps p50 "
+              f"{r['kf_p50_ms']:.3f} p90 {r['kf_p90_ms']:.3f} max "
+              f"{r['kf_max_ms']:.3f} ms"
+              + (f"; enable_bundle_adjustment {r['enable_ms']:.1f} ms"
+                 if r["enable_ms"] is not None else "")
+              + f"; refined windows bitwise the checked run's: "
+                f"{r['refined_bitwise_checked_run']} on {smi}")
+        _require(r["refined_bitwise_checked_run"],
+                 f"BA capture arm {r['arm']}: refined windows differ")
+    return runs
+
+
 def distributed_phase(dev, smi):
     """Phase 13 (see the module docstring): the distributed layer on the
     card.  Returns (the ``distributed_phase`` JSON object, {path: launch
@@ -2828,7 +2983,7 @@ def distributed_phase(dev, smi):
                 def one(i, step_fn=step_fn, held=held):
                     held[0], _ = step_fn(held[0], images[1 + i],
                                          disps[1 + i])
-                host_ops[label] = _host_ops(one, n_steps)
+                host_ops[label] = _host_ops(one, n_steps)[0]
             world_none, kf_none, _, _, _ = run_sharded(make(None),
                                                        no_reads=False)
             single = device_vo.DeviceVO(K, baseline, shape, p, device=dev)
@@ -2982,7 +3137,11 @@ def distributed_phase(dev, smi):
     params = AlgorithmParameters(**BENCH, descriptor=DescriptorType.INTENSITY)
     vo = VisualOdometry(K, baseline, shape, params, device=dev)
     window = int(ref["ba_window"])
-    vo.enable_bundle_adjustment(window)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vo.enable_bundle_adjustment(window)     # captures sizes 2..window
+    torch.cuda.synchronize()
+    enable_ms = (time.perf_counter() - t) * 1e3
     win = vo._ba_window
     opt_ms, sizes = [], []
     optimize = win.optimize
@@ -3011,13 +3170,16 @@ def distributed_phase(dev, smi):
     opts_ba = ba.BAOptions()
     want_irls = sum(opts_ba.max_iterations * 2 * (m - 1) for m in sizes)
     out["ba"] = {"keyframe_events": at, "window_sizes": sizes,
-                 "optimize_ms": opt_ms, "max_abs_vs_jax": ba_err,
+                 "optimize_ms": opt_ms, "enable_ms": enable_ms,
+                 "max_abs_vs_jax": ba_err,
                  "irls_reduce_per_optimize_iteration": [2 * (m - 1)
                                                         for m in sizes],
                  "launches": launches["ba"]}
     print(f"BA (VisualOdometry, window {window}, 1+{N_STEPS} frames): "
           f"keyframe events {at}, windows {sizes}, ms per optimize "
-          f"{[round(m, 2) for m in opt_ms]} on {smi}; max |refined - JAX| "
+          f"{[round(m, 2) for m in opt_ms]} (enable_bundle_adjustment, its "
+          f"captures of sizes 2..{window}: {enable_ms:.1f} ms) on {smi}; "
+          f"max |refined - JAX| "
           f"{ba_err:.3e} (atol {BA_ATOL_JAX}); irls_reduce launches "
           f"{launches['ba']['irls_reduce']} (expected {want_irls}: 2(M-1) "
           f"an iteration)")
@@ -3025,6 +3187,8 @@ def distributed_phase(dev, smi):
     _require(launches["ba"]["irls_reduce"] == want_irls,
              f"BA: irls_reduce launched {launches['ba']['irls_reduce']} "
              f"times, expected {want_irls}")
+    out["ba_capture"] = _ba_capture_arms(K, baseline, shape, params, frames,
+                                         window, got, dev, smi)
     # the edge reduction at its shape (K = 16384, C = 1), against plain
     irls_x["ba edge M=16384"] = _irls_zoo_check(
         "irls_reduce ba edge", win._templates[0], win._channels[1],
@@ -3587,6 +3751,24 @@ def main() -> int:
             smi, chunked=True)}
     for path in graph_res:      # see trace_chunk
         graph_res[path]["chunks"].update(trace_chunk_subprocess(path))
+    # the profiler after the DeviceVO paths' CPU-only sessions, where device
+    # records once went missing; before the VisualOdometry cells, whose
+    # dense estimates replay WHILE nodes (see the WHILE paths below)
+    print(json.dumps({"trace_after_graph_phase": trace_steps(
+        dframes, K, baseline, dev, smi, "after the graph phase", 2,
+        untraced=False)}))
+    # VisualOdometry's three graphs (frame, templates, estimate): bench.py's
+    # intensity settings, conf/perf_bitplanes.cfg with the disparity given,
+    # and the intensity settings with the multi-start, over 1+N_STEPS
+    # frames; then the dense paths over 1+GRAPH_STEPS
+    params_pbp = AlgorithmParameters.from_config(ConfigFile(CONF_BITPLANES))
+    for name, p in (("intensity", params), ("bitplanes", params_pbp),
+                    ("multistart", params.replace(
+                        coarseInitOffsetPx=VO_MULTISTART_PX))):
+        graph_res[f"vo_{name}"] = graph_phase(
+            f"VisualOdometry {name}", lambda p=p: VisualOdometry(
+                K, baseline, shape, p, device=dev),
+            [f[0::2] for f in sframes], dev, smi)
     for name, desc in (("intensity", DescriptorType.INTENSITY),
                        ("bitplanes", DescriptorType.BITPLANES)):
         graph_res[f"dense_{name}"] = graph_phase(
@@ -3595,11 +3777,6 @@ def main() -> int:
             dframes, dev, smi)
     print(json.dumps({"graph_phase": graph_res}))
     _lap(t_start, "graph phase")
-    # the profiler after the graph phase's CPU-only sessions, where device
-    # records once went missing
-    print(json.dumps({"trace_after_graph_phase": trace_steps(
-        dframes, K, baseline, dev, smi, "after the graph phase", 2,
-        untraced=False)}))
     # the WHILE paths: each eager, graphed and chunked here, held to JAX's
     # DeviceVO, its first chunk traced in a fresh process; after the trace
     # above: once this process has run CPU-only profiler sessions over a
@@ -3615,7 +3792,7 @@ def main() -> int:
             jax_ref=(ref_w, path.removeprefix("device_vo_"), atol))
         while_res[path]["chunks"].update(trace_chunk_subprocess(path))
     print(json.dumps({"graph_phase_while_paths": while_res}))
-    # path (c): a level solve of VisualOdometry's pose estimator alone
+    # path (c): a level solve alone, through its graph holder (RunGraphs)
     print(json.dumps({"level_solve_phase": level_solve_phase(
         K, baseline, dframes[:2], dev, smi)}))
     graph_res.update(while_res)

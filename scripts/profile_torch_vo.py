@@ -27,7 +27,8 @@ bench.py's settings, non-maxima suppression off and pointCapacity 131072
 Every pass starts from the first frame on a VO that keeps what earlier
 passes built, as a long-running process does: the same ``DeviceVO`` with
 its state reset (its step graphs stay), or a new ``VisualOdometry`` (it has
-no reset) that takes over the previous one's ``gauss_newton.run`` graphs.
+no reset) that takes over the previous one's graphs (its ``GraphCache``:
+the frame, template and estimate graphs).
 ``--root DIR`` profiles the package of another checkout (a parent commit
 unpacked under ``build/`` with ``git archive``) with this script.
 
@@ -127,10 +128,11 @@ def main(argv=None) -> int:
         prev = held[0]
         if args.config.startswith("dense"):
             vo = VisualOdometry(K, b, shape, params, device=dev)
-            run_graphs = getattr(prev and prev._pose_estimator,
-                                 "_run_graphs", None)
-            if run_graphs is not None:
-                vo._pose_estimator._run_graphs = run_graphs
+            if hasattr(prev, "_graphs"):
+                vo._graphs = prev._graphs
+            elif prev is not None:      # a checkout from before its graphs
+                vo._pose_estimator._run_graphs = (
+                    prev._pose_estimator._run_graphs)
         else:
             vo = prev or DeviceVO(K, b, shape, params, device=dev,
                                   stereo_fn=stereo_fn)

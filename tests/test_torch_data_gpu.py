@@ -79,9 +79,11 @@ def test_threaded_app_equals_unthreaded_with_graphs(cuda, kitti_root,
                                                     tmp_path, dense):
     """The threaded, prefetched app (census and SGM launched from the loader
     thread on its stream) and an unthreaded run give the same trajectory
-    and iterations bit for bit.  Dense: the pose estimator captures its
-    iteration graphs during the threaded run, while the loader thread keeps
-    launching (thread-local capture); the launch counts stay exact."""
+    and iterations bit for bit.  ``VisualOdometry`` captures its frame,
+    template and estimate graphs (dense: with its ``run`` levels' WHILE
+    nodes) during the threaded run, while the loader thread keeps
+    launching (thread-local capture), and replays them on both routes; the
+    launch counts stay exact."""
     from bpvo_tpu_torch.ops import census, level_gn, sgm
     runs = {}
     for threaded in (True, False):
@@ -91,7 +93,7 @@ def test_threaded_app_equals_unthreaded_with_graphs(cuda, kitti_root,
         app = VoApp.from_config(_config(tmp_path, kitti_root, dense),
                                 device=cuda, threaded=threaded)
         res = app.run()
-        assert (graphs.replay_count > replays) == dense
+        assert graphs.replay_count > replays
         runs[threaded] = (np.stack(res.vo.trajectory.poses), res.iterations,
                           census.launch_count, sgm.launch_count,
                           level_gn.launch_count)

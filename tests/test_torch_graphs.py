@@ -1,8 +1,8 @@
 """The graphed routes' plumbing on the CPU, where no CUDA graph can run:
 ``utils/graphs.GraphCache``'s launch-count bookkeeping with a fake op
 module, and the buffers, copies and alternating graphs of
-``gauss_newton.RunGraphs``, ``DeviceVO``'s step and ``PoseEstimator``
-driven through ``ReplayStandIn``, a cache whose "replay" runs the captured
+``gauss_newton.RunGraphs``, ``DeviceVO``'s step and ``VisualOdometry``'s
+estimate graph driven through ``ReplayStandIn``, a cache whose "replay" runs the captured
 function again and copies its results into the same output tensors (the
 static outputs a CUDA graph overwrites on every replay).  Each route is held
 bit for bit to the eager code as it was before the step and the loop were
@@ -538,15 +538,15 @@ def test_step_with_run_levels_bitwise(monkeypatch):
 
 def test_visual_odometry_run_levels_bitwise(monkeypatch):
     """``VisualOdometry`` with its finest level on ``gauss_newton.run``:
-    the pose estimator's per-level graphs (stand-in; one graph, one replay
-    per level solve) against the eager loop, every Result field bit for
-    bit."""
+    the estimate graph (stand-in; that level's loop a ``while_loop``
+    inside the whole estimate, one replay an estimate) against the eager
+    chain, every Result field bit for bit."""
     monkeypatch.setattr(gn, "MAX_LEVEL_KERNEL_POINTS", 1024)
     K, b, frames, params, _ = _vo_case("intensity")
     eager = VisualOdometry(K, b, (H_IMG, W_IMG), params, device="cpu")
     graphed = VisualOdometry(K, b, (H_IMG, W_IMG), params, device="cpu")
-    graphed._pose_estimator._run_graphs = tuple(
-        gn.RunGraphs(ReplayStandIn("cpu")) for _ in range(3))
+    assert eager._graphs is None
+    graphed._graphs = ReplayStandIn("cpu")
     n_kf = 0
     for image, disp in frames[:7]:
         re, rg = eager.add_frame(image, disp), graphed.add_frame(image, disp)
@@ -556,7 +556,10 @@ def test_visual_odometry_run_levels_bitwise(monkeypatch):
         assert re.optimizer_statistics == rg.optimizer_statistics
         n_kf += int(re.is_keyframe)
     assert n_kf >= 3
-    assert len(graphed._pose_estimator._run_graphs[0]._cache) == 1
+    assert not hasattr(graphed._pose_estimator, "_run_graphs")
+    kinds = sorted(key[0][0] for key in graphed._graphs._entries)
+    assert kinds.count("frame") == kinds.count("templates") == 1
+    assert 1 <= kinds.count("estimate") <= 2
 
 
 # ---------------------------------------------------------------------------

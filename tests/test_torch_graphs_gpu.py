@@ -3,10 +3,11 @@ graph (its keyframe branch an IF node, its ``gauss_newton.run`` and LM
 level solves WHILE nodes; ``add_frame`` and read-free ``add_frames``
 chunks) on the bench, dense and Bit-Planes LM paths,
 ``gauss_newton.RunGraphs`` for GN and for LM (``solve=
-levenberg_marquardt.run``; one replay, no read per level solve; alone and
-in ``VisualOdometry``) bit for bit, with equal launch counts once settled, IF and WHILE nodes alone, a
-WHILE body that frees a tensor from before the loop, and captures that
-fail raising.  Marked ``gpu``: without a
+levenberg_marquardt.run``; one replay, no read per level solve),
+``VisualOdometry``'s frame, template and estimate graphs (two replays and
+one read an other step) bit for bit, with equal launch counts once
+settled, IF and WHILE nodes alone, a WHILE body that frees a tensor from
+before the loop, and captures that fail raising.  Marked ``gpu``: without a
 CUDA device they skip (the decision is made in a fixture).  On a machine
 with an NVIDIA GPU (no JAX needed):
 
@@ -434,15 +435,16 @@ def test_device_vo_with_run_levels_graphed_equals_eager(cuda):
 @pytest.mark.parametrize("solver", ["GaussNewton", "LevenbergMarquardt"])
 def test_visual_odometry_graphed_equals_eager(cuda, solver):
     """Dense ``VisualOdometry`` (L0 and L1 on ``run``; with LM every
-    level): the pose estimator's graphs (one per level, one replay per
-    level solve) against the eager loop, every Result field equal, the
-    same launches."""
+    level): the estimate graph (those levels' loops WHILE nodes in it, one
+    replay an estimate) with the frame and template graphs against the
+    eager route, every Result field equal, the same launches."""
     K, b, frames = synthetic.synthesize_sequence(5)
     params = AlgorithmParameters(**dict(DENSE, poseEstimator=solver))
     shape = (synthetic.ROWS, synthetic.COLS)
     vo = VisualOdometry(K, b, shape, params, device=cuda)
     ref = VisualOdometry(K, b, shape, params, device=cuda)
-    ref._pose_estimator._level_graphs = lambda channels_pyr: None
+    assert vo._graphs is not None
+    ref._graphs = None
     for image, disp in frames:
         before = _counts()
         rg = vo.add_frame(image, disp)
@@ -454,7 +456,102 @@ def test_visual_odometry_graphed_equals_eager(cuda, solver):
         assert np.array_equal(rg.covariance, re.covariance)
         assert rg.is_keyframe == re.is_keyframe
         assert rg.optimizer_statistics == re.optimizer_statistics
-    assert len(vo._pose_estimator._run_graphs[0]._cache) == 1
+    kinds = sorted(key[0][0] for key in vo._graphs._entries)
+    assert kinds.count("frame") == kinds.count("templates") == 1
+    assert 1 <= kinds.count("estimate") <= 2
+
+
+def _allowed_reads(monkeypatch, reads):
+    """Let only ``PoseEstimator._read`` (the estimate's copy) and
+    ``VisualOdometry._cloud_read`` (a keyframe's point cloud) synchronize
+    under ``set_sync_debug_mode("error")``, counting each in ``reads``."""
+    from bpvo_tpu_torch.vo import odometry, pose_estimator
+
+    def allowed(name, fn):
+        def read(*a):
+            reads[name] += 1
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return staticmethod(read)
+    monkeypatch.setattr(pose_estimator.PoseEstimator, "_read", allowed(
+        "estimate", pose_estimator.PoseEstimator._read))
+    monkeypatch.setattr(odometry.VisualOdometry, "_cloud_read", allowed(
+        "cloud", odometry.VisualOdometry._cloud_read))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("desc", ["intensity", "bitplanes", "multistart"])
+def test_visual_odometry_three_graphs_equal_eager(cuda, desc, monkeypatch):
+    """``VisualOdometry`` at 240x320 on its graphed route (the frame,
+    template and estimate graphs) against ``_graphs = None``: every Result
+    field bit for bit, the same settled launches.  Both routes run under
+    ``set_sync_debug_mode("error")`` with only the estimate's read and a
+    keyframe's point-cloud read allowed (the eager route's levels are all
+    ``level_gn``, which reads nothing: so the multi-start's median and
+    candidate pick read nothing either).  The graphed pass takes over a
+    first pass's cache (its keys captured): an other step is 2 replays
+    and 1 read; a keyframe adds the template replay and the cloud's read,
+    and with a candidate the re-estimate's replay and read."""
+    K, b, frames = synthetic.synthesize_sequence(1 + N_STEPS, 240, 320)
+    frames = [tuple(torch.as_tensor(x).to(cuda) for x in f) for f in frames]
+    params = AlgorithmParameters(**dict(
+        BENCH_PARAMS, minTranslationMagToKeyFrame=0.08,
+        coarseInitOffsetPx=2.0 if desc == "multistart" else 0.0,
+        descriptor=(DescriptorType.BITPLANES if desc == "bitplanes"
+                    else DescriptorType.INTENSITY)))
+    shape = (240, 320)
+
+    def no_other_read(vo, image, disp):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return vo.add_frame(image, disp)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    first = VisualOdometry(K, b, shape, params, device=cuda)
+    for image, disp in frames:
+        first.add_frame(image, disp)
+    reads = {"estimate": 0, "cloud": 0}
+    _allowed_reads(monkeypatch, reads)
+    ref = VisualOdometry(K, b, shape, params, device=cuda)
+    ref._graphs = None
+    want = []
+    for image, disp in frames:
+        before = _counts()
+        want.append((no_other_read(ref, image, disp), _delta(before)))
+    vo = VisualOdometry(K, b, shape, params, device=cuda)
+    vo._graphs = first._graphs
+    n_keys = len(vo._graphs)
+    kinds = set()
+    for (image, disp), (re, n_eager) in zip(frames, want):
+        candidate = not vo._prev.empty
+        before, r0, n0 = _counts(), graphs.replay_count, dict(reads)
+        rg = no_other_read(vo, image, disp)
+        assert _delta(before) == n_eager
+        assert np.array_equal(rg.pose, re.pose)
+        assert np.array_equal(rg.covariance, re.covariance)
+        assert rg.is_keyframe == re.is_keyframe
+        assert rg.keyframing_reason == re.keyframing_reason
+        assert rg.optimizer_statistics == re.optimizer_statistics
+        if re.point_cloud is not None:
+            for field in ("points", "colors", "weights"):
+                assert np.array_equal(getattr(rg.point_cloud, field),
+                                      getattr(re.point_cloud, field))
+        got = (graphs.replay_count - r0, reads["estimate"] - n0["estimate"],
+               reads["cloud"] - n0["cloud"])
+        if not re.optimizer_statistics:          # the first frame
+            assert got == (2, 0, 0)
+            continue
+        kind = ("other" if not re.is_keyframe else
+                "candidate" if candidate else "no_candidate")
+        kinds.add(kind)
+        assert got == {"other": (2, 1, 0), "no_candidate": (3, 1, 1),
+                       "candidate": (4, 2, 1)}[kind], kind
+    assert "other" in kinds and len(kinds) >= 2
+    assert len(vo._graphs) == n_keys
 
 
 @pytest.mark.gpu

@@ -360,9 +360,9 @@ def test_hooks_refuse_graphs_lm_and_the_multistart(sequence):
     K, b, *_ = sequence
     tp = convert.params_from_jax(dataclasses.asdict(JParams(**VO_KW)))
     lin = lambda *a: None  # noqa: E731
-    # a hooked level has no graph holder (RunGraphs), no LM, no multi-start
-    for kw in ({"run_graphs": (None,)}, {"solver": "LevenbergMarquardt"},
-               {"multistart_px": 1.0}):
+    # a hooked level has no LM and no multi-start (in a captured step its
+    # gauss_newton.run loop is a WHILE node of the step's graph)
+    for kw in ({"solver": "LevenbergMarquardt"}, {"multistart_px": 1.0}):
         with pytest.raises(ValueError, match="custom linearization"):
             pe._estimate_all((), (None,), (), torch.eye(4), (), 0, 0.5,
                              linearize_factory=lin, **kw)
