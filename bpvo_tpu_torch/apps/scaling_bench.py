@@ -9,13 +9,18 @@ For each world size it starts the ranks itself (``multihost.launch``);
 each builds the same synthetic problem (``parallel.dryrun
 .synthetic_problem``), keeps its ``shard_template`` slice and times
 ``make_sharded_gn`` over ``--reps`` solves of a fixed 10 iterations
-(tolerances at 1e-12).  Prints one JSON object: per world size the ms per
-solve (rank 0's host clock, synchronized), the speedup and the efficiency
-t_1 / (n t_n).  With nccl on CUDA each timed solve is one replay of the
-solve's CUDA graph, the all-reduces captured in it (``"graphed": true``;
-the first, untimed solve captures it).  gloo on CUDA tensors stages every
-reduction through host memory and runs eagerly (``"staged": true``), so
-its numbers measure the host, not a collective.
+(tolerances at 1e-12).  Prints one JSON object: per world size the group's
+route (``Reducer.route`` and ``peer_rule``), the ms per solve (rank 0's
+host clock, synchronized), the speedup and the efficiency t_1 / (n t_n).
+With nccl on CUDA (one rank, or the cards of one host reducing through
+the peer kernel, ``parallel.peer``) the default route is graphed
+(``"graphed": true``): each solve one replay of the solve's CUDA graph,
+the all-reduces in it (the first, untimed solve captures it); the eager
+route (``cache=False``) is then timed too, alternated with it in rounds
+of eager, graphed, graphed, eager (``ms_per_solve_eager``, ``speedup_eager``
+and ``efficiency_eager`` against the eager t_1).  gloo on CUDA tensors
+stages every reduction through host memory and runs eagerly (``"staged":
+true``), so its numbers measure the host, not a collective.
 """
 from __future__ import annotations
 
@@ -42,26 +47,42 @@ def run_rank(args) -> None:
             args.rows, args.cols, args.points, device=dev)
         shard = sharded.shard_template(tdata, reducer.rank, reducer.world)
         run = sharded.make_sharded_gn(reducer, opts)
+        run_e = sharded.make_sharded_gn(reducer, opts, cache=False)
+        graphed = dev.type == "cuda" and graphs.capturable(reducer, dev)
         T0 = torch.eye(4, dtype=torch.float32, device=dev)
 
         def sync():
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
+        def timed(fn, reps):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                st = fn(shard, channels, cam, T0)
+            sync()
+            return (time.perf_counter() - t0) * 1e3 / reps, st
+
         st = run(shard, channels, cam, T0)
         sync()
         reducer.reset()
-        t0 = time.perf_counter()
-        for _ in range(args.reps):
-            st = run(shard, channels, cam, T0)
-        sync()
-        ms = (time.perf_counter() - t0) * 1e3 / args.reps
+        ms, st = timed(run, args.reps)
+        calls, nbytes = reducer.calls, reducer.bytes
+        ms_e = None
+        if graphed:     # eager, graphed, graphed, eager
+            t = {"eager": [], "graphed": []}
+            for name in ("eager", "graphed", "graphed", "eager"):
+                t[name].append(timed(run_e if name == "eager" else run,
+                                     args.reps)[0])
+            ms = (ms + sum(t["graphed"])) / 3
+            ms_e = sum(t["eager"]) / 2
         print("SCALING_RANK " + json.dumps({
             "rank": reducer.rank, "ms_per_solve": ms,
-            "graphed": dev.type == "cuda" and graphs.capturable(reducer, dev),
+            "ms_per_solve_eager": ms_e, "route": reducer.route,
+            "peer_rule": reducer.peer_rule, "graphed": graphed,
             "iterations": int(st.num_iters),
-            "collective_calls_per_solve": reducer.calls / args.reps,
-            "collective_bytes_per_solve": reducer.bytes / args.reps}),
+            "collective_calls_per_solve": calls / args.reps,
+            "collective_bytes_per_solve": nbytes / args.reps}),
             flush=True)
     finally:
         multihost.shutdown()
@@ -72,7 +93,7 @@ def run_scaling(sizes=(1, 2), total_points: int = 65536, rows: int = 240,
                 device: str = "cuda", threads: int = 0,
                 timeout_s: float = 600.0) -> dict:
     from bpvo_tpu_torch.parallel import multihost
-    results, t_base = {}, None
+    results, t_base, t_base_e = {}, None, None
     for n in sizes:
         done = multihost.launch(
             "bpvo_tpu_torch.apps.scaling_bench",
@@ -86,11 +107,17 @@ def run_scaling(sizes=(1, 2), total_points: int = 65536, rows: int = 240,
         r0 = next(json.loads(line.split(" ", 1)[1]) for line in
                   done[0].stdout.splitlines()
                   if line.startswith("SCALING_RANK "))
-        dt = r0["ms_per_solve"]
+        dt, dt_e = r0["ms_per_solve"], r0["ms_per_solve_eager"]
         t_base = dt if t_base is None else t_base
+        if dt_e is not None and t_base_e is None:
+            t_base_e = dt_e
+        eager = {} if dt_e is None or t_base_e is None else {
+            "ms_per_solve_eager": dt_e, "speedup_eager": t_base_e / dt_e,
+            "efficiency_eager": t_base_e / (dt_e * n)}
         results[n] = {"ms_per_solve": dt, "graphed": r0["graphed"],
+                      "route": r0["route"], "peer_rule": r0["peer_rule"],
                       "speedup": t_base / dt,
-                      "efficiency": t_base / (dt * n),
+                      "efficiency": t_base / (dt * n), **eager,
                       "iterations": r0["iterations"],
                       "collective_calls_per_solve":
                           r0["collective_calls_per_solve"],

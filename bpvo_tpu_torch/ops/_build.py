@@ -218,6 +218,16 @@ def _load_library() -> ctypes.CDLL:
             ("exec_destroy", [p])):
         fn = getattr(lib, "bpvo_graph_" + name)
         fn.argtypes, fn.restype = args, i
+    # peer_reduce.cu: the distributed layer's all-reduce (parallel/peer.py)
+    ll = ctypes.c_longlong
+    for name, args, res in (
+            ("buffer_bytes", [], ll), ("slot_bytes", [], ll),
+            ("max_ranks", [], i), ("handle_bytes", [], i),
+            ("alloc", [i, pp, p], i), ("open", [i, p, pp], i),
+            ("close", [i, p], i), ("free", [i, p], i),
+            ("reduce", [p, i, i, i, p, p, ll, i, i, u64, p], i)):
+        fn = getattr(lib, "bpvo_peer_" + name)
+        fn.argtypes, fn.restype = args, res
     # the microbenchmarks of bpvo_tpu_torch/probes
     for name, args in (
             ("while_cta", [p, p, i, i, p]),

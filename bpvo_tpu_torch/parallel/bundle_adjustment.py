@@ -22,14 +22,16 @@ The (6M)^2 solve is a library call (``linear_system.solve_dense``:
 Pallas kernel.
 
 Compiled as JAX compiles them (``jit`` and ``jit(shard_map)`` of a
-``lax.scan`` over the iterations): on CUDA with no reducer or a one-rank
-nccl group (``graphs.route``), ``ba_solve``, ``ba_solve_with_depth``, the runners of
+``lax.scan`` over the iterations): on CUDA with no reducer, a one-rank
+nccl group or an nccl group over the cards of one host (its all-reduces
+the peer kernel, ``parallel.peer``; ``graphs.route``), ``ba_solve``,
+``ba_solve_with_depth``, the runners of
 ``make_sharded_ba`` and ``make_sharded_ba_2d`` and
 ``KeyframeWindow.optimize`` are each one CUDA-graph replay with no host
 read, a graph per window size M (``GraphCache.jit``: the inputs copied
 into static buffers), the fixed iteration count captured unrolled and the
 all-reduces inside.  The edges and the Schur complement's block rows are
-Python-static.  With gloo (host-staged), nccl across cards
+Python-static.  With gloo (host-staged), nccl over several hosts
 (``graphs.capturable``) or on the CPU they run eagerly;
 ``cache=False`` asks for the eager route on CUDA.
 """

@@ -23,10 +23,12 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from bpvo_tpu_torch.parallel import peer
 from bpvo_tpu_torch.parallel.collectives import BACKENDS, Reducer
 from bpvo_tpu_torch.utils import graphs
 
 DEFAULT_TIMEOUT_S = 60.0
+PORT_ATTEMPTS = 3             # ``launch``'s tries when a port was taken
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -72,10 +74,13 @@ def initialize(backend: str, world_size: int, rank: int, address: str,
 
 def shutdown() -> None:
     """Destroy the default group, after every CUDA graph of the process
-    (``graphs.release``): a graph holding a captured NCCL collective keeps
-    its communicator from being destroyed."""
+    (``graphs.release``: a graph holding a captured NCCL collective keeps
+    its communicator from being destroyed) and then the peer buffers
+    (``peer.close_all``: no graph that launches the peer kernel outlives
+    the buffers it maps)."""
     if dist.is_initialized():
         graphs.release()
+        peer.close_all()
         dist.destroy_process_group()
 
 
@@ -120,8 +125,19 @@ def launch(module: str, args: Sequence[str], world: int,
     every rank r (one free port), wait for all of them at most ``timeout_s``
     and kill what is still running then.  Returns the completed processes
     (stdout and stderr merged into stdout); a rank killed at the timeout
-    has returncode None."""
-    port = free_port()
+    has returncode None.  ``free_port`` closes the port it found before
+    rank 0 listens on it, some seconds later; when another process took it
+    meanwhile (a rank failed with EADDRINUSE), the ranks run again on a new
+    port, at most PORT_ATTEMPTS times in all."""
+    for _ in range(PORT_ATTEMPTS):
+        out = _launch_once(module, args, world, free_port(), timeout_s)
+        if not any(d.returncode != 0 and "EADDRINUSE" in (d.stdout or "")
+                   for d in out):
+            break
+    return out
+
+
+def _launch_once(module, args, world, port, timeout_s):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)

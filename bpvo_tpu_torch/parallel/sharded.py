@@ -123,17 +123,19 @@ def make_sharded_gn(reducer, opts: gn.GNOptions, cache=None):
     weights, which stay this rank's (C, K_local).  ``reducer`` a
     ``collectives.Reducer``, or None for one process with no collectives.
 
-    On CUDA with no reducer or a one-rank nccl group (``graphs.route``),
-    a solve is
-    one replay of a ``gauss_newton.RunGraphs`` graph (one per shape, its
-    key carrying the reducer) with no host read: iteration 0, then the
-    WHILE node of the others with the (H, g, f_sq) all-reduce in its body
-    and the sigma's max and histogram all-reduces in the IF node inside
-    it.  Every predicate is computed from reduced values, so every rank
-    runs the same iterations and branches.  With gloo (host-staged), nccl
-    across cards (``graphs.capturable``: NCCL's event nodes cannot sit in
-    the bodies), ``cache=False`` or on the CPU the solve is eager: one
-    host read per iteration, as ``gauss_newton.run``.  ``cache`` a ``GraphCache`` to
+    On CUDA with no reducer, a one-rank nccl group or an nccl group over
+    the cards of one host (its all-reduces the peer kernel,
+    ``parallel.peer``; ``graphs.route``), a solve is one replay of a
+    ``gauss_newton.RunGraphs`` graph (one per shape, its key carrying the
+    reducer) with no host read: iteration 0, then the WHILE node of the
+    others with the (H, g, f_sq) all-reduce in its body and the sigma's
+    max and histogram all-reduces in the IF node inside it.  Every
+    predicate is computed from reduced values, identical bits on every
+    rank, so every rank runs the same iterations and branches.  With gloo
+    (host-staged), nccl over several hosts (``graphs.capturable``:
+    NCCL's event nodes cannot sit in the bodies), ``cache=False`` or on
+    the CPU the solve is eager: one host read per iteration, as
+    ``gauss_newton.run``.  ``cache`` a ``GraphCache`` to
     capture in (the tests' CPU stand-ins)."""
     sopts = sharded_options(opts)
     owned, holders = {}, {}

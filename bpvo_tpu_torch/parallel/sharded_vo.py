@@ -18,15 +18,18 @@ Every rank runs ``vo.device_vo.make_vo_step`` with the three hooks:
 Every predicate of the step (the keyframe decision, each level's exit and
 sigma tests, the warm-start gate) is computed from reduced values, so every
 rank takes the same branches and runs the same iterations, and runs the
-same collectives in the same order.  On CUDA with no reducer or a
-one-rank nccl group (``graphs.route``) the step is one CUDA graph (``device_vo.StepGraph``,
-JAX's ``jit(shard_map(step))``): ``step_fn`` is one replay with no host
-read, the keyframe branch an IF node holding the sharded template build and
-the re-estimate's WHILE nodes, the all-reduces captured inside the bodies;
-``scan_fn`` copies its chunk in once and replays back to back, the outputs
-stacked on the card (``lax.scan``).  With gloo (host-staged), nccl across
-cards (``graphs.capturable``) or on the CPU the step is eager: the keyframe decision and each level's exit test are
-read on the host, and ``scan_fn`` is a loop over frames.
+same collectives in the same order.  On CUDA with no reducer, a one-rank
+nccl group or an nccl group over the cards of one host (its all-reduces
+the peer kernel, ``parallel.peer``; ``graphs.route``) the step is one
+CUDA graph (``device_vo.StepGraph``, JAX's ``jit(shard_map(step))``):
+``step_fn`` is one replay with no host read, the keyframe branch an IF
+node holding the sharded template build and the re-estimate's WHILE
+nodes, the all-reduces captured inside the bodies; ``scan_fn`` copies its
+chunk in once and replays back to back, the outputs stacked on the card
+(``lax.scan``).  With gloo (host-staged), nccl over several hosts
+(``graphs.capturable``) or on the CPU the step is eager: the keyframe
+decision and each level's exit test are read on the host, and ``scan_fn``
+is a loop over frames.
 """
 from __future__ import annotations
 
@@ -91,9 +94,9 @@ def make_sharded_vo(reducer, K, baseline: float, image_size,
     GaussNewton only (the sharded linearization hooks ``gauss_newton.run``;
     LM is a single-device option).  ``device`` names this rank's device
     ("cuda" unless the caller asks for the CPU).  ``cache``: None for the
-    route ``graphs.route`` picks (the step graph on CUDA with no reducer or
-    a one-rank nccl group), False for the eager step, or a ``GraphCache`` to capture
-    in (the tests' CPU stand-ins).  On the graphed route the returned state
+    route ``graphs.route`` picks (the step graph on CUDA with no reducer, a
+    one-rank nccl group or a peer-reducing one), False for the eager step,
+    or a ``GraphCache`` to capture in (the tests' CPU stand-ins).  On the graphed route the returned state
     is the step graph's buffers, which the next step overwrites (JAX's
     step donates it); the outputs are the caller's."""
     dev = device_vo.resolve_device(device)

@@ -72,12 +72,13 @@ matcher) waits until the capture is over and is not taken for the graph's.
 Other counts advance the same way: a ``parallel.collectives.Reducer``
 registers its ``calls`` and ``bytes`` (``register_counter``), so a replay
 adds a captured all-reduce's call and bytes, and ``settle()`` those of an
-all-reduce in a conditional body times its runs.  An nccl all-reduce does
-no host work and is captured: in place on one rank it adds no node; across
-cards ProcessGroupNCCL runs it on a stream of its own, joined to the
-capturing stream by events, which the capture turns into dependencies,
-and NCCL adds an event wait and an event record node beside its kernel
-(``scripts/nccl_graph_nodes.py``).  A conditional body holds
+all-reduce in a conditional body times its runs.  The all-reduces the
+graphed routes capture do no host work: in place on one nccl rank it adds
+no node, and across the cards of one host (``parallel.peer``) it is one
+kernel node.  A captured ``dist.all_reduce`` across cards would run on
+ProcessGroupNCCL's stream of its own, joined to the capturing stream by
+events, and NCCL adds an event wait and an event record node beside its
+kernel (``scripts/nccl_graph_nodes.py``).  A conditional body holds
 only kernel, memcpy, memset, empty, child-graph and conditional nodes;
 ``_Joined`` counts each body segment's node types (``node_types``) and
 raises, naming the type, on any other (a host node, an event record or
@@ -88,11 +89,12 @@ tensors: the inputs copied into static buffers of the key (those named by
 ``held`` only when another object arrives), ``fn`` of the buffers
 replayed, copies of its outputs returned.  ``route(cache, device,
 reducer)`` is the rule the distributed layer's entry points share: the
-graphed route on CUDA with no reducer or a one-rank nccl group; the eager
-route for gloo (its host staging cannot be captured), for nccl across
-cards (``capturable``), on the CPU unless a cache is given (the tests'
-stand-ins), when asked (``cache=False``), and inside another cache's run
-(whose graph then captures the call).
+graphed route on CUDA with no reducer, a one-rank nccl group or an nccl
+group that reduces over peer memory (``capturable``); the eager route for
+gloo (its host staging cannot be captured), for nccl groups over several
+hosts, on the CPU unless a cache is given (the tests' stand-ins), when
+asked (``cache=False``), and inside another cache's run (whose graph then
+captures the call).
 
 Captures run in CUDA's thread-local mode: another thread may go on
 allocating, copying and launching on its own streams while this one
@@ -143,9 +145,11 @@ BODY_NODE_TYPES = frozenset(("kernel", "memcpy", "memset", "graph", "empty",
 
 
 def op_modules():
-    """The ``ops`` modules whose wrappers count kernel launches."""
+    """The modules whose wrappers count kernel launches: the ``ops``
+    modules and ``parallel.peer``."""
     from bpvo_tpu_torch.ops import census, fused_linearize, irls, level_gn, sgm
-    return (census, fused_linearize, irls, level_gn, sgm)
+    from bpvo_tpu_torch.parallel import peer
+    return (census, fused_linearize, irls, level_gn, sgm, peer)
 
 
 def register_counter(obj):
@@ -170,26 +174,32 @@ def in_run():
 
 def capturable(reducer, device) -> bool:
     """Whether ``reducer``'s collectives on ``device`` can be captured in
-    the graphed routes: no reducer, an nccl group of one rank, or any on
-    the CPU (where only a stand-in "captures").  gloo stages CUDA tensors
-    through host memory.  Across cards NCCL puts an event wait and an
-    event record node beside each captured all-reduce's kernel (its graph
+    the graphed routes: no reducer, an nccl group of one rank, an nccl
+    group that reduces over peer memory (``reducer.peer``: the cards of one
+    host, ``parallel.peer.eligible``), or any on the CPU (where only a
+    stand-in "captures").  Only kernel nodes go into the IF and WHILE
+    bodies that hold the collectives: the peer all-reduce is one kernel
+    launch, the one-rank nccl all-reduce adds no node.  gloo stages CUDA
+    tensors through host memory.  ``dist.all_reduce`` across cards brings
+    an event wait and an event record node beside its kernel (NCCL's graph
     mixing; measured at 2 and 4 ranks, scripts/nccl_graph_nodes.py), which
-    the IF and WHILE bodies holding the collectives cannot hold, so an
-    nccl group of more ranks runs eagerly."""
+    the bodies cannot hold, so an nccl group over several hosts runs
+    eagerly."""
     if reducer is None or torch.device(device).type != "cuda":
         return True
-    return reducer.backend == "nccl" and reducer.world == 1
+    return reducer.backend == "nccl" and (
+        reducer.world == 1 or getattr(reducer, "peer", None) is not None)
 
 
 def route(cache, device, reducer=None, owned=None):
     """The ``GraphCache`` a graphed entry point of the distributed layer
     runs through, or None for its eager route.  ``cache``: False asks for
     the eager route; a cache is taken as given (a CPU stand-in in the
-    tests); None means, on CUDA when ``capturable``, a cache of the
-    caller's own (made in ``owned``, a dict the caller keeps, one a
-    device) or without ``owned`` the device's ``default_cache``, and the
-    eager route otherwise.  Inside another cache's run the call is eager,
+    tests); None means, on CUDA when ``capturable`` (the reducer's
+    all-reduces are kernel launches or no node, which the graph's IF and
+    WHILE bodies can hold), a cache of the caller's own (made in
+    ``owned``, a dict the caller keeps, one a device) or without ``owned``
+    the device's ``default_cache``, and the eager route otherwise.  Inside another cache's run the call is eager,
     and so part of that run's graph.  A choice made from the arguments
     alone: nothing falls back."""
     if cache is False or in_run():
@@ -530,6 +540,17 @@ class GraphCache:
 
     def __contains__(self, key):
         return key in self._entries
+
+    def node_types(self):
+        """The node types of every graph of this cache, summed:
+        {"top": {type: count}, "if": ..., "while": ...}
+        (``_Joined.node_types``)."""
+        out = {"top": {}, "if": {}, "while": {}}
+        for captured, _ in self._entries.values():
+            for where, types in captured.node_types.items():
+                for name, n in types.items():
+                    out[where][name] = out[where].get(name, 0) + n
+        return out
 
     def __call__(self, key, fn):
         global replay_count

@@ -154,8 +154,10 @@ class VisualOdometry:
         (``parallel/bundle_adjustment.py``; JAX odometry.py:141-152).
         ``group``: a ``parallel.collectives.Reducer`` to split the points
         over its ranks (each rank runs this VisualOdometry on the same
-        frames), or None.  On CUDA with no reducer or a one-rank nccl
-        group each optimize is one replay of the window size's BA graph
+        frames), or None.  On CUDA with no reducer, a one-rank nccl group
+        or an nccl group over the cards of one host (``graphs.capturable``:
+        its all-reduces the peer kernel) each optimize is one replay of
+        the window size's BA graph
         (in ``self._graphs`` on the graphed route) and one read of the
         refined poses; the graphs of every size from 2 to ``window_size``
         are captured here, on a placeholder keyframe of the real shapes

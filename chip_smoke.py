@@ -234,8 +234,39 @@
    BA_DEPTH_ATOL of the CPU's plain run; the collective calls and bytes
    per step beside JAX's count; ``apps.scaling_bench`` at world 1 (nccl)
    and world 2 (gloo, host-staged, eager); every multi-process run under
-   a wall timeout of DIST_TIMEOUT_S.  One ``{"distributed_phase": ...}``
-   JSON line.
+   a wall timeout of DIST_TIMEOUT_S.  With 2 or more cards
+   (``multicard_phase``) also the dry run with nccl ranks on min(count, 4)
+   cards, whose groups reduce through ``peer_reduce`` and take the
+   graphed route: every path (the sharded VO's ``scan_fn`` and ``step_fn``,
+   intensity and Bit-Planes, the sharded GN, ``ba_solve``,
+   ``make_sharded_ba(_2d)``, ``ba_solve_with_depth``) graphed bit for bit
+   its eager route on every rank with one replay a call under
+   ``set_sync_debug_mode("error")``, only kernel, memcpy and memset nodes
+   in its IF and WHILE bodies, the ranks bitwise equal, within JAX's
+   tolerances, ``peer_reduce`` launched by every path on every rank (its
+   count set to 0 before the paths and read after them), and the kernel
+   bit for bit ``peer.plain_all_reduce`` across the cards at every
+   reduced size, eagerly and replayed; on one card it prints that it was
+   not run, and ``peer_reduce``'s count over the world-1 paths must be 0.  On a machine with four cards the peer
+   route runs alone with ``python -m bpvo_tpu_torch.parallel.dryrun
+   --procs 4 --backend nccl --device cuda --ref
+   tests/data/torch_port_sharded_ref.npz`` and ``python -m
+   bpvo_tpu_torch.apps.scaling_bench --sizes 1,2,4 --backend nccl``.
+   One ``{"distributed_phase": ...}`` JSON line.
+14. Peer phase (after the probe phase): ``peer_reduce``
+   (``csrc/peer_reduce.cu``, the layer's all-reduce over NVLink peer
+   memory) through its loopback launch on one card (W CTAs of one
+   launch, CTA r playing rank r) at W = 2, 4, 8 and every size and op the
+   layer reduces (``dryrun.COLLECTIVE_SIZES``): bit for bit
+   ``peer.plain_fold`` eagerly and over PEER_REPLAYS replays of a graph of
+   PEER_GRAPH_CALLS calls on fresh inputs, each rank's device epoch equal
+   to the launches made, one device kernel a call, a buffer over the slot
+   capacity refused; µs a call through the wrapper and replayed, the plain
+   version's and ``sum``/``amax`` over the rank axis (the library call).
+   Its kernels-line entry takes ``launches`` from the multi-card dry run's
+   paths (rank 0's count); on one card from the world-1 paths, where it is
+   0 (world-1 nccl groups keep NCCL's route).  The loopback's launches are
+   comparisons, ``loopback_launches``.
 
 Any failure exits non-zero.  The line before the last is a JSON object with
 the kernels' launches (summed over the VO phases that run each; for the
@@ -2690,7 +2721,7 @@ def _graphed_vs_eager(label, fn, smi, reducer=None):
     ms_e, ms_g = _alternated_ms(lambda: fn(False), lambda: fn(cache))
     rec = {"graphed_equals_eager": same, "replays": replays,
            "reads": 0, "ms": ms_g, "ms_eager": ms_e, "launches": n_g,
-           "collectives": c_g, "node_types": _node_types(cache)}
+           "collectives": c_g, "node_types": cache.node_types()}
     print(f"{label} graphed vs eager: {ms_g:.3f} vs {ms_e:.3f} ms a call "
           f"(alternated) on {smi}; {replays} replay, no read; bitwise "
           f"(outputs, launches, collectives): {same}; launches {n_g}, "
@@ -2703,17 +2734,6 @@ def _graphed_vs_eager(label, fn, smi, reducer=None):
 
 def _stat_delta(before, after):
     return {k: after[k] - before[k] for k in after}
-
-
-def _node_types(cache):
-    """The node types of every graph of ``cache``, summed: {"top": ...,
-    "if": ..., "while": ...} (``graphs._Joined.node_types``)."""
-    out = {"top": {}, "if": {}, "while": {}}
-    for captured, _ in cache._entries.values():
-        for where, types in captured.node_types.items():
-            for name, n in types.items():
-                out[where][name] = out[where].get(name, 0) + n
-    return out
 
 
 def _ba_capture_arms(K, baseline, shape, params, frames, window, want,
@@ -2786,6 +2806,47 @@ def _ba_capture_arms(K, baseline, shape, params, frames, window, want,
     return runs
 
 
+def multicard_phase(shape, smi):
+    """The dry run with nccl ranks over min(count, 4) cards of this host
+    (the peer route, graphed) when the machine has 2 or more: every path
+    graphed against eager on every rank, no read a replay, kernel, memcpy
+    and memset nodes only in the IF and WHILE bodies, the ranks bitwise
+    equal, JAX's tolerances (tests/data/torch_port_sharded_ref.npz), every
+    path reducing through ``peer_reduce`` on every rank, and the kernel bit
+    for bit its plain version across the cards at every reduced size.
+    Returns (the dry run's summary, rank 0's peer_reduce launches in the
+    dry run's paths), (None, None) on one card."""
+    import torch
+    from bpvo_tpu_torch.parallel import dryrun
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"dryrun with nccl ranks across cards: not run ({n_cards} "
+              f"card); the peer route needs 2 or more")
+        return None, None
+    w = min(n_cards, 4)
+    res = dryrun.run(w, "nccl", "cuda", *shape, timeout_s=DIST_TIMEOUT_S,
+                     ref=REF_SHARDED_NPZ)
+    _require(res["ok"] and res["route"] == "peer" and res["graphed"],
+             f"dryrun {w} nccl ranks: {json.dumps(res)[:6000]}")
+    _require(min(min(v) for v in res["peer_launches_by_path"].values()) > 0
+             and res["collectives_bitwise_plain"],
+             f"dryrun {w} nccl ranks: peer_reduce launches by path "
+             f"{res['peer_launches_by_path']}, bitwise its plain version "
+             f"across cards {res['collectives_bitwise_plain']}")
+    print(f"dryrun {w} nccl ranks on {w} cards (route {res['route']}: "
+          f"{res['peer_rule']}): graphed, ranks bitwise equal "
+          f"{res['ranks_bitwise_equal']}, graphed bitwise eager on every "
+          f"rank {res['graphed_equals_eager_on_every_rank']}, bodies "
+          f"kernel/memcpy/memset only "
+          f"{res['bodies_kernel_memcpy_memset_only']}; checks "
+          f"{res['checks']}; peer_reduce launches in the paths by rank "
+          f"{res['peer_launches']}, by path {res['peer_launches_by_path']}; "
+          f"bitwise its plain version across cards "
+          f"{res['collectives_bitwise_plain']}; collective us "
+          f"{res['collective_us']} on {smi}")
+    return res, res["peer_launches"][0]
+
+
 def distributed_phase(dev, smi):
     """Phase 13 (see the module docstring): the distributed layer on the
     card.  Returns (the ``distributed_phase`` JSON object, {path: launch
@@ -2801,7 +2862,7 @@ def distributed_phase(dev, smi):
     from bpvo_tpu_torch.data import synthetic
     from bpvo_tpu_torch.ops import fused_linearize
     from bpvo_tpu_torch.parallel import bundle_adjustment as ba
-    from bpvo_tpu_torch.parallel import dryrun, multihost, sharded
+    from bpvo_tpu_torch.parallel import dryrun, multihost, peer, sharded
     from bpvo_tpu_torch.parallel import sharded_vo
     from bpvo_tpu_torch.solver import gauss_newton as gn
     from bpvo_tpu_torch.types import InterpolationType
@@ -2820,6 +2881,10 @@ def distributed_phase(dev, smi):
         "nccl", 1, 0, f"tcp://127.0.0.1:{multihost.free_port()}",
         device=dev)
     try:
+        # peer_reduce's count over the world-1 paths: a one-rank nccl group
+        # keeps NCCL's route (peer.attach's static rule), so it stays 0
+        graphs.settle()
+        peer.launch_count = 0
         # 1. world 1, nccl, in this process: the sharded GN
         tdata, ch, cam, _ = dryrun.synthetic_problem(*shape, 16384,
                                                      device=dev)
@@ -2855,7 +2920,7 @@ def distributed_phase(dev, smi):
             lambda: run_g(tdata, ch, cam, T0))
         run_none = sharded.make_sharded_gn(None, opts)
         gn_ms_none = _host_ms(lambda: run_none(tdata, ch, cam, T0))
-        types = _node_types(gn_cache)
+        types = gn_cache.node_types()
         out["sharded_gn"] = {"iterations": int(st.num_iters),
                              "ms": gn_ms, "ms_eager": gn_ms_e,
                              "ms_no_reducer": gn_ms_none,
@@ -3029,7 +3094,7 @@ def distributed_phase(dev, smi):
                 "ms_per_step_eager": seq_e / n_steps,
                 "ms_per_step_graphed": seq_g / n_steps,
                 "host_ops_per_step": host_ops,
-                "node_types": _node_types(vo_cache),
+                "node_types": vo_cache.node_types(),
                 "nccl_equals_no_reducer": bool(
                     torch.equal(world, world_none)
                     and torch.equal(kf, kf_none)),
@@ -3116,12 +3181,18 @@ def distributed_phase(dev, smi):
                 f"fused_linearize {name} L0", state.templates[0], ch1,
                 single._cams[0], o0)
             del single, state
+        graphs.settle()
+        out["peer_launches_world1"] = peer.launch_count
+        _require(peer.launch_count == 0,
+                 f"world 1 nccl: {peer.launch_count} peer_reduce launches "
+                 f"(route {reducer.route}: {reducer.peer_rule})")
         _lap(t0, "distributed: world 1")
     finally:
         multihost.shutdown()
 
     # 2. world 2, gloo, two processes on cuda:0 (host-staged)
-    res2 = dryrun.run(2, "gloo", "cuda", *shape, timeout_s=DIST_TIMEOUT_S)
+    res2 = dryrun.run(2, "gloo", "cuda", *shape, timeout_s=DIST_TIMEOUT_S,
+                      descriptors=("intensity",), rounds=1)
     _require(res2["ok"], f"dryrun world 2 gloo: {res2}")
     out["dryrun_gloo_world2"] = res2
     print(f"dryrun 2 ranks gloo on cuda:0 (host-staged, not a collective on "
@@ -3131,6 +3202,11 @@ def distributed_phase(dev, smi):
           f"{[round(m, 1) for m in res2['vo_ms_per_step']]}; collectives "
           f"per step {res2['collectives_per_step']} on {smi}")
     _lap(t0, "distributed: world 2")
+
+    # 2b. nccl over the cards of one host (the peer route), when the
+    # machine has several cards
+    out["dryrun_nccl_cards"], out["peer_launches"] = multicard_phase(shape,
+                                                                     smi)
 
     # 3. BA: VisualOdometry with enable_bundle_adjustment(8), 1+30 frames
     K, baseline, frames = synthetic.synthesize_sequence(1 + N_STEPS)
@@ -3307,6 +3383,130 @@ def distributed_phase(dev, smi):
     out["seconds"] = time.perf_counter() - t0
     _lap(t0, "distributed phase")
     return out, launches, fused_x, irls_x
+
+
+PEER_WORLDS = (2, 4, 8)         # loopback ranks (CTAs) of peer_reduce
+PEER_GRAPH_CALLS, PEER_REPLAYS = 10, 3
+PEER_REPS = 200
+PEER_SHAPE = (4, "gn_H_g_fsq")  # the kernels line's main shape
+
+
+def peer_phase(dev, smi):
+    """``peer_reduce`` on one card through its loopback launch (W CTAs of
+    one launch, CTA r playing rank r): at W = 2, 4, 8 and every size and op
+    the distributed layer reduces (``dryrun.COLLECTIVE_SIZES``), bit for
+    bit its plain version (``peer.plain_fold`` on the same device) eagerly
+    and in a CUDA graph of PEER_GRAPH_CALLS calls replayed PEER_REPLAYS
+    times on fresh inputs, every buffer's device epoch equal to the
+    launches made (it advances on the device, replays included); one
+    device kernel a call; a buffer over the slot capacity raises.  Times:
+    through the wrapper and replayed from a graph, the plain version and
+    the library call (``sum``/``amax`` over the rank axis).  Returns the
+    kernels line's entry without ``launches`` (the main path's, set by the
+    caller)."""
+    import torch
+    from bpvo_tpu_torch.parallel import dryrun, peer
+    from bpvo_tpu_torch.probes import timing
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+
+    def inputs(shape, dtype):
+        if dtype == torch.float32:
+            return (torch.randn(shape, generator=gen) * 100).to(dev)
+        return torch.randint(-2 ** 20, 2 ** 20, shape, generator=gen,
+                             dtype=dtype).to(dev)
+
+    def epochs(arena):
+        """Each loopback rank's device epoch (csrc kEpochOffset)."""
+        torch.cuda.synchronize()
+        return arena.arena.view(arena.world, -1)[:, 128:132].contiguous(
+        ).view(torch.int32).view(-1).tolist()
+
+    by_shape, per_call = {}, set()
+    n0 = peer.launch_count
+    for W in PEER_WORLDS:
+        arena = peer.Loopback(W, dev)
+        for name, (n, dtype, op) in dryrun.COLLECTIVE_SIZES.items():
+            base = epochs(arena)
+            x = inputs((W, n), dtype)
+            got = peer.loopback_reduce(x, op, arena)
+            want = peer.plain_fold(x.unbind(0), op)[None].expand_as(x)
+            same = torch.equal(got, want)
+            xs = inputs((PEER_GRAPH_CALLS, W, n), dtype)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outs = [peer.loopback_reduce(xs[k], op, arena)
+                        for k in range(PEER_GRAPH_CALLS)]
+            for _ in range(PEER_REPLAYS):
+                xs.copy_(inputs(tuple(xs.shape), dtype))
+                graph.replay()
+                same = same and all(torch.equal(
+                    outs[k], peer.plain_fold(xs[k].unbind(0), op)[None]
+                    .expand_as(outs[k])) for k in range(PEER_GRAPH_CALLS))
+            del graph, outs
+            made = [e + 1 + PEER_GRAPH_CALLS * PEER_REPLAYS for e in base]
+            after = epochs(arena)
+            _require(same, f"peer_reduce W={W} {name}: the loopback launch "
+                           f"differs from the plain version")
+            _require(after == made and len(set(after)) == 1,
+                     f"peer_reduce W={W} {name}: device epochs {after}, "
+                     f"expected {made}")
+            ms = timing.events_ms(lambda: peer.loopback_reduce(x, op, arena),
+                                  PEER_REPS)
+            replayed = timing.graph_ms(
+                lambda: peer.loopback_reduce(x, op, arena), 20,
+                PEER_GRAPH_CALLS)
+            kernels = timing.device_kernels(
+                lambda: peer.loopback_reduce(x, op, arena))
+            per_call.add(len(kernels))
+            plain = timing.events_ms(
+                lambda: peer.plain_fold(x.unbind(0), op), PEER_REPS)
+            library = timing.events_ms(
+                (lambda: x.sum(0)) if op == "sum" else (lambda: x.amax(0)),
+                PEER_REPS)
+            nbytes = 2 * x.numel() * x.element_size()
+            bound = _bound(nbytes, (W - 1) * n)
+            by_shape[f"W={W} {name}"] = {
+                "elements": n, "dtype": str(dtype).split(".")[-1], "op": op,
+                "ms": ms, "replayed_ms": replayed, "plain_ms": plain,
+                "library_ms": library, "bound_ms": bound[0],
+                "bound_by": bound[1], "kernels_per_call": len(kernels),
+                "nvlink_bound_ms": W * n * x.element_size() / 450e9 * 1e3}
+            print(f"peer_reduce loopback W={W} {name} ({n} {dtype} {op}): "
+                  f"bitwise plain eager and over {PEER_REPLAYS} replays of "
+                  f"{PEER_GRAPH_CALLS} calls: {same}; {ms * 1e3:.2f} us a "
+                  f"call, {replayed * 1e3:.2f} replayed, plain "
+                  f"{plain * 1e3:.2f}, {op} over ranks {library * 1e3:.2f}, "
+                  f"bound {bound[0] * 1e3:.4f} us ({bound[1]}); {kernels} "
+                  f"on {smi}")
+        del arena
+    over = peer.Loopback(2, dev)
+    try:
+        peer.loopback_reduce(torch.zeros(2, peer.SLOT_BYTES // 4 + 1,
+                                         device=dev), "sum", over)
+        raised = False
+    except ValueError:
+        raised = True
+    _require(raised, "peer_reduce: a buffer over the slot capacity did not "
+                     "raise")
+    _require(per_call == {1}, f"peer_reduce: {per_call} kernels a call")
+    main = by_shape[f"W={PEER_SHAPE[0]} {PEER_SHAPE[1]}"]
+    print(f"peer phase: {time.perf_counter() - t0:.1f} s")
+    return {"name": "peer_reduce", "route": "cuda",
+            "source": "bpvo_tpu_torch/csrc/peer_reduce.cu",
+            "replaces": "bpvo_tpu/parallel/sharded.py:108 (psum in "
+                        "shard_map; also :91, :94, sharded_vo.py:127, "
+                        "bundle_adjustment.py:139-335; XLA's collective, "
+                        "no pallas_call)",
+            "max_abs_err": 0.0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": f"loopback W={PEER_SHAPE[0]} {PEER_SHAPE[1]}",
+            "loopback_launches": peer.launch_count - n0,
+            "kernels_per_call": max(per_call),
+            **{f"{k}_by_shape": {s: v[k] for s, v in by_shape.items()}
+               for k in ("ms", "replayed_ms", "plain_ms", "library_ms",
+                         "bound_ms", "nvlink_bound_ms")}}
 
 
 TOOLS_DIR = os.path.join(HERE, "build", "tools_phase")
@@ -3799,6 +3999,7 @@ def main() -> int:
     _lap(t_start, "graph phase's WHILE paths")
 
     probe_entries = probe_phase(dev, smi)
+    peer_entry = peer_phase(dev, smi)
 
     # the host data layer and the apps, on the bench scene's stereo pairs
     print(json.dumps({"app_phase": app_phase(sframes, K, baseline, dev,
@@ -3835,6 +4036,18 @@ def main() -> int:
         gnk[kernel] = (max([err] + [v[0] for v in extra.values()]), times,
                        bounds, per_call)
 
+    # peer_reduce's main path is the layer across cards (the dry run above,
+    # rank 0's count over its paths); on one card that run is not made and
+    # the count is the world-1 paths' (0: world-1 nccl keeps NCCL's route)
+    multi = dist_json["peer_launches"]
+    peer_entry["launches"] = (dist_json["peer_launches_world1"]
+                              if multi is None else multi)
+    peer_entry["launches_by_path"] = {
+        "world1_nccl": dist_json["peer_launches_world1"],
+        "dryrun_nccl_cards": multi,
+        **({} if dist_json["dryrun_nccl_cards"] is None else {
+            f"dryrun_nccl_cards {name}": v[0] for name, v in dist_json[
+                "dryrun_nccl_cards"]["peer_launches_by_path"].items()})}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     def by_path(kernel):
@@ -3924,7 +4137,7 @@ def main() -> int:
                  "intensity L0 C=1"),
         gn_entry("irls_reduce", "bpvo_tpu_torch/csrc/irls_reduce.cu",
                  "bpvo_tpu/ops/pallas/irls_kernel.py:119 and :163",
-                 "intensity L0 M=1K")] + probe_entries}))
+                 "intensity L0 M=1K")] + probe_entries + [peer_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

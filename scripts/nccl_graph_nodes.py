@@ -16,7 +16,9 @@ For each world size N (at most the number of cards) it starts N ranks
    in the WHILE body and in the sigma IF body inside it): the node types
    of the graph's top level and of its bodies, whether two replays equal
    the eager solve bit for bit, or the error the join raised (a body
-   holding a node type it cannot hold).
+   holding a node type it cannot hold).  On the cards of one host the
+   group's ``Reducer`` takes the peer route (``parallel/peer.py``), so
+   there step 2's all-reduces are the peer kernel, not NCCL's.
 
 ``--mixing`` sets ``NCCL_GRAPH_MIXING_SUPPORT`` for the ranks (unset by
 default: NCCL's default, 1).  ``--linalg`` then checks, in this process,

@@ -13,6 +13,7 @@ timeout instead of hanging."""
 import dataclasses
 import enum
 import json
+import socket
 import subprocess
 import sys
 
@@ -205,16 +206,57 @@ def _module(args, timeout):
 
 
 def test_dryrun_small(tmp_path):
-    """The dry run's checks at 96x128 with 2 gloo ranks: ranks bitwise
-    equal, a keyframe event, within 1e-3 of ``DeviceVO``, BA finite."""
+    """The dry run's checks at 96x128 with 2 gloo ranks, the intensity
+    sharded VO: ranks bitwise equal, a keyframe event, within 1e-3 of
+    ``DeviceVO``, the sharded GN and BA within their bounds of the
+    no-reducer runs; every path's stand-in graphed route
+    (``graphs.RerunCache``) bitwise its eager one on every rank."""
     r = _module(["bpvo_tpu_torch.parallel.dryrun", "--procs", "2",
                  "--backend", "gloo", "--device", "cpu", "--rows", "96",
-                 "--cols", "128", "--threads", "1"], TIMEOUT_S)
+                 "--cols", "128", "--threads", "1", "--descriptors",
+                 "intensity", "--rounds", "1"], TIMEOUT_S)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res["ok"] and res["ranks_bitwise_equal"]
     assert res["keyframe_events"] >= 1 and not res["staged"]
     assert res["collectives_per_step"]["calls_per_step"] > 0
+    assert res["route"] == "gloo" and res["graphed_route"] == "rerun_stand_in"
+    assert all(res["graphed_equals_eager_on_every_rank"].values())
+    # gloo keeps its route: no path launches peer_reduce
+    assert set(res["peer_launches_by_path"]) == set(res["paths"])
+    assert all(v == [0, 0] for v in res["peer_launches_by_path"].values())
+    assert res["peer_launches"] == [0, 0]
+    assert set(res["checks"]) == {
+        "sharded_vo_intensity", "sharded_gn", "ba_solve", "make_sharded_ba",
+        "make_sharded_ba_2d", "ba_solve_with_depth"}
+
+
+def test_launch_retries_a_taken_port(monkeypatch):
+    """A port that another process took between ``free_port`` and rank 0's
+    listen (EADDRINUSE) makes ``launch`` run the ranks again on a new
+    port."""
+    held = socket.socket()
+    held.bind(("127.0.0.1", 0))
+    held.listen()
+    port = held.getsockname()[1]
+    ports, given, free_port = [port], [], multihost.free_port
+
+    def fake_free_port():
+        given.append(ports.pop() if ports else free_port())
+        return given[-1]
+    monkeypatch.setattr(multihost, "free_port", fake_free_port)
+    try:
+        done = multihost.launch(
+            "bpvo_tpu_torch.apps.scaling_bench",
+            ["--points", "2048", "--rows", "96", "--cols", "128", "--reps",
+             "1", "--backend", "gloo", "--device", "cpu", "--threads", "1"],
+            1, TIMEOUT_S)
+    finally:
+        held.close()
+    assert len(given) == 2 and given[0] == port
+    assert [d.returncode for d in done] == [0], done[0].stdout[-3000:]
+    assert any(line.startswith("SCALING_RANK ")
+               for line in done[0].stdout.splitlines())
 
 
 def test_scaling_bench_small():

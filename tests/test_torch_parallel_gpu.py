@@ -2,7 +2,9 @@
 of CUDA tensors, the sharded GN with a world-1 nccl or gloo group bit for
 bit the no-reducer route (its kernels launched, ``level_gn`` never), and
 two gloo ranks on one card in the dry run, bitwise equal; CUBIC and
-CUBIC_HERMITE sampling on the gather route on the card, against the CPU.  Marked ``gpu``:
+CUBIC_HERMITE sampling on the gather route on the card, against the CPU;
+the peer all-reduce kernel's loopback launch bit for bit its plain version
+and, with two cards, the dry run on the peer route.  Marked ``gpu``:
 without a CUDA device they skip (the decision is made in a fixture).  On a
 machine with an NVIDIA GPU (no JAX needed):
 
@@ -291,3 +293,57 @@ def test_gloo_reduce_in_a_capture_raises(nccl1):
     with pytest.raises(RuntimeError, match="gloo"):
         cache("k", lambda: red.sum(x)[0] * 2)
     assert "k" not in cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_peer_reduce_loopback_equals_plain(cuda, world):
+    """``csrc/peer_reduce.cu`` through its loopback launch (W CTAs, CTA r
+    rank r) bit for bit its plain version at every size the layer
+    reduces, eagerly and in a replayed CUDA graph on fresh inputs; every
+    rank's device epoch counts the launches."""
+    from bpvo_tpu_torch.parallel import peer
+    arena = peer.Loopback(world, cuda)
+    gen = torch.Generator().manual_seed(world)
+    made = 0
+    for n, dtype, op in dryrun.COLLECTIVE_SIZES.values():
+        def fresh():
+            if dtype == torch.float32:
+                return torch.randn(world, n, generator=gen).to(cuda)
+            return torch.randint(-1000, 1000, (world, n), generator=gen,
+                                 dtype=dtype).to(cuda)
+        x = fresh()
+        want = peer.plain_fold(x.unbind(0), op)
+        assert torch.equal(peer.loopback_reduce(x, op, arena),
+                           want.expand_as(x))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = peer.loopback_reduce(x, op, arena)
+        for _ in range(2):
+            x.copy_(fresh())
+            graph.replay()
+            assert torch.equal(out, peer.plain_fold(x.unbind(0), op)
+                               .expand_as(x))
+        made += 3
+    torch.cuda.synchronize()
+    epochs = arena.arena.view(world, -1)[:, 128:132].contiguous().view(
+        torch.int32)
+    assert epochs.view(-1).tolist() == [made] * world
+
+
+@pytest.mark.gpu
+def test_peer_route_across_cards(cuda):
+    """Two nccl ranks on two cards reduce through the peer kernel and take
+    the graphed route: the dry run's checks at 96x128 (graphed bitwise
+    eager on every rank, the ranks bitwise equal, kernel, memcpy and
+    memset nodes only in the bodies; every path launching the kernel on
+    every rank; the kernel bit for bit its plain version across the
+    cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices of one host")
+    res = dryrun.run(2, "nccl", "cuda", 96, 128, timeout_s=300,
+                     descriptors=("intensity",), rounds=1)
+    assert res["ok"], res
+    assert res["route"] == "peer" and res["graphed"]
+    assert min(min(v) for v in res["peer_launches_by_path"].values()) > 0
+    assert res["collectives_bitwise_plain"]
