@@ -27,6 +27,7 @@ import torch
 from bpvo_tpu_torch.config import ConfigFile
 from bpvo_tpu_torch.ops import census as census_ops
 from bpvo_tpu_torch.ops import sgm as sgm_ops
+from bpvo_tpu_torch.utils import profiling
 from bpvo_tpu_torch.vo.device_vo import resolve_device
 
 # popcount of every byte, for the Hamming distance of packed census codes
@@ -252,11 +253,15 @@ def _wta_subpixel(a, D: int):
 def _sgm(L, R, num_disparities: int, p1: float, p2: float):
     """Semi-global matching over 4 scan-line directions (stereo.py:189-224):
     census of both images, Hamming cost volume, aggregation, WTA."""
-    codes = census_ops.census(
-        torch.stack([L.to(torch.float32), R.to(torch.float32)]))
-    cost = census_cost_volume(codes[0], codes[1], num_disparities)
-    return _wta_subpixel(sgm_ops.aggregate_4dir(cost, p1, p2),
-                         num_disparities)
+    with profiling.annotate("sgm.census"):
+        codes = census_ops.census(
+            torch.stack([L.to(torch.float32), R.to(torch.float32)]))
+    with profiling.annotate("sgm.cost_volume"):
+        cost = census_cost_volume(codes[0], codes[1], num_disparities)
+    with profiling.annotate("sgm.aggregate"):
+        agg = sgm_ops.aggregate_4dir(cost, p1, p2)
+    with profiling.annotate("sgm.wta"):
+        return _wta_subpixel(agg, num_disparities)
 
 
 class TpuSGM(StereoAlgorithm):
@@ -278,12 +283,16 @@ class TpuSGM(StereoAlgorithm):
     def run(self, left, right, device="cuda"):
         """(H, W) images (numpy arrays, or tensors on any device) -> numpy
         disparity, computed on ``device``: the card unless the caller asks
-        for the CPU (without a CUDA device it raises)."""
-        dev = resolve_device(device)
-        L, R = (torch.as_tensor(x).to(dev, torch.float32)
-                for x in (left, right))
-        return _sgm(L, R, self.num_disparities, self.p1,
-                    self.p2).cpu().numpy()
+        for the CPU (without a CUDA device it raises).  Spans: the root
+        ``sgm.run`` over ``sgm.census``, ``sgm.cost_volume``,
+        ``sgm.aggregate``, ``sgm.wta`` and ``sgm.read`` (the disparity's
+        copy to the host, a wait)."""
+        with profiling.annotate("sgm.run"):
+            dev = resolve_device(device)
+            L, R = (profiling.upload(torch.as_tensor(x), dev, torch.float32)
+                    for x in (left, right))
+            disparity = _sgm(L, R, self.num_disparities, self.p1, self.p2)
+            return profiling.device_read("sgm.read", disparity)
 
     def as_fn(self):
         """``(left, right) -> disparity`` on the tensors' device: the

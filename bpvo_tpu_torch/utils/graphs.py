@@ -113,6 +113,7 @@ import weakref
 import torch
 
 from bpvo_tpu_torch.ops import _build
+from bpvo_tpu_torch.utils import profiling
 
 # graph replays made by every GraphCache in this process (read by
 # scripts/profile_torch_vo.py, which counts a replay as one host op)
@@ -574,22 +575,31 @@ class GraphCache:
         overwrite.  ``held``: positions of items of ``inputs`` (a tuple)
         copied in only when the item is another object than the one the
         key's buffers hold (a keyframe's templates, passed again on every
-        frame until the next keyframe); the key keeps that object."""
-        key = (key, tuple((tuple(t.shape), t.dtype) for t in
-                          _leaves(inputs)))
-        entry = self._inputs.get(key)
-        if entry is None:
-            bufs = clone(inputs)
-        elif not held:
-            bufs = entry[0]
-            copy_into(bufs, inputs)
-        else:
-            bufs, srcs = entry
-            fresh = [i for i, item in enumerate(inputs)
-                     if item is not srcs.get(i)]
-            copy_into([bufs[i] for i in fresh], [inputs[i] for i in fresh])
-        self._inputs[key] = (bufs, {i: inputs[i] for i in held})
-        return clone(self(key, lambda: fn(bufs)))
+        frame until the next keyframe); the key keeps that object.  Spans
+        (``utils.profiling``): ``graph.key``, ``graph.copy_in``,
+        ``graph.replay`` (a key's first call: its warm-up and capture) and
+        ``graph.copy_out``."""
+        with profiling.annotate("graph.key"):
+            key = (key, tuple((tuple(t.shape), t.dtype) for t in
+                              _leaves(inputs)))
+        with profiling.annotate("graph.copy_in"):
+            entry = self._inputs.get(key)
+            if entry is None:
+                bufs = clone(inputs)
+            elif not held:
+                bufs = entry[0]
+                copy_into(bufs, inputs)
+            else:
+                bufs, srcs = entry
+                fresh = [i for i, item in enumerate(inputs)
+                         if item is not srcs.get(i)]
+                copy_into([bufs[i] for i in fresh],
+                          [inputs[i] for i in fresh])
+            self._inputs[key] = (bufs, {i: inputs[i] for i in held})
+        with profiling.annotate("graph.replay"):
+            out = self(key, lambda: fn(bufs))
+        with profiling.annotate("graph.copy_out"):
+            return clone(out)
 
     def _mods(self):
         if self._modules is not None:

@@ -30,6 +30,7 @@ from bpvo_tpu_torch.config import AlgorithmParameters
 from bpvo_tpu_torch.ops import pyramid, selection
 from bpvo_tpu_torch.types import KeyFramingReason, Result
 from bpvo_tpu_torch.utils import graphs as graphs_mod
+from bpvo_tpu_torch.utils import profiling
 from bpvo_tpu_torch.vo import device_vo
 from bpvo_tpu_torch.vo import warp as warp_mod
 from bpvo_tpu_torch.vo.point_cloud import PointCloud
@@ -54,17 +55,21 @@ class _Frame:
     def set_data(self, image, disparity, n_levels: int,
                  p: AlgorithmParameters, device, graphs=None):
         self.image = image
-        self.disparity = torch.as_tensor(disparity, dtype=torch.float32).to(
-            device)
+        with profiling.annotate("vo.upload"):
+            self.disparity = profiling.upload(
+                torch.as_tensor(disparity, dtype=torch.float32), device)
+            image = profiling.upload(
+                torch.as_tensor(image, dtype=torch.float32), device)
         self.templates = None
-        image = torch.as_tensor(image, dtype=torch.float32).to(device)
-        if graphs is None:
-            self.channels = device_vo._compute_channels_pyr(image, p,
-                                                            n_levels)
-        else:
-            self.channels = graphs.jit(
-                ("frame", p, n_levels), (image,),
-                lambda b: device_vo._compute_channels_pyr(b[0], p, n_levels))
+        with profiling.annotate("vo.frame"):
+            if graphs is None:
+                self.channels = device_vo._compute_channels_pyr(image, p,
+                                                                n_levels)
+            else:
+                self.channels = graphs.jit(
+                    ("frame", p, n_levels), (image,),
+                    lambda b: device_vo._compute_channels_pyr(b[0], p,
+                                                              n_levels))
 
     @property
     def has_template(self) -> bool:
@@ -247,20 +252,33 @@ class VisualOdometry:
 
     def _set_template(self, frame: _Frame):
         """The keyframe's templates: one replay of the template graph."""
-        frame.set_template(self._cams, self._p, self._capacities,
-                           self._graphs)
+        with profiling.annotate("vo.templates"):
+            frame.set_template(self._cams, self._p, self._capacities,
+                               self._graphs)
 
     def _estimate(self, T_init, **kw):
         """One pose estimate (one replay of its graph, graphed) and its
         one device read."""
-        return self._pose_estimator.estimate(
-            self._ref.templates, self._cur.channels, self._cams, T_init,
-            graphs=self._graphs, **kw)
+        with profiling.annotate("vo.estimate"):
+            return self._pose_estimator.estimate(
+                self._ref.templates, self._cur.channels, self._cams, T_init,
+                graphs=self._graphs, **kw)
 
     def add_frame(self, image, disparity) -> Result:
         """Estimate the motion of ``image`` wrt the current keyframe
         (reference vo.cc:125-197).  ``image`` and ``disparity`` are (rows,
-        cols) arrays or tensors."""
+        cols) arrays or tensors.
+
+        Spans (``utils.profiling``): the root ``vo.add_frame`` over
+        ``vo.upload`` (the host -> device copies), ``vo.frame`` (the
+        pyramid), ``vo.estimate`` (its ``vo.read`` a wait), ``vo.keying``
+        and, on a keyframe, ``vo.keyframe`` over ``vo.cloud`` (its
+        ``vo.cloud_read`` a wait), ``vo.templates`` and, when the candidate
+        becomes the keyframe, the re-estimate's ``vo.estimate``."""
+        with profiling.annotate("vo.add_frame"):
+            return self._add_frame(image, disparity)
+
+    def _add_frame(self, image, disparity) -> Result:
         p = self._p
         if tuple(image.shape) != (self._rows, self._cols):
             raise ValueError(f"image size {tuple(image.shape)} != "
@@ -279,7 +297,8 @@ class VisualOdometry:
 
         T_est, stats = self._estimate(self._T_kf,
                                       multistart_px=p.coarseInitOffsetPx)
-        reason = self._should_keyframe(T_est)
+        with profiling.annotate("vo.keying"):
+            reason = self._should_keyframe(T_est)
         is_kf = reason != KeyFramingReason.NO_KEYFRAMING
 
         point_cloud = None
@@ -290,36 +309,38 @@ class VisualOdometry:
             pose = T_est @ np.linalg.inv(self._T_kf)
             self._T_kf = T_est
         else:
-            point_cloud = self._extract_point_cloud()
-            if self._prev.empty:
-                # no candidate: the current frame becomes the keyframe
-                # (vo.cc:166-177)
-                self._ref, self._cur = self._cur, self._ref
-                self._set_template(self._ref)
-                pose = T_est @ np.linalg.inv(self._T_kf)
-                self._T_kf = np.eye(4, dtype=np.float32)
-            else:
-                # the candidate becomes the keyframe and the pose is
-                # re-estimated against it (vo.cc:178-188), from
-                # keyframeReestimateStartLevel, warm-started by the measured
-                # candidate->current motion behind the cost gate
-                used_candidate = True
-                self._prev, self._ref = self._ref, self._prev
-                self._prev.clear()
-                self._set_template(self._ref)
-                if p.keyframeReestimateStartLevel >= 0:
-                    start2 = min(max(p.keyframeReestimateStartLevel,
-                                     p.maxTestLevel),
-                                 len(self._cur.channels) - 1)
-                    alt = (T_est @ np.linalg.inv(self._T_kf)).astype(
-                        np.float32)
+            with profiling.annotate("vo.keyframe"):
+                point_cloud = self._extract_point_cloud()
+                if self._prev.empty:
+                    # no candidate: the current frame becomes the keyframe
+                    # (vo.cc:166-177)
+                    self._ref, self._cur = self._cur, self._ref
+                    self._set_template(self._ref)
+                    pose = T_est @ np.linalg.inv(self._T_kf)
+                    self._T_kf = np.eye(4, dtype=np.float32)
                 else:
-                    start2, alt = -1, None
-                T_est, stats = self._estimate(np.eye(4, dtype=np.float32),
-                                              start_level=start2,
-                                              alt_init=alt)
-                pose = T_est
-                self._T_kf = T_est
+                    # the candidate becomes the keyframe and the pose is
+                    # re-estimated against it (vo.cc:178-188), from
+                    # keyframeReestimateStartLevel, warm-started by the
+                    # measured candidate->current motion behind the cost
+                    # gate
+                    used_candidate = True
+                    self._prev, self._ref = self._ref, self._prev
+                    self._prev.clear()
+                    self._set_template(self._ref)
+                    if p.keyframeReestimateStartLevel >= 0:
+                        start2 = min(max(p.keyframeReestimateStartLevel,
+                                         p.maxTestLevel),
+                                     len(self._cur.channels) - 1)
+                        alt = (T_est @ np.linalg.inv(self._T_kf)).astype(
+                            np.float32)
+                    else:
+                        start2, alt = -1, None
+                    T_est, stats = self._estimate(np.eye(4, dtype=np.float32),
+                                                  start_level=start2,
+                                                  alt_init=alt)
+                    pose = T_est
+                    self._T_kf = T_est
 
         self._trajectory.push(pose)
         if point_cloud is not None:
@@ -362,6 +383,10 @@ class VisualOdometry:
         weights.  One device read (``_cloud_read``): the template's mask,
         points and pixel positions, the weights and, for an image on the
         device, its values there."""
+        with profiling.annotate("vo.cloud"):
+            return self._point_cloud()
+
+    def _point_cloud(self) -> Optional[PointCloud]:
         p = self._p
         if not self._ref.has_template:
             return None
@@ -404,5 +429,6 @@ class VisualOdometry:
     def _cloud_read(parts) -> np.ndarray:
         """The point cloud's one device -> host copy: ``parts`` flattened
         into float64, which holds each of their values exactly."""
-        return torch.cat([t.reshape(-1).to(torch.float64)
-                          for t in parts]).cpu().numpy()
+        return profiling.device_read(
+            "vo.cloud_read",
+            torch.cat([t.reshape(-1).to(torch.float64) for t in parts]))

@@ -30,6 +30,7 @@ from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.solver import levenberg_marquardt as lm
 from bpvo_tpu_torch.solver import mestimator
 from bpvo_tpu_torch.types import OptimizerStatistics
+from bpvo_tpu_torch.utils import profiling
 from bpvo_tpu_torch.vo import template_data as td_mod
 
 # fewer valid points than this cannot constrain the 6-DoF solve; such levels
@@ -218,17 +219,18 @@ class PoseEstimator:
         host = np.stack([T_init, T_init if alt_init is None else alt_init]
                         ).astype(np.float32)
         if device.type != "cuda":
-            return torch.from_numpy(host).to(device)
+            return profiling.upload(torch.from_numpy(host), device)
         if self._pinned is None:
             self._pinned = torch.empty((2, 4, 4), dtype=torch.float32,
                                        pin_memory=True)
         self._pinned.numpy()[...] = host
-        return self._pinned.to(device, non_blocking=True)
+        return profiling.upload(self._pinned, device, non_blocking=True)
 
     @staticmethod
     def _read(packed) -> np.ndarray:
-        """The estimate's one device -> host copy."""
-        return packed.cpu().numpy()
+        """The estimate's one device -> host copy (the wait span
+        ``vo.read``)."""
+        return profiling.device_read("vo.read", packed)
 
     def estimate(self, templates: Sequence, channels_pyr: Sequence, cams,
                  T_init, start_level: int = -1, alt_init=None,
