@@ -201,11 +201,13 @@ class TpuBlockMatching(StereoAlgorithm):
     def run(self, left, right, device="cuda"):
         """(H, W) images (numpy arrays, or tensors on any device) -> numpy
         disparity, computed on ``device``: the card unless the caller asks
-        for the CPU (without a CUDA device it raises)."""
+        for the CPU (without a CUDA device it raises).  Read from the card
+        (the wait span ``bm.read``), the array is page-locked host memory
+        of its own (``profiling.device_read``), which the caller owns."""
         dev = resolve_device(device)
         L, R = (torch.as_tensor(x).to(dev, torch.float32)
                 for x in (left, right))
-        return self.as_fn()(L, R).cpu().numpy()
+        return profiling.device_read("bm.read", self.as_fn()(L, R))
 
     def as_fn(self):
         """``(left, right) -> disparity`` on the tensors' device (a
@@ -286,7 +288,10 @@ class TpuSGM(StereoAlgorithm):
         for the CPU (without a CUDA device it raises).  Spans: the root
         ``sgm.run`` over ``sgm.census``, ``sgm.cost_volume``,
         ``sgm.aggregate``, ``sgm.wta`` and ``sgm.read`` (the disparity's
-        copy to the host, a wait)."""
+        copy to the host, a wait).  Read from the card, the array is
+        page-locked host memory of its own (``profiling.device_read``),
+        which the caller owns: ``VisualOdometry.add_frame`` uploads it
+        again by DMA, and no later call writes into it."""
         with profiling.annotate("sgm.run"):
             dev = resolve_device(device)
             L, R = (profiling.upload(torch.as_tensor(x), dev, torch.float32)

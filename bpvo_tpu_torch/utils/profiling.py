@@ -18,7 +18,8 @@ reference timer.h / WITH_PROFILER hooks), the port's one tracing module.
   ``counts()`` reads them.  The program counts ``device_reads`` (results
   brought to the host), ``d2h_bytes`` (their bytes) and ``h2d_bytes``
   (bytes taken from host memory onto the program's device; on a CPU device
-  the bytes it would copy there).
+  the bytes it would copy there); of those, ``d2h_pinned_bytes`` landed in
+  page-locked host memory and ``h2d_pinned_bytes`` left it for the card.
 - ``timed`` is a wall-clock harness that waits for the device after every
   call.
 
@@ -180,19 +181,40 @@ def reset() -> None:
 
 def upload(t: torch.Tensor, device, *args, **kw) -> torch.Tensor:
     """``t.to(device, *args, **kw)``, its bytes counted in ``h2d_bytes``
-    when ``t`` is in host memory."""
+    when ``t`` is in host memory, and in ``h2d_pinned_bytes`` too when
+    that memory is page-locked and ``device`` is a CUDA device (the
+    driver then copies it by DMA, without a staging copy)."""
     if t.device.type == "cpu":
-        count("h2d_bytes", t.numel() * t.element_size())
+        n = t.numel() * t.element_size()
+        count("h2d_bytes", n)
+        if torch.device(device).type == "cuda" and t.is_pinned():
+            count("h2d_pinned_bytes", n)
     return t.to(device, *args, **kw)
 
 
 def device_read(name: str, t: torch.Tensor):
     """``t`` as a numpy array on the host, inside a wait span ``name``:
-    one of ``device_reads``, its bytes in ``d2h_bytes``."""
+    one of ``device_reads``, its bytes in ``d2h_bytes``.
+
+    A CUDA tensor is copied, blocking, into a fresh block of page-locked
+    host memory from torch's caching host allocator (also counted in
+    ``d2h_pinned_bytes``): the card copies it by DMA, where a copy into
+    pageable memory goes through the driver's staging.  The array owns
+    its block like any array: no later read writes into it, and once the
+    caller drops the array the block goes back to torch's host cache for
+    a later read.  So a caller that keeps N results pins N blocks, each
+    rounded up to a power of two bytes.  A CPU tensor is returned as
+    ``t.cpu().numpy()``, its own memory."""
     with annotate(name, wait=True):
+        n = t.numel() * t.element_size()
         count("device_reads")
-        count("d2h_bytes", t.numel() * t.element_size())
-        return t.cpu().numpy()
+        count("d2h_bytes", n)
+        if t.device.type != "cuda":
+            return t.cpu().numpy()
+        count("d2h_pinned_bytes", n)
+        dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        dst.copy_(t)
+        return dst.numpy()
 
 
 @contextlib.contextmanager

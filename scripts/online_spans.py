@@ -28,11 +28,17 @@ from the root of a checkout.  Each phase named runs, in the order given
   readings of the same frames (the matcher's CUDA events, ``add_frame``'s
   host clock);
 - ``session``: a device-only profiler session over 120 frames, as a
-  traced ``vobench`` run makes it, and the two spans' medians there.
+  traced ``vobench`` run makes it, and the two spans' medians there;
+- ``copies``: one window of ``--seconds`` with CUDA events around each
+  host copy (``profiling.device_read`` by its span's name, and
+  ``profiling.upload`` from pageable or from page-locked host memory):
+  each copy's device time in ms a frame, the window's frame p50 and p95,
+  and torch's host allocator's stats at the window's end.  Named first
+  among these phases, its window is the process's first.
 
-``idle``, ``cost``, ``agree`` and ``session`` share one program, built
-once.  A phase named twice runs twice.  One JSON object, on stdout and in
-``--out``.  Progress goes to stderr."""
+``idle``, ``cost``, ``agree``, ``session`` and ``copies`` share one
+program, built once.  A phase named twice runs twice.  One JSON object,
+on stdout and in ``--out``.  Progress goes to stderr."""
 from __future__ import annotations
 
 import argparse
@@ -188,6 +194,46 @@ def session(drv):
             "stage_ms": _stage_medians(spans)}
 
 
+def copies(drv, seconds):
+    import torch
+
+    from bpvo_tpu_torch.utils import profiling
+    events = []
+    read, upload = profiling.device_read, profiling.upload
+
+    def timed(name, fn, *args, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn(*args, **kw)
+        e1.record()
+        events.append((name, e0, e1))
+        return out
+
+    def timed_upload(t, device, *args, **kw):
+        if t.device.type != "cpu":
+            return upload(t, device, *args, **kw)
+        name = "upload." + ("pinned" if t.is_pinned() else "pageable")
+        return timed(name, upload, t, device, *args, **kw)
+    profiling.device_read = lambda name, t: timed(name, read, name, t)
+    profiling.upload = timed_upload
+    try:
+        res = drv.window(seconds)
+    finally:
+        profiling.device_read, profiling.upload = read, upload
+    torch.cuda.synchronize()
+    ms, n = defaultdict(float), defaultdict(int)
+    for name, e0, e1 in events:
+        ms[name] += e0.elapsed_time(e1)
+        n[name] += 1
+    frames = res["attempted"]
+    return {"frames": frames, "frame_ms_p50": res["frame_ms_p50"],
+            "frame_ms_p95": res["frame_ms_p95"],
+            "copy_ms_per_frame": {k: v / frames for k, v in ms.items()},
+            "copy_ms_each": {k: v / n[k] for k, v in ms.items()},
+            "copies": dict(n),
+            "host_memory_stats": dict(torch.cuda.host_memory_stats())}
+
+
 def _innermost(a, b, spans):
     """The innermost span over all of [a, b] (the shortest), or None."""
     best = None
@@ -300,7 +346,8 @@ def main(argv=None):
             out = {"idle": lambda: idle(drv, args.frames),
                    "cost": lambda: cost(drv, args.pairs, args.seconds),
                    "agree": lambda: agree(drv, args.seconds),
-                   "session": lambda: session(drv)}[phase]()
+                   "session": lambda: session(drv),
+                   "copies": lambda: copies(drv, args.seconds)}[phase]()
         result.setdefault(phase, []).append(out)
         log(f"{phase}: {time.perf_counter() - t:.1f} s "
             f"{json.dumps(out)[:2000]}")

@@ -1,5 +1,6 @@
 """``utils.profiling``'s spans and counters on the CPU: a span costs one
-flag read while nothing records, counters always count, spans nest under
+flag read while nothing records, counters always count (``device_read``
+of a CPU tensor is the tensor's own memory, no bytes pinned), spans nest under
 their root in memory and in a ``profiling.trace`` session's Chrome JSON,
 the online path (``TpuSGM.run`` then ``VisualOdometry.add_frame``, eager
 and through a stand-in graph cache) opens the documented span tree with
@@ -75,6 +76,29 @@ def test_counters_count_whether_spans_record_or_not(on):
     assert len(profiling.spans()) == (2 if on else 0)
     profiling.reset()
     assert profiling.counts() == {} and profiling.spans() == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.uint8, torch.int64])
+def test_device_read_of_a_cpu_tensor_is_the_tensor_itself(dtype):
+    """On the CPU ``device_read`` is ``t.cpu().numpy()``: the tensor's own
+    memory, its values, one read and its bytes counted, no pinned bytes."""
+    t = torch.arange(24, dtype=torch.float64).reshape(2, 3, 4).to(dtype)
+    got = profiling.device_read("sgm.read", t)
+    assert got.dtype == t.numpy().dtype and got.shape == (2, 3, 4)
+    assert np.array_equal(got, t.numpy())
+    assert np.shares_memory(got, t.numpy())
+    assert profiling.counts() == {"device_reads": 1,
+                                  "d2h_bytes": 24 * t.element_size()}
+
+
+def test_upload_to_the_cpu_asks_nothing_of_pinning(monkeypatch):
+    """``upload`` asks whether host memory is page-locked only for a CUDA
+    target, and counts no pinned bytes for the CPU."""
+    monkeypatch.setattr(torch.Tensor, "is_pinned", _raise)
+    profiling.upload(torch.zeros(5), "cpu")
+    profiling.upload(torch.zeros(5), torch.device("cpu"), torch.float64)
+    assert profiling.counts() == {"h2d_bytes": 40}
 
 
 def test_recording_nests_spans_under_their_root():
@@ -322,8 +346,9 @@ class _Recorder:
     """Hand-made spans of online frames, as ``profiling.spans()`` gives
     them (in the order they end), with the program's counts."""
 
-    def __init__(self):
+    def __init__(self, pinned=True):
         self.spans, self.counts, self.next_id = [], {}, 1
+        self.pinned = pinned
 
     def span(self, name, parent=None, wait=False):
         s = types.SimpleNamespace(name=name, id=self.next_id,
@@ -345,28 +370,38 @@ class _Recorder:
         for k, v in n.items():
             self.counts[k] = self.counts.get(k, 0) + v
 
+    def copy(self, h2d=0, d2h=0, pinned=True):
+        """Bytes up and down, counted pinned too where ``pinned`` and the
+        recorder's program counts them (``self.pinned``)."""
+        self.add(h2d_bytes=h2d, d2h_bytes=d2h)
+        if pinned and self.pinned:
+            self.add(h2d_pinned_bytes=h2d, d2h_pinned_bytes=d2h)
+
     def frame(self, keyframe):
         """An online frame: the disparity read and uploaded, an estimate
         (starts up, packed result down) and, on a keyframe, the cloud's
-        read and the re-estimate."""
+        read (not pinned here) and the re-estimate."""
         c0 = dict(self.counts)
         sgm = self.span("sgm.run")
         read = self.span("sgm.read", sgm, True)
-        self.add(device_reads=1, d2h_bytes=1_866_464)
+        self.add(device_reads=1)
+        self.copy(d2h=1_866_464)
         self.end(read)
         self.end(sgm, c0)
         c1 = dict(self.counts)
         a = self.span("vo.add_frame")
         self.end(self.span("vo.upload", a))
-        self.add(h2d_bytes=1_866_464 + 128)
+        self.copy(h2d=1_866_464 + 128)
         read = self.span("vo.read", a, True)
-        self.add(device_reads=1, d2h_bytes=352)
+        self.add(device_reads=1)
+        self.copy(d2h=352)
         self.end(read)
         if keyframe:
             kf = self.span("vo.keyframe", a)
             read = self.span("vo.cloud_read", kf, True)
-            self.add(device_reads=2, d2h_bytes=1_048_576 + 352,
-                     h2d_bytes=128)
+            self.add(device_reads=2)
+            self.copy(d2h=1_048_576, pinned=False)
+            self.copy(h2d=128, d2h=352)
             self.end(read)
             self.end(kf)
         self.end(a, c1)
@@ -378,10 +413,11 @@ def _ctx(n):
                                  logs=logs)
 
 
-def _recorded(monkeypatch, frames, extra=True):
+def _recorded(monkeypatch, frames, extra=True, pinned=True):
     """``profiling.spans()`` reads ``frames`` (keyframe or not, a frame),
-    then, with ``extra``, a later session's frame."""
-    rec = _Recorder()
+    then, with ``extra``, a later session's frame; ``pinned``: the program
+    counts pinned bytes."""
+    rec = _Recorder(pinned)
     for kf in frames:
         rec.frame(kf)
     if extra:
@@ -389,10 +425,11 @@ def _recorded(monkeypatch, frames, extra=True):
     monkeypatch.setattr(profiling, "_spans", rec.spans)
 
 
+_PINNED = 3 * (2 * 1_866_464 + 128 + 352) + 352 + 128
 READINGS = {   # over frames: other, keyframe, other
     "device_reads_per_frame.online": 8 / 3,
-    "host_copy_mb_per_frame.online": (
-        3 * (2 * 1_866_464 + 128 + 352) + 1_048_576 + 352 + 128) / 3 / 1e6,
+    "host_copy_mb_per_frame.online": (_PINNED + 1_048_576) / 3 / 1e6,
+    "pinned_copy_pct.online": 100 * _PINNED / (_PINNED + 1_048_576),
 }
 
 
@@ -404,6 +441,14 @@ def test_reader_reads_the_traced_frames(monkeypatch, name):
     ctx = _ctx(3)
     value = bench.metric_reader(name)(ctx)
     assert value == pytest.approx(READINGS[name], rel=1e-9)
+
+
+def test_pinned_share_is_zero_where_the_program_counts_no_pinned_bytes(
+        monkeypatch):
+    """A program with the spans but without the pinned counters (the
+    parent commit's) reads 0."""
+    _recorded(monkeypatch, [False, True, False], pinned=False)
+    assert bench.metric_reader("pinned_copy_pct.online")(_ctx(3)) == 0.0
 
 
 def _short(monkeypatch):
