@@ -20,6 +20,10 @@ reference timer.h / WITH_PROFILER hooks), the port's one tracing module.
   (bytes taken from host memory onto the program's device; on a CPU device
   the bytes it would copy there); of those, ``d2h_pinned_bytes`` landed in
   page-locked host memory and ``h2d_pinned_bytes`` left it for the card.
+  ``PoseEstimator.estimate`` adds its level kernel solves' shapes
+  (``gn_solves``, ``gn_points``, ``gn_channel_points``, ``gn_iter_points``,
+  ``gn_iter_channel_points``), ``VisualOdometry.add_frame`` its keyframes
+  (``keyframes``, ``keyframes_own``).
 - ``timed`` is a wall-clock harness that waits for the device after every
   call.
 

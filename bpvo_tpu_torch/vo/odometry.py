@@ -136,6 +136,10 @@ class VisualOdometry:
         self._T_kf = np.eye(4, dtype=np.float32)
         self._ref, self._cur, self._prev = _Frame(), _Frame(), _Frame()
         self._ba_window = None   # enable_bundle_adjustment()
+        # the keyframe branch's counters, there from the start: a reader
+        # tells a program that counts none from one that made none yet
+        profiling.count("keyframes", 0)
+        profiling.count("keyframes_own", 0)
 
     @property
     def params(self) -> AlgorithmParameters:
@@ -274,7 +278,10 @@ class VisualOdometry:
         pyramid), ``vo.estimate`` (its ``vo.read`` a wait), ``vo.keying``
         and, on a keyframe, ``vo.keyframe`` over ``vo.cloud`` (its
         ``vo.cloud_read`` a wait), ``vo.templates`` and, when the candidate
-        becomes the keyframe, the re-estimate's ``vo.estimate``."""
+        becomes the keyframe, the re-estimate's ``vo.estimate``.  Counters:
+        ``keyframes`` each keyframe after the first frame, of which
+        ``keyframes_own`` those without a candidate (the frame becomes the
+        keyframe from its own disparity)."""
         with profiling.annotate("vo.add_frame"):
             return self._add_frame(image, disparity)
 
@@ -309,9 +316,11 @@ class VisualOdometry:
             pose = T_est @ np.linalg.inv(self._T_kf)
             self._T_kf = T_est
         else:
+            profiling.count("keyframes")
             with profiling.annotate("vo.keyframe"):
                 point_cloud = self._extract_point_cloud()
                 if self._prev.empty:
+                    profiling.count("keyframes_own")
                     # no candidate: the current frame becomes the keyframe
                     # (vo.cc:166-177)
                     self._ref, self._cur = self._cur, self._ref

@@ -16,7 +16,9 @@ multi-start offset.  Its inputs are copied into the key's static buffers:
 the templates only when another template object arrives (at keyframes),
 the channels and the starts on every call.  Every ``gauss_newton.run`` or
 LM level is a WHILE node of that graph.  Without a cache the chain runs
-eagerly.  Either way ``estimate`` reads its results back in one copy.
+eagerly.  Either way ``estimate`` reads its results back in one copy,
+then adds the level kernel's solves to the ``gn_*`` counters of
+``utils.profiling`` (``PoseEstimator._count_solves``).
 """
 from __future__ import annotations
 
@@ -272,6 +274,7 @@ class PoseEstimator:
         iters_np, fs_np, st_np = host[end:end + 3 * n_levels].reshape(
             3, n_levels)
         self._last_frac = float(host[-1])
+        self._count_solves(templates, channels_pyr, iters_np, start_level)
         stats: List[OptimizerStatistics] = [
             OptimizerStatistics(num_iterations=int(iters_np[level]),
                                 final_error=float(fs_np[level]),
@@ -279,6 +282,35 @@ class PoseEstimator:
                                 status=gn.STATUS_ENUMS[int(st_np[level])])
             for level in range(p.maxTestLevel, n_levels)]
         return T_np, stats
+
+    def _count_solves(self, templates, channels_pyr, iters, start_level):
+        """Add the level solves of the estimate just read that the level
+        kernel ran (``gauss_newton.solve_level``'s route) to the counters
+        (``utils.profiling``): ``gn_solves`` one a solve, ``gn_points`` its
+        template capacity K, ``gn_channel_points`` C K, ``gn_iter_points``
+        it K and ``gn_iter_channel_points`` it C K, with ``it`` the level's
+        GN iterations from the read, at least 1 (a level with too few
+        valid points reads 0 and still ran)."""
+        p = self._p
+        if p.poseEstimator != "GaussNewton":
+            return
+        n_levels = len(channels_pyr)
+        opts = self._opts_for(n_levels)
+        first = n_levels - 1 if start_level < 0 else start_level
+        n = k = ck = itk = itck = 0
+        for level in range(first, p.maxTestLevel - 1, -1):
+            C, rows, cols = channels_pyr[level].shape
+            K = templates[level].pixels.shape[1]
+            if not gn.level_kernel_supported(opts[level], C, rows, cols, K):
+                continue
+            it = max(int(iters[level]), 1)
+            n, k, ck = n + 1, k + K, ck + C * K
+            itk, itck = itk + it * K, itck + it * C * K
+        profiling.count("gn_solves", n)
+        profiling.count("gn_points", k)
+        profiling.count("gn_channel_points", ck)
+        profiling.count("gn_iter_points", itk)
+        profiling.count("gn_iter_channel_points", itck)
 
     def fraction_of_good_points(self, threshold: float) -> float:
         """(reference vo_pose_estimator.cc:101-107), computed during

@@ -4,7 +4,8 @@ of a CPU tensor is the tensor's own memory, no bytes pinned), spans nest under
 their root in memory and in a ``profiling.trace`` session's Chrome JSON,
 the online path (``TpuSGM.run`` then ``VisualOdometry.add_frame``, eager
 and through a stand-in graph cache) opens the documented span tree with
-its reads and bytes frame by frame, the benchmark's readers of those
+its reads and bytes frame by frame, the keyframe branches and the
+level kernel's solves are counted, the benchmark's readers of those
 counters (``vobench/metrics/*.online.py``) read them, and
 ``scripts/online_spans.py`` gives the device's idle time to the innermost
 span over it."""
@@ -377,10 +378,11 @@ class _Recorder:
         if pinned and self.pinned:
             self.add(h2d_pinned_bytes=h2d, d2h_pinned_bytes=d2h)
 
-    def frame(self, keyframe):
+    def frame(self, keyframe, extra=None):
         """An online frame: the disparity read and uploaded, an estimate
         (starts up, packed result down) and, on a keyframe, the cloud's
-        read (not pinned here) and the re-estimate."""
+        read (not pinned here) and the re-estimate; ``extra``: further
+        counts the frame adds."""
         c0 = dict(self.counts)
         sgm = self.span("sgm.run")
         read = self.span("sgm.read", sgm, True)
@@ -404,6 +406,7 @@ class _Recorder:
             self.copy(h2d=128, d2h=352)
             self.end(read)
             self.end(kf)
+        self.add(**(extra or {}))
         self.end(a, c1)
 
 
@@ -480,6 +483,180 @@ def test_reader_is_silent_without_its_frames(monkeypatch, name, fault):
     n, why = fault(monkeypatch)
     ctx = _ctx(n)
     assert read(ctx) is None and why in ctx.logs[-1]
+
+
+# ---------------------------------------------------------------------------
+# the keyframe and level-solve counters, and their readers
+# ---------------------------------------------------------------------------
+
+def _online_run(frames, graphed):
+    """The 8-frame sequence through ``TpuSGM.run`` and
+    ``VisualOdometry.add_frame`` under ``recording()``: the results and
+    each frame's ``vo.add_frame`` root."""
+    cam = make_cam()
+    vo = VisualOdometry(np.asarray(cam.K()), float(cam.baseline),
+                        (H_IMG, W_IMG), AlgorithmParameters(**KW),
+                        device="cpu")
+    if graphed:
+        vo._graphs = _StandIn("cpu")
+    sgm = TpuSGM(num_disparities=N_DISP)
+    results = []
+    with profiling.recording():
+        for image, disparity in frames:
+            sgm.run(image, np.roll(image, -3, axis=1), device="cpu")
+            results.append(vo.add_frame(image, disparity))
+    roots = sorted((s for s in profiling.spans()
+                    if s.name == "vo.add_frame"), key=lambda s: s.id)
+    return vo, results, roots
+
+
+@pytest.mark.parametrize("graphed", [False, True])
+def test_keyframe_counters_count_each_branch(frames, graphed):
+    """``keyframes`` a keyframe after the first frame, ``keyframes_own``
+    those without a candidate; both there, at 0, from construction."""
+    _, results, roots = _online_run(frames, graphed)
+    kinds = []
+    for i, (r, a) in enumerate(zip(results, roots)):
+        got = {k: a.counts1[k] - a.counts0.get(k, 0)
+               for k in ("keyframes", "keyframes_own")}
+        kind = ("first" if i == 0 else "other" if not r.is_keyframe
+                else "candidate" if not results[i - 1].is_keyframe
+                else "no_candidate")
+        kinds.append(kind)
+        assert got == {"keyframes": int(kind in ("candidate",
+                                                 "no_candidate")),
+                       "keyframes_own": int(kind == "no_candidate")}, i
+    assert kinds.count("candidate") == kinds.count("no_candidate") == 2
+    assert profiling.counts()["keyframes"] == 4
+    assert profiling.counts()["keyframes_own"] == 2
+
+
+def test_solve_counters_count_the_front_and_the_re_estimates(frames,
+                                                             monkeypatch):
+    """The ``gn_*`` counters over the sequence's estimates, the
+    re-estimates against a candidate from their start level, at C = 1."""
+    from bpvo_tpu_torch.vo.pose_estimator import PoseEstimator
+    from test_torch_fast_motion import _expected_solves
+    calls = []
+    orig = PoseEstimator.estimate
+
+    def estimate(self, *a, start_level=-1, **kw):
+        T, stats = orig(self, *a, start_level=start_level, **kw)
+        calls.append((start_level, stats))
+        return T, stats
+    monkeypatch.setattr(PoseEstimator, "estimate", estimate)
+    vo, _, _ = _online_run(frames, False)
+    assert sorted({s for s, _ in calls}) == [-1, 1]
+    got = {k: v for k, v in profiling.counts().items()
+           if k.startswith("gn_")}
+    assert got == _expected_solves(vo.params, vo._capacities, 1, calls)
+
+
+def _metric_module(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "test_metric_" + name.replace(".", "_"),
+        bench.HERE / "metrics" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# level_gn launches (C, K, iterations) of three traced frames: a C = 1
+# front estimate, a C = 8 one (bound by operations at L0, by bytes below),
+# and a frame without an estimate
+LAUNCHES = [[(1, 16384, 12), (1, 4096, 9), (1, 1024, 14), (1, 512, 30)],
+            [(8, 16384, 22), (8, 4096, 3), (8, 1024, 1)], []]
+
+
+def _solve_counts(launches):
+    return {"gn_solves": len(launches),
+            "gn_points": sum(K for _, K, _ in launches),
+            "gn_channel_points": sum(C * K for C, K, _ in launches),
+            "gn_iter_points": sum(it * K for _, K, it in launches),
+            "gn_iter_channel_points": sum(it * C * K
+                                          for C, K, it in launches)}
+
+
+def _gn_ctx(monkeypatch, frames_launches=LAUNCHES, counted=True,
+            n_events=None, launched=None):
+    rec = _Recorder()
+    for launches in frames_launches:
+        rec.frame(False, _solve_counts(launches) if counted else None)
+    rec.frame(True, _solve_counts(LAUNCHES[0]))    # a later session's
+    monkeypatch.setattr(profiling, "_spans", rec.spans)
+    n = sum(map(len, frames_launches))
+    durs = [40.0 + 7 * i for i in range(n if n_events is None
+                                        else n_events)]
+    events = [{"name": "void level_gn_kernel<true>", "ts": i, "dur": d}
+              for i, d in enumerate(durs)]
+    ctx = _ctx(len(frames_launches))
+    ctx.trace = types.SimpleNamespace(
+        named=lambda part: events if part == "level_gn_kernel" else [])
+    ctx.launches = {"level_gn": n if launched is None else launched}
+    return ctx, sum(durs) * 1e-6
+
+
+def test_level_gn_reader_bounds_the_summed_launches(monkeypatch):
+    """The bound of ``roofline.level_gn`` summed over an explicit launch
+    list, from the counters alone, over the events' time; the sum equals
+    the sum of each launch's bound where one peak binds them all."""
+    from vobench import roofline
+    mod = _metric_module("level_gn_roofline_pct.online")
+    flat = [x for f in LAUNCHES for x in f]
+    total = tuple(map(sum, zip(*(roofline.level_gn(*x) for x in flat))))
+    c = _solve_counts(flat)
+    assert mod.summed(*(c[k] for k in mod.COUNTERS)) == total
+    ctx, seconds = _gn_ctx(monkeypatch)
+    assert mod.read(ctx) == pytest.approx(
+        100.0 * roofline.bound_s(*total)[0] / seconds, rel=1e-12)
+    for side in ([x for x in flat if x[2] <= 12],
+                 [x for x in flat if x[2] >= 14]):
+        c = _solve_counts(side)
+        by = {roofline.bound_s(*roofline.level_gn(*x))[1] for x in side}
+        assert len(by) == 1
+        assert roofline.bound_s(*mod.summed(
+            *(c[k] for k in mod.COUNTERS)))[0] == pytest.approx(
+            sum(roofline.bound_s(*roofline.level_gn(*x))[0]
+                for x in side), rel=1e-12)
+
+
+@pytest.mark.parametrize("fault, why", [
+    (dict(n_events=6), "6 trace events, 7 solves counted, 7 launches"),
+    (dict(launched=8), "7 trace events, 7 solves counted, 8 launches"),
+    (dict(counted=False), "7 trace events, 0 solves counted")],
+    ids=["events", "launches", "no_counters"])
+def test_level_gn_reader_is_silent_where_the_counts_differ(monkeypatch,
+                                                           fault, why):
+    """None, logged: a trace that lost an event, a launch count that
+    differs, a program without the counters (the parent commit's)."""
+    ctx, _ = _gn_ctx(monkeypatch, **fault)
+    read = bench.metric_reader("level_gn_roofline_pct.online")
+    assert read(ctx) is None and why in ctx.logs[-1]
+
+
+def test_level_gn_reader_needs_a_trace(monkeypatch):
+    ctx, _ = _gn_ctx(monkeypatch)
+    ctx.trace = None
+    assert bench.metric_reader("level_gn_roofline_pct.online")(ctx) is None
+
+
+@pytest.mark.parametrize("counted", [True, False])
+def test_keyframes_own_reader(monkeypatch, counted):
+    """``keyframes_own`` over the traced frames, a frame; nothing from a
+    program that counts no keyframes (the parent commit's)."""
+    rec = _Recorder()
+    for own in (1, 1, 0):
+        rec.frame(True, {"keyframes": 1, "keyframes_own": own}
+                  if counted else None)
+    rec.frame(True, {"keyframes": 1, "keyframes_own": 1})
+    monkeypatch.setattr(profiling, "_spans", rec.spans)
+    ctx = _ctx(3)
+    value = bench.metric_reader("keyframes_own_per_frame.online")(ctx)
+    if counted:
+        assert value == pytest.approx(2 / 3, rel=1e-12)
+    else:
+        assert value is None and "counts no keyframes" in ctx.logs[-1]
 
 
 # ---------------------------------------------------------------------------
