@@ -3,10 +3,10 @@ classes keep their names so a reader finds their counterparts).
 
 - ``TpuSGM``: semi-global matching over a census Hamming cost.  The census
   planes of both images come from ``ops.census`` (kernel ``csrc/census.cu``
-  on the card) and the 4-direction aggregation from ``ops.sgm`` (kernel
-  ``csrc/sgm.cu``); the cost volume and the winner-take-all with parabolic
-  sub-pixel refinement are plain torch, as the JAX package leaves them to
-  XLA.
+  on the card), the cost volume from ``ops.census_cost`` (kernel
+  ``csrc/census_cost.cu``) and the 4-direction aggregation from ``ops.sgm``
+  (kernel ``csrc/sgm.cu``); the winner-take-all with parabolic sub-pixel
+  refinement is plain torch, as the JAX package leaves it to XLA.
 - ``TpuBlockMatching``: SAD block matching as one batched (D, H, W) cost
   volume of tensor ops on the device (JAX computes it in XLA, with no
   Pallas kernel).
@@ -19,27 +19,15 @@ returns a numpy disparity, invalid pixels < 0.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from bpvo_tpu_torch.config import ConfigFile
 from bpvo_tpu_torch.ops import census as census_ops
 from bpvo_tpu_torch.ops import sgm as sgm_ops
+from bpvo_tpu_torch.ops.census_cost import census_cost_volume
 from bpvo_tpu_torch.utils import profiling
 from bpvo_tpu_torch.vo.device_vo import resolve_device
-
-# popcount of every byte, for the Hamming distance of packed census codes
-_POPCOUNT = np.array([bin(i).count("1") for i in range(256)], np.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def _popcount_table(device: str) -> torch.Tensor:
-    """``_POPCOUNT`` on ``device``, copied there once: a copy from the host
-    on every call could not be captured into a CUDA graph."""
-    return torch.as_tensor(_POPCOUNT, device=device)
-
 
 class StereoAlgorithm:
     """run(left, right, device) -> float32 disparity, invalid pixels < 0."""
@@ -215,21 +203,6 @@ class TpuBlockMatching(StereoAlgorithm):
         D, r, u = self.num_disparities, self.radius, self.uniqueness_ratio
         sp, lr = self.subpixel, self.lr_check
         return lambda L, R: _block_matching(L, R, D, r, u, sp, lr)
-
-
-def census_cost_volume(cL, cR, num_disparities: int):
-    """(H, W, D) Hamming cost between the packed census codes (H, W) uint8
-    of the left image and of the right image shifted by d, 8 where x < d
-    (stereo.py:212-218).  Built with D innermost in a fixed number of tensor
-    ops for any D: one gather of the right codes at column x - d, XOR with
-    the left codes, code 255 (popcount 8) where x < d, and one lookup in the
-    popcount table."""
-    W = cL.shape[1]
-    src = (torch.arange(W, device=cL.device)[:, None]
-           - torch.arange(num_disparities, device=cL.device))      # (W, D)
-    codes = cR[:, src.clamp(min=0)] ^ cL[:, :, None]
-    codes.masked_fill_(src < 0, 255)
-    return _popcount_table(str(cL.device))[codes.int()]
 
 
 def _wta_subpixel(a, D: int):

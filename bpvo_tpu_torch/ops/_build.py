@@ -203,6 +203,8 @@ def _load_library() -> ctypes.CDLL:
     lib.bpvo_cuda_error_string.restype = ctypes.c_char_p
     lib.bpvo_census_planes.argtypes = [p, p, i, i, p]
     lib.bpvo_census_planes.restype = i
+    lib.bpvo_census_cost.argtypes = [p, p, p, i, i, i, p]
+    lib.bpvo_census_cost.restype = i
     bind_sgm(lib)
     bind_gn(lib)
     # graph_cond.cu: the IF and WHILE nodes of utils/graphs.py

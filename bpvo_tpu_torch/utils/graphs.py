@@ -148,9 +148,10 @@ BODY_NODE_TYPES = frozenset(("kernel", "memcpy", "memset", "graph", "empty",
 def op_modules():
     """The modules whose wrappers count kernel launches: the ``ops``
     modules and ``parallel.peer``."""
-    from bpvo_tpu_torch.ops import census, fused_linearize, irls, level_gn, sgm
+    from bpvo_tpu_torch.ops import (census, census_cost, fused_linearize,
+                                    irls, level_gn, sgm)
     from bpvo_tpu_torch.parallel import peer
-    return (census, fused_linearize, irls, level_gn, sgm, peer)
+    return (census, census_cost, fused_linearize, irls, level_gn, sgm, peer)
 
 
 def register_counter(obj):

@@ -44,11 +44,13 @@
    per-level iterations within 1 of the reference's; the kernel's launch
    count must equal the number of level solves run.
 4. Stereo kernel phase, on frame 0 of the stereo pair of the same scene:
-   the ``census_planes`` kernel against its plain version at 376x1241 and
-   the SGM aggregation kernel (and each of its two passes, whose device
-   times it prints) against its plain version on that pair's 376x1241x128
-   census cost volume with conf/kitti_bitplanes.cfg's penalties, both bit
-   for bit; the matcher's ms per call, whole and by stage (census, cost
+   the ``census_planes`` kernel against its plain version at 376x1241, the
+   ``census_cost`` kernel against its plain version on that pair's codes
+   (both times and the kernel's bound printed), and the SGM aggregation
+   kernel (and each of its two passes, whose device times it prints)
+   against its plain version on that pair's 376x1241x128 census cost
+   volume with conf/kitti_bitplanes.cfg's penalties, all bit for bit; the
+   matcher's ms per call, whole and by stage (census, cost
    volume, aggregation, WTA); the matcher's frame-0 disparity must have
    the JAX reference's valid count and mean |d - GT|; the share of census
    bits that flip between the card's Bit-Planes pyramid and the CPU's
@@ -61,8 +63,8 @@
    run's own ground-truth error plus GT_MARGIN_STEREO, within
    T_ATOL_JAX_STEREO of the JAX reference
    (tests/data/torch_port_bitplanes_sgm_ref.npz), the same keyframe frames;
-   launches: census = levels x frames + 2 per matcher call, sgm = one per
-   matcher call, level_gn = the level solves.
+   launches: census = levels x frames + 2 per matcher call, census_cost
+   and sgm = one per matcher call, level_gn = the level solves.
 7. GN-kernel phase, on frame 0 -> 1 of dense VO at KITTI shape (bench.py's
    settings, NMS off, pointCapacity 131072): at the L0 (K = 131072) and L1
    (K = 32768) shapes, intensity (C=1) and Bit-Planes (C=8, and its
@@ -157,7 +159,8 @@
    the devkit's 100 m segment) and a Tsukuba-layout tree (480x640, 1+10
    frames) under build/app_phase; the PNG decode time of a stereo frame;
    ``apps.eval_kitti run`` (Intensity, TpuSGM) with the counts at 0
-   (census 2 and SGM 1 per frame read, level_gn > 0, the GN kernels 0)
+   (census 2, census_cost 1 and SGM 1 per frame read, level_gn > 0, the
+   GN kernels 0)
    and ``eval``: t_err and ATE under KITTI_T_ERR_BOUND and
    KITTI_ATE_PER_M x path length; ``python -m bpvo_tpu_torch.apps.vo`` in
    a process of its own on that tree (JAX's output files, the same
@@ -579,20 +582,23 @@ def _rel(a, b):
 
 
 def _reset_counts():
-    from bpvo_tpu_torch.ops import census, fused_linearize, irls, level_gn, sgm
+    from bpvo_tpu_torch.ops import (census, census_cost, fused_linearize,
+                                    irls, level_gn, sgm)
     from bpvo_tpu_torch.utils import graphs
     graphs.settle()     # launches of IF bodies taken so far count before 0
-    for mod in (census, fused_linearize, irls, level_gn, sgm):
+    for mod in (census, census_cost, fused_linearize, irls, level_gn, sgm):
         mod.launch_count = 0
 
 
 def _counts():
     """The kernels' launch counts, with the taken IF bodies' settled."""
-    from bpvo_tpu_torch.ops import census, fused_linearize, irls, level_gn, sgm
+    from bpvo_tpu_torch.ops import (census, census_cost, fused_linearize,
+                                    irls, level_gn, sgm)
     from bpvo_tpu_torch.utils import graphs
     graphs.settle()
     return {"level_gn": level_gn.launch_count,
             "census_planes": census.launch_count,
+            "census_cost": census_cost.launch_count,
             "sgm_aggregate": sgm.launch_count,
             "fused_linearize": fused_linearize.launch_count,
             "irls_reduce": irls.launch_count}
@@ -1652,7 +1658,8 @@ def chunk_route(name, make_vo, images, auxs, res_e, n_e, dev, smi):
 TRACED_KERNELS = {"level_gn": "level_gn_kernel",
                   "fused_linearize": "fused_linearize_kernel",
                   "irls_reduce": "irls_reduce_kernel",
-                  "census_planes": "census_kernel"}
+                  "census_planes": "census_kernel",
+                  "census_cost": "census_cost_kernel"}
 LOOP_KERNELS = ("fused_linearize", "irls_reduce")
 
 
@@ -1773,17 +1780,36 @@ def census_phase(left, dev):
 
 
 def sgm_phase(pair, matcher, dev, ref, smi):
-    """SGM aggregation kernel vs plain version on the pair's census cost
-    volume, bit for bit; each pass's device time (back-to-back launches of
-    its C entry point); the matcher's ms per call by stage; the matcher's
-    frame-0 disparity vs JAX's."""
+    """The census cost volume's kernel vs its plain version on the pair's
+    codes, bit for bit, with both times and the kernel's bound; the SGM
+    aggregation kernel vs plain version on that volume, bit for bit; each
+    pass's device time (back-to-back launches of its C entry point); the
+    matcher's ms per call by stage; the matcher's frame-0 disparity vs
+    JAX's.  Returns the SGM kernel's figures and the cost volume kernel's
+    entry of the kernels line (without its launches)."""
     import torch
     from bpvo_tpu_torch.data import stereo
-    from bpvo_tpu_torch.ops import _build, census, sgm
+    from bpvo_tpu_torch.ops import _build, census, census_cost, sgm
     left, right, gt = (torch.as_tensor(a).to(dev) for a in pair)
     p1, p2, D = matcher.p1, matcher.p2, matcher.num_disparities
     codes = census.census(torch.stack([left, right]))
-    cost = stereo.census_cost_volume(codes[0], codes[1], D)
+    cost = census_cost.census_cost_volume(codes[0], codes[1], D)
+    cost_want = census_cost.census_cost_volume_reference(codes[0], codes[1],
+                                                         D)
+    torch.cuda.synchronize()
+    n_cost = int((cost != cost_want).sum())
+    err_cost = float((cost - cost_want).abs().max())
+    del cost_want
+    t_cv = _cuda_ms(lambda: census_cost.census_cost_volume(
+        codes[0], codes[1], D), SGM_REPS)
+    t_cv_plain = _cuda_ms(lambda: census_cost.census_cost_volume_reference(
+        codes[0], codes[1], D), SGM_REPS)
+    cv_bound = _bound(_nbytes(codes[0], codes[1], cost), 0)
+    print(f"census_cost {tuple(cost.shape)}: {n_cost} values differ, kernel "
+          f"{t_cv:.4f} ms plain {t_cv_plain:.4f} ms, bound {cv_bound[0]:.4f} "
+          f"ms ({cv_bound[1]}, {100 * cv_bound[0] / t_cv:.1f}%); on {smi}")
+    _require(n_cost == 0, f"census_cost kernel differs from its plain "
+                          f"version in {n_cost} values")
     got = sgm.aggregate_4dir(cost, p1, p2)
     want = sgm.aggregate_4dir_reference(cost, p1, p2)
     one = sgm.aggregate_direction(cost, p1, p2)
@@ -1819,9 +1845,7 @@ def sgm_phase(pair, matcher, dev, ref, smi):
     stages = {
         "census": _cuda_ms(lambda: census.census(torch.stack([left, right])),
                            SGM_REPS),
-        "cost_volume": _cuda_ms(
-            lambda: stereo.census_cost_volume(codes[0], codes[1], D),
-            SGM_REPS),
+        "cost_volume": t_cv,
         "aggregation": t_k,
         "wta": _cuda_ms(lambda: stereo._wta_subpixel(got, D), SGM_REPS)}
     disp = fn(left, right)
@@ -1841,7 +1865,10 @@ def sgm_phase(pair, matcher, dev, ref, smi):
     return err, t_k, t_p, bound, {"ms_by_pass": by_pass,
                                   "structure_bound_ms": structure,
                                   "matcher_ms": t_m,
-                                  "matcher_ms_by_stage": stages}
+                                  "matcher_ms_by_stage": stages}, {
+        "max_abs_err": err_cost, "ms": t_cv, "plain_ms": t_cv_plain,
+        "bound_ms": cv_bound[0], "bound_by": cv_bound[1],
+        "shape": [H, W, D]}
 
 
 def flip_phase(vo, image, dev):
@@ -1993,8 +2020,8 @@ def app_phase(sframes, K, baseline, dev, smi):
     eval_kitti.main(["run", "--root", kitti, "--out", out, "--seqs", "0",
                      "--device", str(dev)])
     counts = _counts()
-    want = {"census_planes": 2 * (n + 1), "sgm_aggregate": n + 1,
-            "fused_linearize": 0, "irls_reduce": 0}
+    want = {"census_planes": 2 * (n + 1), "census_cost": n + 1,
+            "sgm_aggregate": n + 1, "fused_linearize": 0, "irls_reduce": 0}
     for name, k in want.items():
         _require(counts[name] == k, f"eval_kitti run: {name} launched "
                  f"{counts[name]} times, expected {k}")
@@ -3888,7 +3915,7 @@ def main() -> int:
     params_bp = AlgorithmParameters.from_config(cf)
     matcher = stereo.create_stereo_algorithm(cf)
     err_c, ms_c, plain_c, bound_c = census_phase(sframes[0][0], dev)
-    err_s, ms_s, plain_s, bound_s, sgm_extra = sgm_phase(
+    err_s, ms_s, plain_s, bound_s, sgm_extra, cost_entry = sgm_phase(
         sframes[0], matcher, dev, ref_s, smi)
     vo_bp = DeviceVO(K, baseline, shape, params_bp, device=dev,
                      stereo_fn=matcher.as_fn())
@@ -3900,7 +3927,7 @@ def main() -> int:
         T_ATOL_JAX_STEREO, GT_MARGIN_STEREO, False)
     calls = 1 + int(kf.sum())           # init + one per keyframe
     want = {"census_planes": params_bp.numPyramidLevels * len(sframes)
-            + 2 * calls, "sgm_aggregate": calls}
+            + 2 * calls, "census_cost": calls, "sgm_aggregate": calls}
     print(f"VO stereo Bit-Planes: {calls} matcher calls, expected launches "
           f"{want}; {fps_s:.2f} frames/s, per-frame p50 {p50_s:.3f} ms on "
           f"{smi}")
@@ -4132,6 +4159,12 @@ def main() -> int:
          "launches_by_path": by_path("sgm_aggregate"), "max_abs_err": err_s,
          "ms": ms_s, "plain_ms": plain_s, "bound_ms": bound_s[0],
          "bound_by": bound_s[1], "library_ms": None, **sgm_extra},
+        {"name": "census_cost", "route": "cuda",
+         "source": "bpvo_tpu_torch/csrc/census_cost.cu",
+         "replaces": "none: XLA fuses bpvo_tpu/data/stereo.py:212-218",
+         "launches": sum(by_path("census_cost").values()),
+         "launches_by_path": by_path("census_cost"), "library_ms": None,
+         **cost_entry},
         gn_entry("fused_linearize", "bpvo_tpu_torch/csrc/fused_linearize.cu",
                  "bpvo_tpu/ops/pallas/gn_kernel.py:181 and :433",
                  "intensity L0 C=1"),

@@ -18,7 +18,7 @@ from bpvo_tpu_torch import (AlgorithmParameters, ConfigFile, DescriptorType,
                             InterpolationType, LossFunctionType)
 from bpvo_tpu_torch.core import se3
 from bpvo_tpu_torch.data import stereo, synthetic
-from bpvo_tpu_torch.ops import census
+from bpvo_tpu_torch.ops import census, census_cost
 from bpvo_tpu_torch.ops import level_gn as lg
 from bpvo_tpu_torch.ops import sgm
 from bpvo_tpu_torch.vo import device_vo
@@ -205,6 +205,89 @@ def test_census_kernel_matches_plain(cuda, shape):
     assert census.launch_count == before + n_images
     assert torch.equal(got, census.census_planes_reference(x))
     assert torch.equal(census.census(x), census.census(x.cpu()).to(cuda))
+
+
+@pytest.fixture(scope="module")
+def stereo_codes(cuda):
+    """The packed census codes of the 376x1241 stereo pair of frame 0, on
+    the card, and the pair itself."""
+    _, _, frames = synthetic.synthesize_stereo_sequence(1)
+    L, R = (torch.as_tensor(a, device=cuda) for a in frames[0][:2])
+    codes = census.census(torch.stack([L, R]))
+    return codes[0], codes[1], L, R
+
+
+@pytest.mark.gpu
+def test_census_cost_kernel_matches_plain(stereo_codes):
+    """Bit for bit at the matcher's shape, 376x1241 and D = 128, on real
+    census codes; one launch a call."""
+    cl, cr, _, _ = stereo_codes
+    before = census_cost.launch_count
+    got = census_cost.census_cost_volume(cl, cr, 128)
+    torch.cuda.synchronize()
+    assert census_cost.launch_count == before + 1
+    assert got.shape == (376, 1241, 128) and got.is_contiguous()
+    assert torch.equal(got, census_cost.census_cost_volume_reference(cl, cr,
+                                                                     128))
+    assert torch.equal(stereo.census_cost_volume(cl, cr, 128), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H, W", [(1, 1), (3, 31), (5, 33), (7, 100),
+                                  (4, 150), (2, 1241)])
+@pytest.mark.parametrize("D", [1, 7, 48, 128, 200])
+def test_census_cost_kernel_edges(cuda, H, W, D):
+    """Random codes: D not a multiple of 4 (a scalar head and tail), W not
+    a multiple of the 32-column tile, W < D, one row or column."""
+    r = np.random.default_rng(H * 100003 + W * 101 + D)
+    cl, cr = (torch.as_tensor(r.integers(0, 256, (H, W)).astype(np.uint8),
+                              device=cuda) for _ in range(2))
+    got = census_cost.census_cost_volume(cl, cr, D)
+    torch.cuda.synchronize()
+    assert torch.equal(got, census_cost.census_cost_volume_reference(cl, cr,
+                                                                     D))
+
+
+@pytest.mark.gpu
+def test_census_cost_kernel_graph_replay_equals_eager(stereo_codes):
+    """Captured in a CUDA graph (on the current stream, nothing synced)
+    and replayed on new codes, it equals the eager call."""
+    cl, cr, _, _ = stereo_codes
+    a, b = cl.clone(), cr.clone()
+    census_cost.census_cost_volume(a, b, 128)         # warm-up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = census_cost.census_cost_volume(a, b, 128)
+    a.copy_(cr)
+    b.copy_(cl)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, census_cost.census_cost_volume(cr, cl, 128))
+
+
+@pytest.mark.gpu
+def test_matcher_with_the_kernel_equals_the_plain_cost(stereo_codes):
+    """``TpuSGM.as_fn()`` at 376x1241, D = 128: the disparity equals the
+    same pipeline built on the plain cost volume, bit for bit."""
+    cl, cr, L, R = stereo_codes
+    m = stereo.TpuSGM(num_disparities=128)
+    cost = census_cost.census_cost_volume_reference(cl, cr, 128)
+    want = stereo._wta_subpixel(sgm.aggregate_4dir(cost, m.p1, m.p2), 128)
+    assert torch.equal(m.as_fn()(L, R), want)
+
+
+@pytest.mark.gpu
+def test_census_cost_rejects_what_the_kernel_cannot_take(cuda):
+    c = torch.zeros(8, 9, dtype=torch.uint8, device=cuda)
+    for bad_l, bad_r, D in ((c.to(torch.int16), c, 4),
+                            (torch.zeros(9, 8, dtype=torch.uint8,
+                                         device=cuda).t(), c, 4),
+                            (c, c[:, :8], 4), (c, c.cpu(), 4), (c[None], c, 4),
+                            (c, c, 0),
+                            (c, c, census_cost.MAX_DISPARITIES + 1)):
+        with pytest.raises(ValueError):
+            census_cost.census_cost_volume(bad_l, bad_r, D)
 
 
 def _int_cost(shape, seed=0):

@@ -26,7 +26,8 @@ from bpvo_tpu.vo.device_vo import DeviceVO as JDeviceVO
 from bpvo_tpu_torch import AlgorithmParameters, ConfigFile, DescriptorType
 from bpvo_tpu_torch import LossFunctionType
 from bpvo_tpu_torch.data import stereo, synthetic
-from bpvo_tpu_torch.ops import census, sgm
+from bpvo_tpu_torch.ops import census, census_cost, sgm
+from bpvo_tpu_torch.utils import graphs
 from bpvo_tpu_torch.utils.convert import state_from_numpy
 from bpvo_tpu_torch.vo.device_vo import DeviceVO
 
@@ -137,6 +138,53 @@ def test_cost_volume_op_count_independent_of_d(D):
             stereo.census_cost_volume(cl, cr, n)
         counts.append(c.ops)
     assert counts[0] == counts[1] and len(counts[1]) <= 16
+
+
+def _loop_cost(cl, cr, D):
+    """The cost volume pixel by pixel: popcount(cR[y, x - d] ^ cL[y, x]),
+    8 where x < d."""
+    H, W = cl.shape
+    out = np.full((H, W, D), 8.0, np.float32)
+    for d in range(min(D, W)):
+        x = np.arange(d, W)
+        out[:, d:, d] = np.unpackbits(
+            (cr[:, x - d] ^ cl[:, x])[..., None], axis=-1).sum(-1)
+    return out
+
+
+@pytest.mark.parametrize("H, W, D", [(3, 40, 1), (4, 37, 7), (5, 40, 48),
+                                     (2, 33, 200), (3, 1, 5)])
+def test_cost_volume_on_cpu_is_the_plain_version(monkeypatch, H, W, D):
+    """CPU tensors take ``census_cost_volume_reference`` and never ask for
+    the kernels' library or count a launch; it equals the cost pixel by
+    pixel at ragged D, W not a multiple of the kernel's column tile, and
+    W < D (the shapes the card's tests hold the kernel to)."""
+    from bpvo_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("built"))
+    r = np.random.default_rng(H * W * D)
+    cl, cr = (r.integers(0, 256, (H, W)).astype(np.uint8) for _ in range(2))
+    before = census_cost.launch_count
+    got = stereo.census_cost_volume(torch.as_tensor(cl), torch.as_tensor(cr),
+                                    D)
+    assert census_cost.launch_count == before
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, census_cost.census_cost_volume_reference(
+        torch.as_tensor(cl), torch.as_tensor(cr), D))
+    np.testing.assert_array_equal(got.numpy(), _loop_cost(cl, cr, D))
+
+
+def test_cost_volume_launches_are_counted_with_the_kernels():
+    """The module is one of ``graphs.op_modules()``, so graph replays and
+    the benchmark's settled counts (``census_cost``) include its launches."""
+    from vobench import program
+    assert census_cost in graphs.op_modules()
+    assert "census_cost" in program.settled_counts()
+
+
+def test_cost_volume_refuses_other_devices():
+    c = torch.zeros(4, 6, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        census_cost.census_cost_volume(c, c, 3)
 
 
 def test_tpusgm_run_takes_tensors_and_returns_numpy():

@@ -641,6 +641,59 @@ def test_level_gn_reader_needs_a_trace(monkeypatch):
     assert bench.metric_reader("level_gn_roofline_pct.online")(ctx) is None
 
 
+CALL = (376, 1241, 128)     # a matcher call's (H, W, D)
+
+
+def _cost_ctx(n=3, n_events=None, launched=None, n_shapes=None):
+    """A traced slice of ``n`` matcher calls: kernel events, the settled
+    ``census_cost`` count and the calls' shapes, each ``n`` unless given."""
+    durs = [95.0 + 3 * i for i in range(n if n_events is None
+                                        else n_events)]
+    events = [{"name": "void (anonymous namespace)::census_cost_kernel("
+                       "unsigned char const*, unsigned char const*, float*, "
+                       "int, int, int)", "ts": i, "dur": d}
+              for i, d in enumerate(durs)]
+    ctx = _ctx(n)
+    ctx.trace = types.SimpleNamespace(
+        named=lambda part: events if part == "census_cost_kernel" else [])
+    ctx.launches = {} if launched == 0 else {
+        "census_cost": n if launched is None else launched}
+    ctx.sgm_calls = [CALL] * (n if n_shapes is None else n_shapes)
+    return ctx, sum(durs) * 1e-6
+
+
+def test_cost_volume_reader_reads_bound_over_time():
+    """The volume written once and the two code images read once, at 3.35
+    TB/s, summed over the calls, over the kernel events' time."""
+    from vobench import roofline
+    H, W, D = CALL
+    ctx, seconds = _cost_ctx()
+    value = bench.metric_reader("cost_volume_roofline_pct.online")(ctx)
+    bound = 3 * (4 * H * W * D + 2 * H * W) / roofline.PEAK_BYTES_PER_S
+    assert value == pytest.approx(100.0 * bound / seconds, rel=1e-12)
+    assert 0 < value < 100
+
+
+@pytest.mark.parametrize("fault, why", [
+    (dict(n_events=2), "2 kernel events, 3 launches counted, 3 call"),
+    (dict(launched=4), "3 kernel events, 4 launches counted, 3 call"),
+    (dict(n_shapes=2), "3 kernel events, 3 launches counted, 2 call"),
+    (dict(n_events=0, launched=0), "0 kernel events, 0 launches counted")],
+    ids=["events", "launches", "shapes", "no_kernel"])
+def test_cost_volume_reader_is_silent_where_the_counts_differ(fault, why):
+    """None, logged: a trace that lost an event, a count or a shape list
+    that differs, a program without the kernel (the parent commit's)."""
+    ctx, _ = _cost_ctx(**fault)
+    read = bench.metric_reader("cost_volume_roofline_pct.online")
+    assert read(ctx) is None and why in ctx.logs[-1]
+
+
+def test_cost_volume_reader_needs_a_trace():
+    ctx, _ = _cost_ctx()
+    ctx.trace = None
+    assert bench.metric_reader("cost_volume_roofline_pct.online")(ctx) is None
+
+
 @pytest.mark.parametrize("counted", [True, False])
 def test_keyframes_own_reader(monkeypatch, counted):
     """``keyframes_own`` over the traced frames, a frame; nothing from a
