@@ -125,34 +125,31 @@ def make_sharded_gn(reducer, opts: gn.GNOptions, cache=None):
 
     On CUDA with no reducer, a one-rank nccl group or an nccl group over
     the cards of one host (its all-reduces the peer kernel,
-    ``parallel.peer``; ``graphs.route``), a solve is one replay of a
-    ``gauss_newton.RunGraphs`` graph (one per shape, its key carrying the
-    reducer) with no host read: iteration 0, then the WHILE node of the
-    others with the (H, g, f_sq) all-reduce in its body and the sigma's
-    max and histogram all-reduces in the IF node inside it.  Every
-    predicate is computed from reduced values, identical bits on every
-    rank, so every rank runs the same iterations and branches.  With gloo
-    (host-staged), nccl over several hosts (``graphs.capturable``:
-    NCCL's event nodes cannot sit in the bodies), ``cache=False`` or on
-    the CPU the solve is eager: one host read per iteration, as
-    ``gauss_newton.run``.  ``cache`` a ``GraphCache`` to
-    capture in (the tests' CPU stand-ins)."""
+    ``parallel.peer``; ``graphs.route``), a solve is one replay of its
+    ``GraphCache.jit`` graph (a graph per options, camera, reducer and
+    shapes; the shard's template copied in only when another template
+    object arrives) with no host read: iteration 0, then the WHILE node
+    of the others with the (H, g, f_sq) all-reduce in its body and the
+    sigma's max and histogram all-reduces in the IF node inside it.
+    Every predicate is computed from reduced values, identical bits on
+    every rank, so every rank runs the same iterations and branches.
+    With gloo (host-staged), nccl over several hosts
+    (``graphs.capturable``: NCCL's event nodes cannot sit in the bodies),
+    a verbose level, ``cache=False`` or on the CPU the solve is eager: one
+    host read per iteration, as ``gauss_newton.run``.  ``cache`` a
+    ``GraphCache`` to capture in (the tests' CPU stand-ins)."""
     sopts = sharded_options(opts)
-    owned, holders = {}, {}
+    owned = {}
 
     def run(tdata_shard, channels, cam, T_init) -> gn.GNState:
-        graph_cache = route(cache, channels.device, reducer, owned)
-        if graph_cache is None or sopts.verbose or sopts.max_iterations == 0:
+        graph_cache = route(cache, channels.device, reducer, owned, (sopts,))
+        if graph_cache is None:
             return _solve_sharded(tdata_shard, channels, cam, T_init, sopts,
                                   reducer)
-        # a holder a shape (its buffers are fixed at its first run)
-        shapes = (tuple(channels.shape),
-                  tuple(tuple(t.shape) for t in tdata_shard))
-        holder = holders.get(shapes)
-        if holder is None:
-            holder = holders[shapes] = gn.RunGraphs(graph_cache,
-                                                    solve=_solve_sharded)
-        return holder.run(tdata_shard, channels, cam, T_init, sopts,
-                          reducer=reducer)
+        return graph_cache.jit(
+            ("sharded_gn", sopts, cam, reducer),
+            (tdata_shard, channels, T_init),
+            lambda b: _solve_sharded(b[0], b[1], cam, b[2], sopts, reducer),
+            held=(0,))
 
     return run

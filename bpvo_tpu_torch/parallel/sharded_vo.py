@@ -38,13 +38,11 @@ from typing import Tuple
 import torch
 
 from bpvo_tpu_torch.config import AlgorithmParameters
-from bpvo_tpu_torch.ops import imgproc, pyramid, selection
+from bpvo_tpu_torch.ops import imgproc
 from bpvo_tpu_torch.parallel import sharded
-from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.utils import graphs
 from bpvo_tpu_torch.vo import device_vo
 from bpvo_tpu_torch.vo import template_data as td_mod
-from bpvo_tpu_torch.vo import warp as warp_mod
 from bpvo_tpu_torch.vo.device_vo import VOState, VOStepOutput
 
 
@@ -96,28 +94,19 @@ def make_sharded_vo(reducer, K, baseline: float, image_size,
     ("cuda" unless the caller asks for the CPU).  ``cache``: None for the
     route ``graphs.route`` picks (the step graph on CUDA with no reducer, a
     one-rank nccl group or a peer-reducing one), False for the eager step,
-    or a ``GraphCache`` to capture in (the tests' CPU stand-ins).  On the graphed route the returned state
-    is the step graph's buffers, which the next step overwrites (JAX's
-    step donates it); the outputs are the caller's."""
+    or a ``GraphCache`` to capture in (the tests' CPU stand-ins); a
+    verbose level takes the eager step.  On the graphed route the
+    returned state is the step graph's buffers, which the next step
+    overwrites (JAX's step donates it); the outputs are the caller's."""
     dev = device_vo.resolve_device(device)
     rank, world = (0, 1) if reducer is None else (reducer.rank,
                                                   reducer.world)
-    rows, cols = image_size
-    if p.numPyramidLevels <= 0:
-        p = p.replace(numPyramidLevels=p.num_pyramid_levels_for(rows, cols))
     if p.poseEstimator != "GaussNewton":
         raise ValueError("sharded VO supports poseEstimator=GaussNewton only")
-    base_cam = warp_mod.CameraModel.from_K(K, baseline)
-    cams = tuple(base_cam.at_level(l) for l in range(p.numPyramidLevels))
-    shapes = pyramid.level_shapes(rows, cols, p.numPyramidLevels)
-    capacities = _round_capacities(
-        tuple(selection.capacity_for_level(p, r, c, l)
-              for l, (r, c) in enumerate(shapes)), world)
-    fine = gn.GNOptions.from_params(p, coarse=False)
-    coarse = gn.GNOptions.from_params(p, coarse=True)
-    opts = tuple(sharded.sharded_options(fine if l == p.maxTestLevel
-                                         else coarse)
-                 for l in range(p.numPyramidLevels))
+    p, cams, capacities, opts = device_vo._setup_levels(K, baseline,
+                                                        image_size, p)
+    capacities = _round_capacities(capacities, world)
+    opts = tuple(sharded.sharded_options(o) for o in opts)
 
     def linearize_factory(level, tdata, channels, cam, lv_opts):
         return sharded.linearize_sharded(tdata, channels, cam, lv_opts,
@@ -133,11 +122,11 @@ def make_sharded_vo(reducer, K, baseline: float, image_size,
     hooks = device_vo.StepHooks(linearize_factory, count_reduce,
                                 build_templates_fn)
     step = device_vo.make_vo_step(p, cams, capacities, opts, hooks=hooks)
-    graph_cache = graphs.route(cache, dev, reducer, {})
+    graph_cache = graphs.route(cache, dev, reducer, {}, opts)
     step_graph = None if graph_cache is None else device_vo.StepGraph(
         device_vo._make_front(p, cams, opts, False, hooks),
         device_vo._make_commit(p, cams, capacities, opts, hooks=hooks),
-        (rows, cols), dev, graph_cache)
+        image_size, dev, graph_cache)
 
     def as_tensor(a):
         return torch.as_tensor(a, dtype=torch.float32).to(dev)

@@ -21,10 +21,10 @@ under ``utils.graphs.cond`` (JAX's ``lax.cond``); everything, sigma and the
 exit test included, stays on the device.  Eagerly the loop reads its exit
 test once per iteration (and the sigma test once); captured in a CUDA
 graph it is a WHILE node and reads nothing: ``DeviceVO``'s step graph and
-``VisualOdometry``'s estimate graph hold their ``run`` levels' loops so.
-``RunGraphs`` makes one level solve alone one replay (the sharded GN).  Verbose
-runs stay on the host loop.  Levenberg-Marquardt is in
-``solver/levenberg_marquardt.py``.
+``VisualOdometry``'s estimate graph hold their ``run`` levels' loops so,
+and ``GraphCache.jit`` makes one level solve alone one replay (the sharded
+GN).  Verbose runs stay on the host loop (``utils.graphs.route``).
+Levenberg-Marquardt is in ``solver/levenberg_marquardt.py``.
 """
 from __future__ import annotations
 
@@ -425,8 +425,8 @@ def _default_linearize_fn(tdata, channels, cam, opts: GNOptions,
     return linearize_fn
 
 
-def run(tdata, channels, cam, T_init, opts: GNOptions, linearize_fn=None,
-        graphs=None) -> GNState:
+def run(tdata, channels, cam, T_init, opts: GNOptions,
+        linearize_fn=None) -> GNState:
     """GN from T_init until a convergence test fires, the solve fails or
     ``max_iterations`` are spent; falls back to the best evaluated pose
     when it ends unconverged at a higher cost.
@@ -442,20 +442,10 @@ def run(tdata, channels, cam, T_init, opts: GNOptions, linearize_fn=None,
     ``do_est`` (sigma still moving) is a host bool on iteration 0 and a
     device bool after it.  By default RigidBody levels with LINEAR or
     COSINE sampling take the fused CUDA kernels, others the gather route
-    (``irls_reduce_w`` at C > 1); on the CPU their plain versions.
-
-    ``graphs`` (a ``RunGraphs``, held per level by the caller) replays the
-    whole solve from one CUDA graph; without it the loop runs where it is
-    called (a host loop, or a WHILE node of a graph being captured).
-    Verbose runs (one printed line, so one host read, per iteration) and
-    ``max_iterations == 0`` do not take ``graphs``: a static route choice,
-    as ``level_kernel_supported``.
+    (``irls_reduce_w`` at C > 1); on the CPU their plain versions.  The
+    loop runs where it is called: a host loop, or a WHILE node of a graph
+    being captured.
     """
-    if graphs is not None and not opts.verbose and opts.max_iterations > 0:
-        if linearize_fn is not None:
-            raise ValueError("gauss_newton.run: a custom linearize_fn has no "
-                             "graphed route; pass graphs=None")
-        return graphs.run(tdata, channels, cam, T_init, opts)
     C, K = tdata.pixels.shape
     s, c = tdata.norm_scale, tdata.norm_center
     if linearize_fn is None:
@@ -483,64 +473,6 @@ def run(tdata, channels, cam, T_init, opts: GNOptions, linearize_fn=None,
         lambda st: ~st.conv & st.ok & (st.num_iters < opts.max_iterations),
         lambda st, do_est: iteration(st, False, do_est), st,
         flag_fn=lambda st: _sigma_unstable(st.delta_scale, st.scale, opts)))
-
-
-class RunGraphs:
-    """One level's ``run`` as a CUDA graph (the counterpart of jitting
-    ``gn.run``): iteration 0 and the WHILE node of the others, over static
-    copies of the level's template, channels and T_init, a graph for each
-    (options, camera).  A level solve is then one replay and no read of
-    the device.
-
-    Held by whatever owns the level's buffers (the sharded GN of
-    ``parallel/sharded.py``); the level's shapes are fixed at the first
-    run.
-    The template is copied in when a run brings another template object,
-    the channels and T_init on every run.  ``cache`` is the ``GraphCache``
-    (default: one on the channels' device).  ``solve(tdata, channels, cam,
-    T_init, opts, **static)`` is the solver a graph captures: ``run``
-    (default), or ``levenberg_marquardt.run`` for LM's holders."""
-
-    def __init__(self, cache=None, solve=None):
-        self._cache = cache
-        self._solve = solve or run
-        self._td_src = None
-        self._td = self._channels = self._T_in = None
-
-    def _load(self, tdata, channels, T_init):
-        if self._td is None:
-            self._td = td_mod.TemplateData(*(t.clone() for t in tdata))
-            self._channels = channels.contiguous().clone()
-            self._T_in = T_init.to(torch.float32).clone()
-        else:
-            if (tuple(channels.shape) != tuple(self._channels.shape)
-                    or any(a.shape != b.shape
-                           for a, b in zip(tdata, self._td))):
-                raise ValueError(
-                    "gauss_newton.RunGraphs: a level's shapes are fixed at "
-                    f"its first run (channels {tuple(self._channels.shape)},"
-                    f" got {tuple(channels.shape)})")
-            if tdata is not self._td_src:
-                for dst, src in zip(self._td, tdata):
-                    dst.copy_(src)
-            self._channels.copy_(channels)
-            self._T_in.copy_(T_init)
-        self._td_src = tdata
-
-    def run(self, tdata, channels, cam, T_init, opts: GNOptions, **static):
-        """The solver's result from one replay, bit for bit its eager run;
-        ``static`` (the solver's Python arguments, LM's ``tau``) is part
-        of the graph's key.  The returned state owns its tensors."""
-        if self._cache is None:
-            self._cache = graphs_mod.GraphCache(channels.device)
-        self._load(tdata, channels, T_init)
-        # the shapes too: holders of several shapes may share a cache
-        key = (opts, cam, tuple(channels.shape), self._td.pixels.shape,
-               *sorted(static.items()))
-        out = self._cache(key, lambda: self._solve(
-            self._td, self._channels, cam, self._T_in, opts, **static))
-        # the next replay overwrites the graph's outputs
-        return type(out)(*(t.clone() for t in out))
 
 
 def fraction_of_good_points(weights, num_channels, num_valid, threshold,

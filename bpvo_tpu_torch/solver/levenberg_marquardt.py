@@ -18,9 +18,7 @@ linearizations are ``gauss_newton``'s gather route (``reduce_w``:
 state and the exit test stay on the device.  Eagerly the loop reads its
 exit test and its sigma test in one copy an iteration; captured in a CUDA
 graph it is a WHILE node and reads nothing: ``DeviceVO``'s step graph and
-``VisualOdometry``'s estimate graph hold their LM loops so.  A
-``gauss_newton.RunGraphs`` made with ``solve=run`` makes one level solve
-alone one replay.
+``VisualOdometry``'s estimate graph hold their LM loops so.
 """
 from __future__ import annotations
 
@@ -51,13 +49,9 @@ class LMState(NamedTuple):
 
 
 def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
-        opts: gn.GNOptions, tau: float = 1e-4, graphs=None) -> LMState:
+        opts: gn.GNOptions, tau: float = 1e-4) -> LMState:
     """LM from T_init until a convergence test fires on an accepted step or
-    ``max_iterations`` are spent.  ``graphs`` (a ``gauss_newton.RunGraphs``
-    made with ``solve=run``, held per level by the caller) replays the
-    whole solve from one CUDA graph."""
-    if graphs is not None:
-        return graphs.run(tdata, channels, cam, T_init, opts, tau=tau)
+    ``max_iterations`` are spent."""
     f32 = torch.float32
     dev = channels.device
     # the carry's own pose (the loop may write over it)

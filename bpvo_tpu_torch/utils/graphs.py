@@ -88,9 +88,10 @@ wait node).
 tensors: the inputs copied into static buffers of the key (those named by
 ``held`` only when another object arrives), ``fn`` of the buffers
 replayed, copies of its outputs returned.  ``route(cache, device,
-reducer)`` is the rule the distributed layer's entry points share: the
+reducer, owned, opts)`` is the rule every graphed entry point shares: the
 graphed route on CUDA with no reducer, a one-rank nccl group or an nccl
 group that reduces over peer memory (``capturable``); the eager route for
+a verbose level (a line printed per iteration reads the device), for
 gloo (its host staging cannot be captured), for nccl groups over several
 hosts, on the CPU unless a cache is given (the tests' stand-ins), when
 asked (``cache=False``), and inside another cache's run (whose graph then
@@ -193,18 +194,20 @@ def capturable(reducer, device) -> bool:
         reducer.world == 1 or getattr(reducer, "peer", None) is not None)
 
 
-def route(cache, device, reducer=None, owned=None):
-    """The ``GraphCache`` a graphed entry point of the distributed layer
-    runs through, or None for its eager route.  ``cache``: False asks for
-    the eager route; a cache is taken as given (a CPU stand-in in the
+def route(cache, device, reducer=None, owned=None, opts=()):
+    """The ``GraphCache`` a graphed entry point runs through, or None for
+    its eager route.  ``opts``: the level options (``GNOptions``) the
+    graphed function runs; a verbose one prints a line per iteration, so
+    reads the device, and takes the eager route.  ``cache``: False asks
+    for the eager route; a cache is taken as given (a CPU stand-in in the
     tests); None means, on CUDA when ``capturable`` (the reducer's
     all-reduces are kernel launches or no node, which the graph's IF and
     WHILE bodies can hold), a cache of the caller's own (made in
     ``owned``, a dict the caller keeps, one a device) or without ``owned``
-    the device's ``default_cache``, and the eager route otherwise.  Inside another cache's run the call is eager,
-    and so part of that run's graph.  A choice made from the arguments
-    alone: nothing falls back."""
-    if cache is False or in_run():
+    the device's ``default_cache``, and the eager route otherwise.  Inside
+    another cache's run the call is eager, and so part of that run's
+    graph.  A choice made from the arguments alone: nothing falls back."""
+    if cache is False or in_run() or any(o.verbose for o in opts):
         return None
     if cache is not None:
         return cache

@@ -130,6 +130,28 @@ def _build_templates(channels_pyr, disparity, cams, p, capacities):
     return tuple(out)
 
 
+def _setup_levels(K, baseline: float, image_size, p: AlgorithmParameters):
+    """The per-level setup every VO entry point shares: (``p`` with
+    ``numPyramidLevels`` resolved for ``image_size``, the camera of each
+    level, each level's template capacity, each level's ``GNOptions``:
+    the fine ones at ``maxTestLevel``, the coarse ones elsewhere)."""
+    rows, cols = image_size
+    if p.numPyramidLevels <= 0:
+        p = p.replace(numPyramidLevels=p.num_pyramid_levels_for(rows, cols))
+    n_levels = p.numPyramidLevels
+    base_cam = warp_mod.CameraModel.from_K(K, baseline)
+    cams = tuple(base_cam.at_level(l) for l in range(n_levels))
+    capacities = tuple(
+        selection.capacity_for_level(p, r, c, l)
+        for l, (r, c) in enumerate(pyramid.level_shapes(rows, cols,
+                                                        n_levels)))
+    fine = gn.GNOptions.from_params(p, coarse=False)
+    coarse = gn.GNOptions.from_params(p, coarse=True)
+    opts = tuple(fine if l == p.maxTestLevel else coarse
+                 for l in range(n_levels))
+    return p, cams, capacities, opts
+
+
 def _estimate(templates, channels_pyr, cams, T_init, opts_per_level,
               max_test_level, good_threshold, min_points: int,
               solver: str = "GaussNewton", start_level=-1,
@@ -477,29 +499,14 @@ class DeviceVO:
     def __init__(self, K, baseline: float, image_size,
                  params: AlgorithmParameters = None, device="cuda",
                  stereo_fn=None):
-        p = params or AlgorithmParameters()
-        rows, cols = image_size
-        if p.numPyramidLevels <= 0:
-            p = p.replace(numPyramidLevels=p.num_pyramid_levels_for(rows, cols))
+        p, self._cams, self._capacities, self._opts = _setup_levels(
+            K, baseline, image_size, params or AlgorithmParameters())
         self._p = p
-        self._image_size = (rows, cols)
+        self._image_size = tuple(image_size)
         self.device = resolve_device(device)
-        base_cam = warp_mod.CameraModel.from_K(K, baseline)
-        self._cams = tuple(base_cam.at_level(l)
-                           for l in range(p.numPyramidLevels))
-        shapes = pyramid.level_shapes(rows, cols, p.numPyramidLevels)
-        self._capacities = tuple(
-            selection.capacity_for_level(p, r, c, l)
-            for l, (r, c) in enumerate(shapes))
-        fine = gn.GNOptions.from_params(p, coarse=False)
-        coarse = gn.GNOptions.from_params(p, coarse=True)
-        self._opts = tuple(fine if l == p.maxTestLevel else coarse
-                           for l in range(p.numPyramidLevels))
         self._stereo_fn = stereo_fn
         # the graphed route (see the class docstring)
-        self._graphs = graphs.GraphCache(self.device) if (
-            self.device.type == "cuda"
-            and not any(o.verbose for o in self._opts)) else None
+        self._graphs = graphs.route(None, self.device, None, {}, self._opts)
         self._step = make_vo_step(p, self._cams, self._capacities, self._opts,
                                   stereo_fn=stereo_fn)
         self._front = _make_front(p, self._cams, self._opts,

@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from bpvo_tpu_torch.config import AlgorithmParameters
-from bpvo_tpu_torch.ops import pyramid, selection
 from bpvo_tpu_torch.types import KeyFramingReason, Result
 from bpvo_tpu_torch.utils import graphs as graphs_mod
 from bpvo_tpu_torch.utils import profiling
@@ -111,27 +110,14 @@ class VisualOdometry:
 
     def __init__(self, K, baseline: float, image_size,
                  params: Optional[AlgorithmParameters] = None, device="cuda"):
-        p = params or AlgorithmParameters()
-        rows, cols = image_size
-        if p.numPyramidLevels <= 0:
-            p = p.replace(
-                numPyramidLevels=p.num_pyramid_levels_for(rows, cols))
+        p, self._cams, self._capacities, opts = device_vo._setup_levels(
+            K, baseline, image_size, params or AlgorithmParameters())
         self._p = p
-        self._rows, self._cols = rows, cols
+        self._rows, self._cols = image_size
         self.device = device_vo.resolve_device(device)
-        base_cam = warp_mod.CameraModel.from_K(K, baseline)
-        self._cams = tuple(base_cam.at_level(l)
-                           for l in range(p.numPyramidLevels))
-        shapes = pyramid.level_shapes(rows, cols, p.numPyramidLevels)
-        self._capacities = tuple(
-            selection.capacity_for_level(p, r, c, l)
-            for l, (r, c) in enumerate(shapes))
-        self._pose_estimator = PoseEstimator(p)
+        self._pose_estimator = PoseEstimator(p, opts)
         # the graphed route (see the class docstring)
-        self._graphs = graphs_mod.GraphCache(self.device) if (
-            self.device.type == "cuda" and not any(
-                o.verbose for o in self._pose_estimator._opts_for(
-                    p.numPyramidLevels))) else None
+        self._graphs = graphs_mod.route(None, self.device, None, {}, opts)
         self._trajectory = Trajectory()
         self._T_kf = np.eye(4, dtype=np.float32)
         self._ref, self._cur, self._prev = _Frame(), _Frame(), _Frame()

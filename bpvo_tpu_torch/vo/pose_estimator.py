@@ -199,19 +199,17 @@ def _estimate_packed(templates, channels, cams, starts, opts_per_level,
 
 
 class PoseEstimator:
-    def __init__(self, p: AlgorithmParameters):
+    """``opts_per_level``: each level's ``GNOptions``
+    (``device_vo._setup_levels``)."""
+
+    def __init__(self, p: AlgorithmParameters, opts_per_level):
         self._p = p
-        self._fine_opts = gn.GNOptions.from_params(p, coarse=False)
-        self._coarse_opts = gn.GNOptions.from_params(p, coarse=True)
+        self._opts = tuple(opts_per_level)
         self._last_weights = None
         self._last_H = None
         self._last_frac = 1.0
         # the starts' pinned staging on CUDA (``_starts``)
         self._pinned = None
-
-    def _opts_for(self, n_levels: int):
-        return tuple(self._fine_opts if lvl == self._p.maxTestLevel
-                     else self._coarse_opts for lvl in range(n_levels))
 
     def _starts(self, T_init, alt_init, device):
         """(2, 4, 4) f32 on ``device``: ``T_init`` and ``alt_init`` (or
@@ -250,7 +248,7 @@ class PoseEstimator:
         p = self._p
         n_levels = len(channels_pyr)
         starts = self._starts(T_init, alt_init, channels_pyr[0].device)
-        static = (self._opts_for(n_levels), p.maxTestLevel,
+        static = (self._opts, p.maxTestLevel,
                   p.goodPointThreshold, _MIN_POINTS_PER_LEVEL,
                   p.poseEstimator, start_level, alt_init is not None,
                   multistart_px)
@@ -294,14 +292,13 @@ class PoseEstimator:
         p = self._p
         if p.poseEstimator != "GaussNewton":
             return
-        n_levels = len(channels_pyr)
-        opts = self._opts_for(n_levels)
-        first = n_levels - 1 if start_level < 0 else start_level
+        first = len(channels_pyr) - 1 if start_level < 0 else start_level
         n = k = ck = itk = itck = 0
         for level in range(first, p.maxTestLevel - 1, -1):
             C, rows, cols = channels_pyr[level].shape
             K = templates[level].pixels.shape[1]
-            if not gn.level_kernel_supported(opts[level], C, rows, cols, K):
+            if not gn.level_kernel_supported(self._opts[level], C, rows,
+                                             cols, K):
                 continue
             it = max(int(iters[level]), 1)
             n, k, ck = n + 1, k + K, ck + C * K

@@ -134,7 +134,7 @@
    numbers (after the second trace below, ``graph_phase_while_paths``).
    (c) Level solves alone: ``gauss_newton.run`` at the
    dense L0/L1 (C = 1 and 8) and LM at L0 (C = 8), eager and through
-   ``RunGraphs`` (LM's made with ``solve=levenberg_marquardt.run``): ms
+   ``GraphCache.jit`` (the template held, as the sharded GN's): ms
    per solve, one replay a solve under ``set_sync_debug_mode("error")``,
    bitwise, the same launches (a ``level_solve_phase`` JSON line).
    Between the two ``DeviceVO`` paths and the ``VisualOdometry`` cells,
@@ -1128,11 +1128,11 @@ def level_solve_phase(K, baseline, frames, dev, smi):
     """Path (c), a level solve of ``VisualOdometry``'s pose estimator on
     its own: at the dense L0 and L1 (K = 131072 / 32768; C = 1 and 8)
     ``gauss_newton.run`` and at L0 ``levenberg_marquardt.run`` (C = 8),
-    eager and through its graph holder (``RunGraphs``, for LM made with
-    ``solve=levenberg_marquardt.run``): ms
+    eager and through ``GraphCache.jit`` (a cache of its own, the
+    template held, as ``make_sharded_gn``'s solve): ms
     per solve (host clock to a sync, mean of LEVEL_SOLVE_REPS after the
-    first call), the holder's replays per solve, bitwise equal to the
-    eager solve, the same launches.  The holder's solves after its first
+    first call), the cache's replays per solve, bitwise equal to the
+    eager solve, the same launches.  The graphed solves after the first
     run under set_sync_debug_mode("error"), so a device read there fails
     (torch's sync debug mode sees the reads it knows; none is counted).
     Returns the JSON object."""
@@ -1163,7 +1163,12 @@ def level_solve_phase(K, baseline, frames, dev, smi):
         for solver, solve, level, opts in cases:
             args = (vo.state.templates[level], ch[level], vo._cams[level],
                     torch.eye(4, device=dev), opts)
-            holder = gn.RunGraphs(solve=solve)
+            cache = graphs.GraphCache(dev)
+
+            def replayed(td, ch_l, cam, T0, opts):
+                return cache.jit(
+                    ("level_solve", solve, opts, cam), (td, ch_l, T0),
+                    lambda b: solve(b[0], b[1], cam, b[2], opts), held=(0,))
 
             def timed(graphed):
                 t, res = [], None
@@ -1171,7 +1176,7 @@ def level_solve_phase(K, baseline, frames, dev, smi):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     with _sync_errors(graphed and res is not None):
-                        res = solve(*args, graphs=holder if graphed else None)
+                        res = (replayed if graphed else solve)(*args)
                     torch.cuda.synchronize()
                     t.append((time.perf_counter() - t0) * 1e3)
                 return res, float(np.mean(t[1:]))
@@ -4019,7 +4024,7 @@ def main() -> int:
             jax_ref=(ref_w, path.removeprefix("device_vo_"), atol))
         while_res[path]["chunks"].update(trace_chunk_subprocess(path))
     print(json.dumps({"graph_phase_while_paths": while_res}))
-    # path (c): a level solve alone, through its graph holder (RunGraphs)
+    # path (c): a level solve alone, through GraphCache.jit
     print(json.dumps({"level_solve_phase": level_solve_phase(
         K, baseline, dframes[:2], dev, smi)}))
     graph_res.update(while_res)

@@ -1,7 +1,7 @@
 """The graphed routes' plumbing on the CPU, where no CUDA graph can run:
 ``utils/graphs.GraphCache``'s launch-count bookkeeping with a fake op
-module, and the buffers, copies and alternating graphs of
-``gauss_newton.RunGraphs``, ``DeviceVO``'s step and ``VisualOdometry``'s
+module, and the buffers, copies and alternating graphs of a level solve
+through ``GraphCache.jit``, ``DeviceVO``'s step and ``VisualOdometry``'s
 estimate graph driven through ``ReplayStandIn``, a cache whose "replay" runs the captured
 function again and copies its results into the same output tensors (the
 static outputs a CUDA graph overwrites on every replay).  Each route is held
@@ -59,6 +59,17 @@ class ReplayStandIn(graphs.RerunCache):
     kernel), a replay reruns it into static outputs with the launch counts
     held (``graphs.RerunCache`` with ``hold_counts``)."""
     hold_counts = True
+
+
+def jit_solve(cache, solve, tdata, channels, cam, T_init, opts, **static):
+    """A level solve (``gauss_newton.run`` or ``levenberg_marquardt.run``)
+    through ``cache.jit``: a graph per solver, options, camera, static
+    arguments and shapes, the template copied in only when another
+    template object arrives, the channels and the start on every call."""
+    return cache.jit((solve, opts, cam, *sorted(static.items())),
+                     (tdata, channels, T_init),
+                     lambda b: solve(b[0], b[1], cam, b[2], opts, **static),
+                     held=(0,))
 
 
 # ---------------------------------------------------------------------------
@@ -270,9 +281,9 @@ def _assert_states_equal(a, b):
 def test_run_factored_loop_bitwise(C, loss):
     """``gauss_newton.run`` (its loop body ``_iteration``, iteration 0 on
     its own and the rest through ``graphs.while_loop``'s host loop) and
-    ``RunGraphs.run`` through the stand-in give the GNState of the
-    unfactored loop bit for bit, from two starts, over two templates (the
-    second run on the same graph copies the template in)."""
+    the solve through ``GraphCache.jit`` on the stand-in give the GNState
+    of the unfactored loop bit for bit, from two starts, over two
+    templates (the second run on the same graph copies the template in)."""
     td, ch, cam, _ = _gn_problem(C)
     ttd = template_from_numpy(_np_template(td), "cpu")
     td2 = ttd._replace(pixels=ttd.pixels * 1.01)
@@ -280,7 +291,7 @@ def test_run_factored_loop_bitwise(C, loss):
     tcam = camera_from_numpy(cam)
     opts = gn.GNOptions(function_tolerance=1e-4, parameter_tolerance=1e-6,
                         loss=loss)
-    graphed = gn.RunGraphs(ReplayStandIn("cpu"))
+    cache = ReplayStandIn("cpu")
     starts = [torch.eye(4), warp_mod.params_to_pose(
         torch.tensor([0.001, 0.0, -0.001, 0.002, 0.001, 0.0]),
         ttd.norm_scale, ttd.norm_center)]
@@ -290,37 +301,63 @@ def test_run_factored_loop_bitwise(C, loss):
             want = _parent_run(tdata, channels, tcam, T0, opts)
             _assert_states_equal(gn.run(tdata, channels, tcam, T0, opts),
                                  want)
-            got = gn.run(tdata, channels, tcam, T0, opts, graphs=graphed)
+            got = jit_solve(cache, gn.run, tdata, channels, tcam, T0, opts)
             _assert_states_equal(got, want)
             assert int(want.num_iters) >= 3
             runs += int(want.num_iters)
     # one graph for the level (its options and camera): every solve of it
     # one replay
-    assert len(graphed._cache) == 1 and runs > 4
+    assert len(cache) == 1 and runs > 4
 
 
-def test_run_graphs_static_routes():
-    """``max_iterations == 0`` and verbose runs keep the eager loop and
-    ignore the graphs; a custom linearization with graphs raises, and so
-    does a level whose shapes differ from its graphs'."""
+def test_run_graphs_static_routes(monkeypatch):
+    """A level solve through ``GraphCache.jit``: with ``max_iterations ==
+    0`` its replays equal the eager solve bit for bit (the captured
+    function fills the initial state on the device); a verbose level
+    takes the eager route (``graphs.route`` gives no cache); the template
+    is copied into the key's buffers only when another template object
+    arrives, the channels and the start on every call."""
     td, ch, cam, _ = _gn_problem(1)
     ttd = template_from_numpy(_np_template(td), "cpu")
+    td2 = ttd._replace(pixels=ttd.pixels * 1.01)
     channels = torch.as_tensor(np.array(ch))
     tcam = camera_from_numpy(cam)
-    graphed = gn.RunGraphs(ReplayStandIn("cpu"))
-    st = gn.run(ttd, channels, tcam, torch.eye(4),
-                gn.GNOptions(max_iterations=0), graphs=graphed)
-    assert int(st.num_iters) == 0 and torch.equal(st.T, torch.eye(4))
-    st = gn.run(ttd, channels, tcam, torch.eye(4),
-                gn.GNOptions(verbose=True), graphs=graphed)
-    assert int(st.num_iters) > 0 and len(graphed._cache) == 0
-    with pytest.raises(ValueError):
-        gn.run(ttd, channels, tcam, torch.eye(4), gn.GNOptions(),
-               linearize_fn=lambda *a: None, graphs=graphed)
-    gn.run(ttd, channels, tcam, torch.eye(4), gn.GNOptions(), graphs=graphed)
-    with pytest.raises(ValueError, match="fixed"):
-        gn.run(ttd, channels[:, :-1], tcam, torch.eye(4), gn.GNOptions(),
-               graphs=graphed)
+    T0 = warp_mod.params_to_pose(
+        torch.tensor([0.001, 0.0, -0.001, 0.002, 0.001, 0.0]),
+        ttd.norm_scale, ttd.norm_center)
+    zero = gn.GNOptions(max_iterations=0)
+    want = gn.run(ttd, channels, tcam, T0, zero)
+    assert int(want.num_iters) == 0 and torch.equal(want.T, T0)
+    cache = ReplayStandIn("cpu")
+    for _ in range(3):          # the warm-up, then replays
+        _assert_states_equal(
+            jit_solve(cache, gn.run, ttd, channels, tcam, T0, zero), want)
+    assert len(cache) == 1
+
+    verbose = gn.GNOptions(verbose=True)
+    assert graphs.route(cache, "cpu", None, None, (zero, verbose)) is None
+    assert graphs.route(cache, "cpu", None, None, (zero,)) is cache
+
+    copied = []
+    copy_into = graphs.copy_into
+
+    def spy(dst, src):
+        copied.extend(id(t) for t in _leaves(dst))
+        copy_into(dst, src)
+    monkeypatch.setattr(graphs, "copy_into", spy)
+    cache, opts = ReplayStandIn("cpu"), gn.GNOptions()
+    # (template, whether the call copies it in): the first call clones
+    for i, (tdata, fresh) in enumerate(((ttd, False), (ttd, False),
+                                        (td2, True), (td2, False),
+                                        (ttd, True))):
+        copied.clear()
+        _assert_states_equal(
+            jit_solve(cache, gn.run, tdata, channels, tcam, T0, opts),
+            gn.run(tdata, channels, tcam, T0, opts))
+        (bufs, _), = cache._inputs.values()
+        assert any(id(t) in copied for t in _leaves(bufs[0])) == fresh
+        assert all(id(t) in copied for t in bufs[1:]) == (i > 0)
+    assert len(cache) == 1
 
 
 # ---------------------------------------------------------------------------

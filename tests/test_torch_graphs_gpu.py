@@ -1,9 +1,9 @@
 """The graphed routes on the card against the eager ones: ``DeviceVO``'s step
 graph (its keyframe branch an IF node, its ``gauss_newton.run`` and LM
 level solves WHILE nodes; ``add_frame`` and read-free ``add_frames``
-chunks) on the bench, dense and Bit-Planes LM paths,
-``gauss_newton.RunGraphs`` for GN and for LM (``solve=
-levenberg_marquardt.run``; one replay, no read per level solve),
+chunks) on the bench, dense and Bit-Planes LM paths, a level solve
+through ``GraphCache.jit`` for GN and for LM (one replay, no read per
+level solve),
 ``VisualOdometry``'s frame, template and estimate graphs (two replays and
 one read an other step) bit for bit, with equal launch counts once
 settled, IF and WHILE nodes alone, a WHILE body that frees a tensor from
@@ -326,8 +326,8 @@ def dense_levels(cuda):
 @pytest.mark.parametrize("C", ["C1", "C8"])
 @pytest.mark.parametrize("level", [0, 1])
 def test_run_graphed_equals_eager(dense_levels, C, level):
-    """``RunGraphs.run`` (each level solve one replay of one graph, with
-    no device read once the graph exists) against the eager
+    """A level solve through ``GraphCache.jit`` (each one replay of one
+    graph, with no device read once the graph exists) against the eager
     ``gauss_newton.run`` at the dense L0/L1 shapes: every GNState field
     bit for bit, the same launches, from two starts and on a second
     template (copied into the graph's buffers)."""
@@ -339,35 +339,40 @@ def test_run_graphed_equals_eager(dense_levels, C, level):
                        [-1e-3, 1e-3, 1.0, 1e-2], [0.0, 0.0, 0.0, 1.0]],
                       device=dev)
     td2 = td._replace(pixels=td.pixels * 1.01)
-    rg = gn.RunGraphs()
+    cache = graphs.GraphCache(dev)
     iters = 0
     for tdata in (td, td2, td):
         for T0 in (torch.eye(4, device=dev), T1):
             before = _counts()
             want = gn.run(tdata, ch[level], cam, T0, opts)
             n_eager = _delta(before)
-            got = _no_read_solve(lambda: gn.run(tdata, ch[level], cam, T0,
-                                                opts, graphs=rg), rg)
+            got = _no_read_solve(cache, gn.run, tdata, ch[level], cam, T0,
+                                 opts)
             before = _counts()
-            got = _no_read_solve(lambda: gn.run(tdata, ch[level], cam, T0,
-                                                opts, graphs=rg), rg)
+            got = _no_read_solve(cache, gn.run, tdata, ch[level], cam, T0,
+                                 opts)
             assert _delta(before) == n_eager and n_eager["fused_linearize"]
             _equal(got, want, gn.GNState._fields)
             iters += int(want.num_iters)
-    assert len(rg._cache) == 1 and iters > 6
+    assert len(cache) == 1 and iters > 6
 
 
-def _no_read_solve(solve, holder):
-    """``solve()`` through a graph holder: the first call captures; later
-    ones must be one replay with no device-to-host read
+def _no_read_solve(cache, solve, tdata, channels, cam, T0, opts):
+    """``solve`` of a level through ``cache.jit`` (the template copied in
+    only when another template object arrives): the first call captures;
+    later ones must be one replay with no device-to-host read
     (``set_sync_debug_mode("error")`` raises on one)."""
-    if not len(holder._cache or ()):
-        return solve()
+    def run():
+        return cache.jit((solve, opts, cam), (tdata, channels, T0),
+                         lambda b: solve(b[0], b[1], cam, b[2], opts),
+                         held=(0,))
+    if not len(cache):
+        return run()
     replays = graphs.replay_count
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = solve()
+        out = run()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert graphs.replay_count == replays + 1
@@ -378,7 +383,7 @@ def _no_read_solve(solve, holder):
 @pytest.mark.parametrize("C", ["C1", "C8"])
 @pytest.mark.parametrize("level", [0, 1])
 def test_lm_graphed_equals_eager(dense_levels, C, level):
-    """LM's ``gauss_newton.RunGraphs`` (each level solve one replay, no
+    """An LM level solve through ``GraphCache.jit`` (each one replay, no
     device read) against the eager ``levenberg_marquardt.run`` at the
     dense L0/L1 shapes, at most 12 iterations: every LMState field bit for
     bit, the same launches (``irls_reduce`` every iteration at C=8), from
@@ -392,19 +397,18 @@ def test_lm_graphed_equals_eager(dense_levels, C, level):
     T1 = torch.tensor([[1.0, -2e-3, 1e-3, 5e-3], [2e-3, 1.0, -1e-3, -2e-3],
                        [-1e-3, 1e-3, 1.0, 1e-2], [0.0, 0.0, 0.0, 1.0]],
                       device=dev)
-    holder = gn.RunGraphs(solve=lm.run)
+    cache = graphs.GraphCache(dev)
     for T0 in (torch.eye(4, device=dev), T1, torch.eye(4, device=dev)):
         before = _counts()
         want = lm.run(td, ch[level], cam, T0, opts)
         n_eager = _delta(before)
         before = _counts()
-        got = _no_read_solve(lambda: lm.run(td, ch[level], cam, T0, opts,
-                                            graphs=holder), holder)
+        got = _no_read_solve(cache, lm.run, td, ch[level], cam, T0, opts)
         assert _delta(before) == n_eager
         assert n_eager["irls"] > 0 or C == "C1"
         _equal(got, want, lm.LMState._fields)
         assert int(want.num_iters) >= 2
-    assert len(holder._cache) == 1
+    assert len(cache) == 1
 
 
 @pytest.mark.gpu

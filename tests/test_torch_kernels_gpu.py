@@ -1151,11 +1151,12 @@ def test_fused_linearize_zoo_channels_match_plain(cuda, C):
 def test_irls_reduce_gather_route_matches_plain(cuda):
     """The gather route's reduction (Bit-Planes, CUBIC_HERMITE, M = 8K) and
     ``gauss_newton.run`` on it: the kernel against its plain version, and
-    the run eager against the run replayed from ``RunGraphs``, bit for
-    bit, with irls_reduce launched once per iteration."""
+    the run eager against the run replayed through ``GraphCache.jit``,
+    bit for bit, with irls_reduce launched once per iteration."""
     from bpvo_tpu_torch.ops import irls
     from bpvo_tpu_torch.solver import gauss_newton as gn
     from bpvo_tpu_torch.solver import mestimator
+    from bpvo_tpu_torch.utils import graphs
     from bpvo_tpu_torch.vo import template_data
     vo, ch = _corridor_level0(cuda, descriptor=DescriptorType.BITPLANES,
                               interp=InterpolationType.CUBIC_HERMITE)
@@ -1174,8 +1175,10 @@ def test_irls_reduce_gather_route_matches_plain(cuda):
     eager = gn.run(td, ch[0], cam, T0, opts)
     n_eager = irls.launch_count - before
     assert n_eager == int(eager.num_iters) >= 2
-    graphs = gn.RunGraphs()
+    cache = graphs.GraphCache(cuda)
     for _ in range(2):       # warm-up and capture, then replays
-        replayed = gn.run(td, ch[0], cam, T0, opts, graphs=graphs)
+        replayed = cache.jit(("gn", opts, cam), (td, ch[0], T0),
+                             lambda t: gn.run(t[0], t[1], cam, t[2], opts),
+                             held=(0,))
     for a, c in zip(eager, replayed):
         assert torch.equal(a, c)

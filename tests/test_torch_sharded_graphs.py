@@ -40,6 +40,7 @@ from bpvo_tpu_torch.parallel import bundle_adjustment as ba
 from bpvo_tpu_torch.parallel import dryrun, multihost, pose_graph, sharded
 from bpvo_tpu_torch.parallel import sharded_vo
 from bpvo_tpu_torch.solver import gauss_newton as gn
+from bpvo_tpu_torch.types import VerbosityType
 from bpvo_tpu_torch.utils import graphs
 from bpvo_tpu_torch.vo import device_vo
 from test_torch_while import RecordingWhile
@@ -239,8 +240,10 @@ def test_bundle_adjustment_and_pose_graph_through_the_stand_in(problem,
 def test_route():
     """The graphed route on CUDA with no reducer or a one-rank nccl group;
     eager for gloo on CUDA, for nccl across cards (NCCL's event nodes), on
-    the CPU, when asked and inside another cache's run; a given cache is
-    taken as given."""
+    the CPU, when asked, inside another cache's run and when a level's
+    options are verbose (ITERATION or DEBUG: a line printed per
+    iteration), a given cache included; a given cache is otherwise taken
+    as given."""
     cuda = torch.device("cuda", 0)
     nccl, gloo, nccl2 = (types.SimpleNamespace(backend=b, world=n) for b, n
                          in (("nccl", 1), ("gloo", 1), ("nccl", 2)))
@@ -264,3 +267,42 @@ def test_route():
     stand_in("k", lambda: seen.append(graphs.route(None, cuda, None,
                                                    owned)) or torch.ones(1))
     assert seen == [None]
+    quiet = gn.GNOptions()
+    for verbosity in (VerbosityType.ITERATION, VerbosityType.DEBUG):
+        loud = gn.GNOptions.from_params(
+            AlgorithmParameters(verbosity=verbosity), coarse=False)
+        assert loud.verbose
+        for red in (None, nccl):
+            assert graphs.route(None, cuda, red, owned,
+                                (quiet, loud, quiet)) is None
+        assert graphs.route(stand_in, "cpu", None, None, (loud,)) is None
+    for verbosity in (VerbosityType.SILENT, VerbosityType.FINAL):
+        opts = gn.GNOptions.from_params(
+            AlgorithmParameters(verbosity=verbosity), coarse=True)
+        assert graphs.route(None, cuda, None, owned,
+                            (quiet, opts)) is owned[cuda]
+        assert graphs.route(stand_in, "cpu", None, None, (opts,)) is stand_in
+
+
+@pytest.mark.parametrize("verbosity", ["SILENT", "ITERATION", "DEBUG"])
+def test_sharded_vo_verbose_takes_the_eager_step(monkeypatch, verbosity):
+    """``make_sharded_vo`` on a CUDA device builds its step graph unless a
+    level is verbose (``graphs.route``): with ``verbosity`` ITERATION or
+    DEBUG the step is eager, so ``gauss_newton.run``'s per-iteration print
+    is never captured.  The route is chosen when the entry point is made,
+    so this runs without a card (``resolve_device`` told CUDA exists, the
+    step graph's construction recorded)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    built = []
+    monkeypatch.setattr(device_vo, "StepGraph",
+                        lambda *a: built.append(a[-1]))
+    K, b, _ = synthetic.synthesize_sequence(1, ROWS, COLS)
+    p = AlgorithmParameters(**dict(dryrun.DRYRUN_PARAMS, numPyramidLevels=3),
+                            verbosity=VerbosityType[verbosity])
+    sharded_vo.make_sharded_vo(None, K, b, (ROWS, COLS), p, device="cuda")
+    if verbosity == "SILENT":
+        (cache,) = built
+        assert isinstance(cache, graphs.GraphCache)
+        assert cache.device == torch.device("cuda")
+    else:
+        assert built == []

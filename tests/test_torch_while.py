@@ -10,14 +10,12 @@ solves on it, on the CPU, where no CUDA graph can run.
   conditional body's launches, and replays that rerun the function and add
   each body's runs to its device counter, as a graph's IF and WHILE nodes
   do): once ``graphs.settle``d, the eager loop's counts.
-- ``gauss_newton.run`` and ``levenberg_marquardt.run``: their graph
-  holders (``RunGraphs``, for LM made with ``solve=lm.run``) through the
-  stand-in bit for bit
-  the eager loop, the counts of their kernels' wrappers settled equal to
-  the eager ones, and both held to JAX's ``gn.run`` / ``lm.run`` on the
-  same inputs (JAX's CPU route) at the tolerances of
-  tests/test_torch_gauss_newton.py (accepted delta (a)) and
-  tests/test_torch_lm.py (delta (i)).
+- ``gauss_newton.run`` and ``levenberg_marquardt.run``: a level solve
+  through ``GraphCache.jit`` on the stand-in bit for bit the eager loop,
+  the counts of their kernels' wrappers settled equal to the eager ones,
+  and both held to JAX's ``gn.run`` / ``lm.run`` on the same inputs
+  (JAX's CPU route) at the tolerances of tests/test_torch_gauss_newton.py
+  (accepted delta (a)) and tests/test_torch_lm.py (delta (i)).
 - ``DeviceVO`` with ``run`` levels (intensity and Bit-Planes) and with
   Bit-Planes LM: the one-graph step through the stand-in bit for bit the
   eager step.
@@ -50,7 +48,8 @@ from bpvo_tpu_torch.utils.convert import (camera_from_numpy,
 from bpvo_tpu_torch.vo import device_vo as dv
 from bpvo_tpu_torch.vo import warp as warp_mod
 from test_gn import H_IMG, W_IMG
-from test_torch_graphs import ReplayStandIn, _assert_outputs_equal, _vo_case
+from test_torch_graphs import (ReplayStandIn, _assert_outputs_equal, _vo_case,
+                               jit_solve)
 from test_torch_zoo import _gather_problem, _np_template
 
 LIMIT = 5                      # the loops' iteration limit
@@ -423,8 +422,8 @@ GN_CASES = [("Linear", "RigidBody", 1, "Tukey"),
 @pytest.mark.parametrize("case", GN_CASES,
                          ids=["-".join(map(str, c)) for c in GN_CASES])
 def test_gauss_newton_run_graphs_bitwise_eager_and_jax(case, monkeypatch):
-    """``RunGraphs`` through the stand-in (one graph, each solve one
-    replay) and through ``RecordingWhile`` give the eager loop's GNState
+    """A solve through ``GraphCache.jit`` on the stand-in (one graph, each
+    solve one replay) and on ``RecordingWhile`` give the eager loop's GNState
     bit for bit from two starts, with the eager launch counts once
     settled; the eager loop follows JAX's ``gn.run`` (CPU route): pose at
     atol 1e-5, the same iterations and status (delta (a))."""
@@ -433,22 +432,22 @@ def test_gauss_newton_run_graphs_bitwise_eager_and_jax(case, monkeypatch):
     opts = gn_options_from_jax(jopts)
     st_j = jgn.run(td, ch, cam, jnp.eye(4), jopts)
     mods = _count_kernels(monkeypatch)
-    standin = gn.RunGraphs(ReplayStandIn("cpu", modules=mods))
-    recorded = gn.RunGraphs(RecordingWhile("cpu", modules=mods))
-    for T0 in _starts(ttd):     # the first call of each holder, a replay
+    standin = ReplayStandIn("cpu", modules=mods)
+    recorded = RecordingWhile("cpu", modules=mods)
+    for T0 in _starts(ttd):     # the first call of each cache, a replay
         want, n_eager = _counted(mods, lambda: gn.run(
             ttd, channels, tcam, T0, opts))
-        got = gn.run(ttd, channels, tcam, T0, opts, graphs=standin)
+        got = jit_solve(standin, gn.run, ttd, channels, tcam, T0, opts)
         assert gn.GNState._fields == type(got)._fields
         _equal(got, want)
-        got, n_graph = _counted(mods, lambda: gn.run(
-            ttd, channels, tcam, T0, opts, graphs=recorded))
+        got, n_graph = _counted(mods, lambda: jit_solve(
+            recorded, gn.run, ttd, channels, tcam, T0, opts))
         _equal(got, want)
         assert n_graph == n_eager and n_eager[0 if case[0] == "Linear"
                                               else 1] > 0
         if torch.equal(T0, torch.eye(4)):
             st_t = want
-    assert len(standin._cache) == len(recorded._cache) == 1
+    assert len(standin) == len(recorded) == 1
     np.testing.assert_allclose(st_t.T.numpy(), np.asarray(st_j.T), atol=1e-5)
     assert int(st_t.num_iters) == int(st_j.num_iters) >= 2
     assert int(st_t.status) == int(st_j.status)
@@ -485,7 +484,7 @@ LM_CASES = [("Linear", "RigidBody", 1, "Huber"),
                          ids=["-".join(map(str, c)) for c in LM_CASES])
 def test_levenberg_marquardt_graphs_bitwise_eager_and_jax(case,
                                                           monkeypatch):
-    """LM's ``RunGraphs`` (``solve=lm.run``) through the stand-in and
+    """An LM solve through ``GraphCache.jit`` on the stand-in and on
     ``RecordingWhile``: the eager
     loop's LMState bit for bit from two starts (rejected and accepted
     steps, sigma re-estimated and not), the eager launch counts once
@@ -497,26 +496,25 @@ def test_levenberg_marquardt_graphs_bitwise_eager_and_jax(case,
     opts = gn_options_from_jax(jopts)
     st_j = jax.jit(lambda: jlm.run(td, ch, cam, jnp.eye(4), jopts))()
     mods = _count_kernels(monkeypatch)
-    standin = gn.RunGraphs(ReplayStandIn("cpu", modules=mods),
-                           solve=lm.run)
-    recorded = gn.RunGraphs(RecordingWhile("cpu", modules=mods),
-                            solve=lm.run)
-    for T0 in _starts(ttd):     # the first call of each holder, a replay
+    standin = ReplayStandIn("cpu", modules=mods)
+    recorded = RecordingWhile("cpu", modules=mods)
+    for T0 in _starts(ttd):     # the first call of each cache, a replay
         want, n_eager = _counted(mods, lambda: lm.run(
             ttd, channels, tcam, T0, opts))
-        _equal(lm.run(ttd, channels, tcam, T0, opts, graphs=standin), want)
-        got, n_graph = _counted(mods, lambda: lm.run(
-            ttd, channels, tcam, T0, opts, graphs=recorded))
+        _equal(jit_solve(standin, lm.run, ttd, channels, tcam, T0, opts),
+               want)
+        got, n_graph = _counted(mods, lambda: jit_solve(
+            recorded, lm.run, ttd, channels, tcam, T0, opts))
         _equal(got, want)
         assert n_graph == n_eager and int(want.num_iters) >= 2
         if torch.equal(T0, torch.eye(4)):
             st_t = want
-    assert len(standin._cache) == len(recorded._cache) == 1
-    # another tau is another graph of the holder
-    _equal(lm.run(ttd, channels, tcam, torch.eye(4), opts, tau=1e-3,
-                  graphs=standin),
+    assert len(standin) == len(recorded) == 1
+    # another tau is another graph of the cache
+    _equal(jit_solve(standin, lm.run, ttd, channels, tcam, torch.eye(4),
+                     opts, tau=1e-3),
            lm.run(ttd, channels, tcam, torch.eye(4), opts, tau=1e-3))
-    assert len(standin._cache) == 2
+    assert len(standin) == 2
     assert bool(st_t.converged) and bool(st_j.converged)
     np.testing.assert_allclose(st_t.T.numpy(), np.asarray(st_j.T), atol=5e-4)
     assert abs(int(st_t.num_iters) - int(st_j.num_iters)) <= 1
