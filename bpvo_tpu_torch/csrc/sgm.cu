@@ -52,6 +52,17 @@
 // 1.67 GB (0.50 ms at 3.35 TB/s).  The tile shape 8x8 was measured against
 // 8x12 and 12x8 (scripts/sgm_bench.py --tiles; PERF.md); two tile buffers
 // of 64 positions hold D = 256 in 128 KB of shared memory.
+//
+// The matcher wants the winner, not the sum: the tile pass with kWinner
+// set (disparity_4dir) takes the winner-take-all and parabolic sub-pixel
+// step of ops/sgm.py's wta_reference where warp w holds a position's whole
+// sum in its 32 lanes, and writes the (H, W) disparity in place of the
+// (H, W, D) sum: the 239 MB store and a generic argmin's read of it go
+// (1.43 GB, 0.43 ms at 3.35 TB/s).  The first-index argmin is each lane's
+// first minimum, the warp's minimum by one redux.sync, the lowest lane
+// holding it; the neighbours come by shuffles, and the arithmetic is the
+// plain chain's operations with its rounding (no contraction), so the
+// disparity equals the plain version's bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -331,9 +342,61 @@ __device__ __forceinline__ void chain_step(bool first,
   }
 }
 
-// Pass 2: one block per tile, warp w running row w and then column w; the
-// output written once.
+// v[k] for a k known only at run time, as a chain of selects (an indexed
+// register array would go to local memory).
 template <int NPER>
+__device__ __forceinline__ float pick(const float (&v)[NPER], int k) {
+  float r = v[0];
+#pragma unroll
+  for (int j = 1; j < NPER; ++j) r = k == j ? v[j] : r;
+  return r;
+}
+
+// The warp's value at disparity d, from the lane that holds it, in every
+// lane.
+template <int NPER>
+__device__ __forceinline__ float at_d(const float (&v)[NPER], int d) {
+  return __shfl_sync(0xffffffffu, pick<NPER>(v, d % NPER), d / NPER);
+}
+
+// The disparity of one position from its 4-direction sum a (lane l holding
+// [l*NPER, (l+1)*NPER)), as ops/sgm.py's wta_reference: best = the first
+// index of the minimum over d; c0, c1, c2 the sum at best - 1, best, best + 1
+// clamped to [0, D); denom = c0 - 2 c1 + c2; delta = 0.5 (c0 - c2) /
+// max(denom, 1e-6) where |denom| > 1e-6, else 0, clamped to [-0.5, 0.5];
+// best + delta, or -1 where best = 0.  Called by all 32 lanes of a warp;
+// every lane returns the result.
+template <int NPER>
+__device__ __forceinline__ float wta(const float (&a)[NPER], int d0, int D) {
+  float m = a[0];  // the lane's first minimum (its padding is +inf)
+  int k = 0;
+#pragma unroll
+  for (int j = 1; j < NPER; ++j)
+    if (d0 + j < D && a[j] < m) {
+      m = a[j];
+      k = j;
+    }
+  // the lowest lane holding the warp's minimum holds its first index
+  // (== and not the keys, so -0 and +0 tie as in torch.argmin)
+  const float mw = from_key(__reduce_min_sync(0xffffffffu, to_key(m)));
+  const int owner = __ffs(__ballot_sync(0xffffffffu, m == mw)) - 1;
+  const int best = __shfl_sync(0xffffffffu, d0 + k, owner);
+  const float c0 = at_d<NPER>(a, max(best - 1, 0));
+  const float c1 = at_d<NPER>(a, best);
+  const float c2 = at_d<NPER>(a, min(best + 1, D - 1));
+  const float denom = __fadd_rn(__fsub_rn(c0, __fmul_rn(2.0f, c1)), c2);
+  float delta = 0.0f;
+  if (fabsf(denom) > 1e-6f)
+    delta = __fdiv_rn(__fmul_rn(0.5f, __fsub_rn(c0, c2)),
+                      fmaxf(denom, 1e-6f));
+  delta = fminf(fmaxf(delta, -0.5f), 0.5f);
+  return best > 0 ? __fadd_rn(static_cast<float>(best), delta) : -1.0f;
+}
+
+// Pass 2: one block per tile, warp w running row w and then column w; the
+// output written once: the (H, W, D) sum, or with kWinner the (H, W)
+// disparity.
+template <int NPER, bool kWinner>
 __global__ void __launch_bounds__(kTileWarps * 32)
 sgm_tile_kernel(const float* __restrict__ cost,
                 const float* __restrict__ carry, float* __restrict__ out,
@@ -412,7 +475,7 @@ sgm_tile_kernel(const float* __restrict__ cost,
   __syncthreads();
 
   if (col) {  // top->bottom added to the sum, bottom->top into registers,
-              // interleaved; then out = (sum + tb) + bt
+              // interleaved; then out = (sum + tb) + bt, or its winner
     float* s = sa + w * DP + d0;
     const float* c = sc + w * DP + d0;
     constexpr int kRow = kTileX * DP;
@@ -443,7 +506,13 @@ sgm_tile_kernel(const float* __restrict__ cost,
       smem_load<NPER>(s + y * kRow, a);
 #pragma unroll
       for (int j = 0; j < NPER; ++j) a[j] = a[j] + back[i][j];  // + bt
-      store_d<NPER>(out + ((long long)(y0 + y) * W + x0 + w) * D, d0, D, a);
+      const long long at = (long long)(y0 + y) * W + x0 + w;
+      if constexpr (kWinner) {
+        const float disp = wta<NPER>(a, d0, D);
+        if (lane == 0) out[at] = disp;
+      } else {
+        store_d<NPER>(out + at * D, d0, D, a);
+      }
     }
   }
 }
@@ -463,16 +532,17 @@ cudaError_t carry_pass(const float* cost, float* dst, int H, int W, int D,
   return cudaGetLastError();
 }
 
-template <int NPER>
+template <int NPER, bool kWinner>
 cudaError_t tile_pass(const float* cost, const float* carry, float* out,
                       int H, int W, int D, float p1, float p2,
                       cudaStream_t stream) {
   const int smem = 2 * kTileY * kTileX * NPER * 32 * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      sgm_tile_kernel<NPER>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      sgm_tile_kernel<NPER, kWinner>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles(W, kTileX), n_tiles(H, kTileY));
-  sgm_tile_kernel<NPER><<<grid, kTileWarps * 32, smem, stream>>>(
+  sgm_tile_kernel<NPER, kWinner><<<grid, kTileWarps * 32, smem, stream>>>(
       cost, carry, out, H, W, D, p1, p2);
   return cudaGetLastError();
 }
@@ -517,14 +587,18 @@ extern "C" int bpvo_sgm_carry_pass(const float* cost, float* dst, int H,
 #undef BPVO_SGM_CARRY
 }
 
-// Pass 2: the 4-direction sum (aggregate_4dir) from the cost and pass 1's
-// carries.
+// Pass 2 from the cost and pass 1's carries: winner = 0 stores the
+// 4-direction sum (aggregate_4dir, (H, W, D)) into out, winner = 1 its
+// winner-take-all disparity (disparity_4dir, (H, W)).
 extern "C" int bpvo_sgm_tile_pass(const float* cost, const float* scratch,
                                   float* out, int H, int W, int D, float p1,
-                                  float p2, void* stream) {
-  if (!shape_ok(H, W, D)) return static_cast<int>(cudaErrorInvalidValue);
+                                  float p2, int winner, void* stream) {
+  if (!shape_ok(H, W, D) || (winner != 0 && winner != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BPVO_SGM_TILE(N) tile_pass<N>(cost, scratch, out, H, W, D, p1, p2, s)
+#define BPVO_SGM_TILE(N)                                               \
+  (winner ? tile_pass<N, true>(cost, scratch, out, H, W, D, p1, p2, s) \
+          : tile_pass<N, false>(cost, scratch, out, H, W, D, p1, p2, s))
   BPVO_SGM_DISPATCH(D, BPVO_SGM_TILE)
 #undef BPVO_SGM_TILE
 }

@@ -4,9 +4,11 @@ classes keep their names so a reader finds their counterparts).
 - ``TpuSGM``: semi-global matching over a census Hamming cost.  The census
   planes of both images come from ``ops.census`` (kernel ``csrc/census.cu``
   on the card), the cost volume from ``ops.census_cost`` (kernel
-  ``csrc/census_cost.cu``) and the 4-direction aggregation from ``ops.sgm``
-  (kernel ``csrc/sgm.cu``); the winner-take-all with parabolic sub-pixel
-  refinement is plain torch, as the JAX package leaves it to XLA.
+  ``csrc/census_cost.cu``), and the 4-direction aggregation with the
+  winner-take-all and parabolic sub-pixel refinement from
+  ``ops.sgm.disparity_4dir`` (kernel ``csrc/sgm.cu``, whose tile pass takes
+  the winner where it holds each position's sum, so the (H, W, D) sum is
+  never written; the JAX package leaves the winner to XLA).
 - ``TpuBlockMatching``: SAD block matching as one batched (D, H, W) cost
   volume of tensor ops on the device (JAX computes it in XLA, with no
   Pallas kernel).
@@ -28,6 +30,11 @@ from bpvo_tpu_torch.ops import sgm as sgm_ops
 from bpvo_tpu_torch.ops.census_cost import census_cost_volume
 from bpvo_tpu_torch.utils import profiling
 from bpvo_tpu_torch.vo.device_vo import resolve_device
+
+# the plain winner-take-all, counterpart of the JAX package's
+# stereo._wta_subpixel (the card's is inside ``ops.sgm.disparity_4dir``)
+_wta_subpixel = sgm_ops.wta_reference
+
 
 class StereoAlgorithm:
     """run(left, right, device) -> float32 disparity, invalid pixels < 0."""
@@ -205,38 +212,18 @@ class TpuBlockMatching(StereoAlgorithm):
         return lambda L, R: _block_matching(L, R, D, r, u, sp, lr)
 
 
-def _wta_subpixel(a, D: int):
-    """Winner-take-all over the disparity axis and parabolic sub-pixel
-    refinement (stereo.py:261-283); best = 0 is invalid (-1).  Ties go to
-    the first index, as ``jnp.argmin``."""
-    best = torch.argmin(a, dim=-1)
-    bm1 = torch.clamp(best - 1, 0, D - 1)
-    bp1 = torch.clamp(best + 1, 0, D - 1)
-
-    def take(idx):
-        return torch.gather(a, -1, idx[..., None])[..., 0]
-
-    c0, c1, c2 = take(bm1), take(best), take(bp1)
-    denom = c0 - 2.0 * c1 + c2
-    delta = torch.where(torch.abs(denom) > 1e-6,
-                        0.5 * (c0 - c2) / torch.clamp(denom, min=1e-6),
-                        torch.zeros_like(denom))
-    disp = best.to(torch.float32) + torch.clamp(delta, -0.5, 0.5)
-    return torch.where(best > 0, disp, torch.full_like(disp, -1.0))
-
-
 def _sgm(L, R, num_disparities: int, p1: float, p2: float):
     """Semi-global matching over 4 scan-line directions (stereo.py:189-224):
-    census of both images, Hamming cost volume, aggregation, WTA."""
+    census of both images, Hamming cost volume, then aggregation and WTA in
+    one call (``ops.sgm.disparity_4dir``; its plain version is the
+    aggregation followed by ``_wta_subpixel``)."""
     with profiling.annotate("sgm.census"):
         codes = census_ops.census(
             torch.stack([L.to(torch.float32), R.to(torch.float32)]))
     with profiling.annotate("sgm.cost_volume"):
         cost = census_cost_volume(codes[0], codes[1], num_disparities)
     with profiling.annotate("sgm.aggregate"):
-        agg = sgm_ops.aggregate_4dir(cost, p1, p2)
-    with profiling.annotate("sgm.wta"):
-        return _wta_subpixel(agg, num_disparities)
+        return sgm_ops.disparity_4dir(cost, p1, p2)
 
 
 class TpuSGM(StereoAlgorithm):
@@ -260,11 +247,12 @@ class TpuSGM(StereoAlgorithm):
         disparity, computed on ``device``: the card unless the caller asks
         for the CPU (without a CUDA device it raises).  Spans: the root
         ``sgm.run`` over ``sgm.census``, ``sgm.cost_volume``,
-        ``sgm.aggregate``, ``sgm.wta`` and ``sgm.read`` (the disparity's
-        copy to the host, a wait).  Read from the card, the array is
-        page-locked host memory of its own (``profiling.device_read``),
-        which the caller owns: ``VisualOdometry.add_frame`` uploads it
-        again by DMA, and no later call writes into it."""
+        ``sgm.aggregate`` (the aggregation and the winner-take-all, one
+        kernel call) and ``sgm.read`` (the disparity's copy to the host, a
+        wait).  Read from the card, the array is page-locked host memory
+        of its own (``profiling.device_read``), which the caller owns:
+        ``VisualOdometry.add_frame`` uploads it again by DMA, and no later
+        call writes into it."""
         with profiling.annotate("sgm.run"):
             dev = resolve_device(device)
             L, R = (profiling.upload(torch.as_tensor(x), dev, torch.float32)

@@ -158,7 +158,7 @@ def bind_sgm(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bpvo_sgm_carry_pass.argtypes = [p, p, i, i, i, f, f, i, p]
     lib.bpvo_sgm_carry_pass.restype = i
-    lib.bpvo_sgm_tile_pass.argtypes = [p, p, p, i, i, i, f, f, p]
+    lib.bpvo_sgm_tile_pass.argtypes = [p, p, p, i, i, i, f, f, i, p]
     lib.bpvo_sgm_tile_pass.restype = i
     lib.bpvo_sgm_scratch_floats.argtypes = [i, i, i]
     lib.bpvo_sgm_scratch_floats.restype = ctypes.c_longlong

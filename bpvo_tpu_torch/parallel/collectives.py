@@ -26,8 +26,8 @@ groups (one rank, or ranks over several hosts) call ``dist.all_reduce``
 host and cards), and nothing falls back.
 
 In a CUDA graph: a peer all-reduce is a kernel node, and a one-rank nccl
-all-reduce adds none (both do no host work); the counts are registered
-with ``utils.graphs`` (``register_counter``), so every replay advances
+all-reduce adds none (both do no host work); the counts are
+``utils.graphs.Count``s, so every replay advances
 ``calls`` and ``bytes`` by what the capture counted, and
 ``graphs.settle()`` adds those of an all-reduce in a conditional body
 times the body's runs: once settled, ``stats()`` equals an eager run's.  A
@@ -49,15 +49,6 @@ BACKENDS = ("gloo", "nccl")
 _DIST_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-class _Count:
-    """One count of a ``Reducer``, advanced by CUDA-graph replays as the
-    kernel wrappers' ``launch_count`` is."""
-    __slots__ = ("launch_count", "__weakref__")
-
-    def __init__(self):
-        self.launch_count = 0
-
-
 class Reducer:
     """Sum and max over the ranks of ``group`` (None: the default group)
     with the group's backend, one of ``BACKENDS``."""
@@ -71,9 +62,7 @@ class Reducer:
         self.backend = backend
         self.rank = dist.get_rank(group)
         self.world = dist.get_world_size(group)
-        self._calls, self._bytes = _Count(), _Count()
-        graphs.register_counter(self._calls)
-        graphs.register_counter(self._bytes)
+        self._calls, self._bytes = graphs.Count(), graphs.Count()
         self.peer_rule = ""
         self.peer = peer.attach(self)
 

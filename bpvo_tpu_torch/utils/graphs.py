@@ -69,8 +69,8 @@ The capture holds ``ops._build.count_lock``, under which every wrapper
 counts, so a launch counted by another thread (a data loader's stereo
 matcher) waits until the capture is over and is not taken for the graph's.
 
-Other counts advance the same way: a ``parallel.collectives.Reducer``
-registers its ``calls`` and ``bytes`` (``register_counter``), so a replay
+Other counts advance the same way: a ``Count``, such as a
+``parallel.collectives.Reducer``'s ``calls`` and ``bytes``, so a replay
 adds a captured all-reduce's call and bytes, and ``settle()`` those of an
 all-reduce in a conditional body times its runs.  The all-reduces the
 graphed routes capture do no host work: in place on one nccl rank it adds
@@ -155,11 +155,16 @@ def op_modules():
     return (census, census_cost, fused_linearize, irls, level_gn, sgm, peer)
 
 
-def register_counter(obj):
-    """Count ``obj.launch_count`` as the ``ops`` modules' counts are
-    counted: a replay adds its captured advance (``Reducer``'s calls and
-    bytes)."""
-    _counters.append(weakref.ref(obj))
+class Count:
+    """A count besides the ``ops`` modules' launch counts, counted as they
+    are: a replay adds its captured advance to ``launch_count``, and
+    ``settle()`` a conditional body's times its runs (``Reducer``'s calls
+    and bytes, ``ops.sgm.winner_count``)."""
+    __slots__ = ("launch_count", "__weakref__")
+
+    def __init__(self):
+        self.launch_count = 0
+        _counters.append(weakref.ref(self))
 
 
 def counted():

@@ -586,12 +586,14 @@ def _reset_counts():
                                     irls, level_gn, sgm)
     from bpvo_tpu_torch.utils import graphs
     graphs.settle()     # launches of IF bodies taken so far count before 0
-    for mod in (census, census_cost, fused_linearize, irls, level_gn, sgm):
+    for mod in (census, census_cost, fused_linearize, irls, level_gn, sgm,
+                sgm.winner_count):
         mod.launch_count = 0
 
 
 def _counts():
-    """The kernels' launch counts, with the taken IF bodies' settled."""
+    """The kernels' launch counts, with the taken IF bodies' settled, and
+    the SGM calls whose tile pass took the winner."""
     from bpvo_tpu_torch.ops import (census, census_cost, fused_linearize,
                                     irls, level_gn, sgm)
     from bpvo_tpu_torch.utils import graphs
@@ -600,6 +602,7 @@ def _counts():
             "census_planes": census.launch_count,
             "census_cost": census_cost.launch_count,
             "sgm_aggregate": sgm.launch_count,
+            "sgm_winner": sgm.winner_count.launch_count,
             "fused_linearize": fused_linearize.launch_count,
             "irls_reduce": irls.launch_count}
 
@@ -1787,11 +1790,14 @@ def census_phase(left, dev):
 def sgm_phase(pair, matcher, dev, ref, smi):
     """The census cost volume's kernel vs its plain version on the pair's
     codes, bit for bit, with both times and the kernel's bound; the SGM
-    aggregation kernel vs plain version on that volume, bit for bit; each
-    pass's device time (back-to-back launches of its C entry point); the
-    matcher's ms per call by stage; the matcher's frame-0 disparity vs
-    JAX's.  Returns the SGM kernel's figures and the cost volume kernel's
-    entry of the kernels line (without its launches)."""
+    aggregation kernel vs plain version on that volume, bit for bit; the
+    matcher's route (``disparity_4dir``, the tile pass taking the winner)
+    vs the unfused chain (the aggregation, then the plain winner), bit for
+    bit, with its time, bound and counts; each pass's device time
+    (back-to-back launches of its C entry point); the matcher's ms per
+    call by stage; the matcher's frame-0 disparity vs JAX's.  Returns the
+    SGM kernel's figures and the cost volume kernel's entry of the kernels
+    line (without its launches)."""
     import torch
     from bpvo_tpu_torch.data import stereo
     from bpvo_tpu_torch.ops import _build, census, census_cost, sgm
@@ -1829,12 +1835,39 @@ def sgm_phase(pair, matcher, dev, ref, smi):
           f"(max |d| {err:.3e}), kernel {t_k:.4f} ms plain {t_p:.4f} ms")
     _require(n_diff == 0, f"sgm kernel differs from its plain version in "
                           f"{n_diff} values (max {err})")
-    # the two passes alone, from their C entry points
+    # the matcher's route: the tile pass takes the winner, the sum is never
+    # written; against the aggregation followed by the plain winner
+    n0, w0 = sgm.launch_count, sgm.winner_count.launch_count
+    fused = sgm.disparity_4dir(cost, p1, p2)
+    chain = stereo._wta_subpixel(got, D)
+    torch.cuda.synchronize()
+    n_fused = int((fused != chain).sum())
+    counted = (sgm.launch_count - n0, sgm.winner_count.launch_count - w0)
+    t_f = _cuda_ms(lambda: sgm.disparity_4dir(cost, p1, p2), SGM_REPS)
+    t_wta = _cuda_ms(lambda: stereo._wta_subpixel(got, D), SGM_REPS)
+    f_bound = _bound(_nbytes(cost, fused), OPS_SGM_COST * cost.numel())
+    print(f"sgm disparity_4dir {tuple(fused.shape)}: {n_fused} values "
+          f"differ from the unfused chain, launch sets and winners counted "
+          f"{counted}; {t_f:.4f} ms against aggregate {t_k:.4f} + plain "
+          f"winner {t_wta:.4f} ms; bound {f_bound[0]:.4f} ({f_bound[1]}); "
+          f"on {smi}")
+    _require(n_fused == 0 and torch.equal(fused, chain),
+             f"sgm disparity_4dir differs from the unfused chain in "
+             f"{n_fused} values")
+    _require(counted == (1, 1), f"sgm disparity_4dir counted {counted} "
+                                f"launch sets and winners, expected (1, 1)")
+    # the passes alone, from their C entry points (the tile pass storing
+    # the sum, and taking the winner)
     out, launches = sgm.pass_launches(cost, p1, p2)
+    disp, wta_launches = sgm.pass_launches(cost, p1, p2, winner=True)
+    _require(all(launch() == 0 for launch in wta_launches.values()),
+             "sgm passes failed to launch")
+    launches["tile_winner"] = wta_launches["tile"]    # on its carries
     _require(all(launch() == 0 for launch in launches.values()),
              "sgm passes failed to launch")
     by_pass = {k: _cuda_ms(launch, SGM_REPS) for k, launch in launches.items()}
     _require(torch.equal(out, got), "sgm: the passes' output differs")
+    _require(torch.equal(disp, fused), "sgm: the winner pass differs")
     bound = _bound(_nbytes(cost, got), OPS_SGM_COST * cost.numel())
     # bytes of the two-pass structure: the cost read 5 times, the carries
     # written and read, the output written
@@ -1842,8 +1875,9 @@ def sgm_phase(pair, matcher, dev, ref, smi):
     scratch = _build.library().bpvo_sgm_scratch_floats(H, W, D) * 4
     structure = _bound(5 * _nbytes(cost) + 2 * scratch + _nbytes(got), 0)[0]
     print(f"sgm passes, device ms: carry {by_pass['carry']:.4f}, tile "
-          f"{by_pass['tile']:.4f}; through the wrapper {t_k:.4f}; bound "
-          f"{bound[0]:.4f} ({bound[1]}), the two-pass structure's bytes "
+          f"{by_pass['tile']:.4f}, tile taking the winner "
+          f"{by_pass['tile_winner']:.4f}; through the wrapper {t_k:.4f}; "
+          f"bound {bound[0]:.4f} ({bound[1]}), the two-pass structure's bytes "
           f"{structure:.4f}; on {smi}")
     fn = matcher.as_fn()
     t_m = _cuda_ms(lambda: fn(left, right), SGM_REPS)
@@ -1851,8 +1885,7 @@ def sgm_phase(pair, matcher, dev, ref, smi):
         "census": _cuda_ms(lambda: census.census(torch.stack([left, right])),
                            SGM_REPS),
         "cost_volume": t_cv,
-        "aggregation": t_k,
-        "wta": _cuda_ms(lambda: stereo._wta_subpixel(got, D), SGM_REPS)}
+        "aggregation_and_wta": t_f}
     disp = fn(left, right)
     valid = disp > 0
     n_valid = int(valid.sum())
@@ -1866,9 +1899,12 @@ def sgm_phase(pair, matcher, dev, ref, smi):
              f"disparity valid count {n_valid} vs JAX {want_n}")
     _require(abs(mae - want_mae) <= DISP_ERR_RTOL * want_mae,
              f"disparity mean |d - GT| {mae} vs JAX {want_mae}")
-    del cost, got, want, one, one_want, out, launches
+    del cost, got, want, one, one_want, out, launches, fused, chain, disp
     return err, t_k, t_p, bound, {"ms_by_pass": by_pass,
                                   "structure_bound_ms": structure,
+                                  "disparity_ms": t_f,
+                                  "disparity_bound_ms": f_bound[0],
+                                  "unfused_wta_ms": t_wta,
                                   "matcher_ms": t_m,
                                   "matcher_ms_by_stage": stages}, {
         "max_abs_err": err_cost, "ms": t_cv, "plain_ms": t_cv_plain,
@@ -2026,7 +2062,8 @@ def app_phase(sframes, K, baseline, dev, smi):
                      "--device", str(dev)])
     counts = _counts()
     want = {"census_planes": 2 * (n + 1), "census_cost": n + 1,
-            "sgm_aggregate": n + 1, "fused_linearize": 0, "irls_reduce": 0}
+            "sgm_aggregate": n + 1, "sgm_winner": n + 1,
+            "fused_linearize": 0, "irls_reduce": 0}
     for name, k in want.items():
         _require(counts[name] == k, f"eval_kitti run: {name} launched "
                  f"{counts[name]} times, expected {k}")
@@ -3932,7 +3969,8 @@ def main() -> int:
         T_ATOL_JAX_STEREO, GT_MARGIN_STEREO, False)
     calls = 1 + int(kf.sum())           # init + one per keyframe
     want = {"census_planes": params_bp.numPyramidLevels * len(sframes)
-            + 2 * calls, "census_cost": calls, "sgm_aggregate": calls}
+            + 2 * calls, "census_cost": calls, "sgm_aggregate": calls,
+            "sgm_winner": calls}
     print(f"VO stereo Bit-Planes: {calls} matcher calls, expected launches "
           f"{want}; {fps_s:.2f} frames/s, per-frame p50 {p50_s:.3f} ms on "
           f"{smi}")
@@ -4163,7 +4201,11 @@ def main() -> int:
          "launches": sum(by_path("sgm_aggregate").values()),
          "launches_by_path": by_path("sgm_aggregate"), "max_abs_err": err_s,
          "ms": ms_s, "plain_ms": plain_s, "bound_ms": bound_s[0],
-         "bound_by": bound_s[1], "library_ms": None, **sgm_extra},
+         "bound_by": bound_s[1], "library_ms": None,
+         "winner_launches_by_path": {"intensity": counts_i["sgm_winner"],
+                                     "stereo_bitplanes":
+                                         counts_s["sgm_winner"]},
+         **sgm_extra},
         {"name": "census_cost", "route": "cuda",
          "source": "bpvo_tpu_torch/csrc/census_cost.cu",
          "replaces": "none: XLA fuses bpvo_tpu/data/stereo.py:212-218",

@@ -11,7 +11,10 @@ conf/kitti_bitplanes.cfg's matcher (128 disparities, p1 = 2, p2 = 8):
    against its plain version, and each of its passes alone from their C
    entry points where the package has them (``ops.sgm.pass_launches``);
 2. the matcher's ms per call, whole and by stage: census of both images,
-   cost volume, aggregation, winner-take-all;
+   cost volume, aggregation, winner-take-all; and where the package has
+   it, ``ops.sgm.disparity_4dir`` (the tile pass taking the winner, the
+   matcher's route), checked bit for bit against the aggregation followed
+   by the plain winner;
 3. with ``--tiles``: copies of ``csrc/sgm.cu`` with each tile shape of
    ``TILES`` (the shipped source has no knob: the copies are written under
    ``build/sgm_tile_sweep/`` and built alone with the package's nvcc flags,
@@ -132,6 +135,11 @@ def run(reps: int = 20, tiles: bool = False) -> dict:
                    lambda: sgm.aggregate_4dir(cost, p1, p2), reps),
                "wta": timing.events_ms(
                    lambda: stereo._wta_subpixel(got, D), reps)}}
+    if hasattr(sgm, "disparity_4dir"):    # the tile pass taking the winner
+        res["disparity_bitwise"] = bool(torch.equal(
+            sgm.disparity_4dir(cost, p1, p2), stereo._wta_subpixel(got, D)))
+        res["disparity_ms"] = timing.events_ms(
+            lambda: sgm.disparity_4dir(cost, p1, p2), reps)
     if hasattr(sgm, "pass_launches"):     # the two-pass kernel
         res["passes"] = pass_times(cost, want, p1, p2, reps)
         res["scratch_mb"] = _build.library().bpvo_sgm_scratch_floats(

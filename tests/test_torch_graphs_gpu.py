@@ -26,6 +26,7 @@ import torch
 from bpvo_tpu_torch import (AlgorithmParameters, ConfigFile, DescriptorType,
                             VisualOdometry)
 from bpvo_tpu_torch.data import stereo, synthetic
+from bpvo_tpu_torch.ops import sgm
 from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.utils import graphs
 from bpvo_tpu_torch.vo import device_vo
@@ -50,9 +51,13 @@ def cuda():
 
 
 def _counts():
+    """The ops modules' launch counts and the SGM tile pass's winners,
+    settled."""
     graphs.settle()
-    return {m.__name__.rsplit(".", 1)[-1]: m.launch_count
-            for m in graphs.op_modules()}
+    counts = {m.__name__.rsplit(".", 1)[-1]: m.launch_count
+              for m in graphs.op_modules()}
+    counts["sgm_winner"] = sgm.winner_count.launch_count
+    return counts
 
 
 def _delta(before):

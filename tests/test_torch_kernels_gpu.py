@@ -356,6 +356,71 @@ def test_sgm_rejects_what_the_kernel_cannot_take(cuda):
                 torch.zeros(8, 9, 300, device=cuda), cost[None]):
         with pytest.raises(ValueError):
             sgm.aggregate_4dir(bad, 2.0, 8.0)
+        with pytest.raises(ValueError):
+            sgm.disparity_4dir(bad, 2.0, 8.0)
+
+
+def _winner_cases(H, W, D, seed):
+    """Cost volumes for the tile pass's winner: integer costs with ties, a
+    constant volume (every winner d = 0, so -1), the minimum at d = D - 1
+    (the clamped c2) and at d = 1 (the clamped c0), each with p1 = 2; and
+    uniform real costs with p1 = 1."""
+    r = np.random.default_rng(seed)
+    last = r.integers(4, 9, (H, W, D)).astype(np.float32)
+    last[..., -1] = 0.0
+    one = r.integers(4, 9, (H, W, D)).astype(np.float32)
+    one[..., min(1, D - 1)] = 0.0
+    return [(_int_cost((H, W, D), seed), 2.0),
+            (np.full((H, W, D), 3.0, np.float32), 2.0),
+            (last, 2.0), (one, 2.0),
+            (r.uniform(0, 8, (H, W, D)).astype(np.float32), 1.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H, W", [(23, 37), (8, 8), (1, 45), (19, 1),
+                                  (13, 21)])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256, 7, 48, 200])
+def test_sgm_winner_equals_the_plain_winner(cuda, H, W, D):
+    """``disparity_4dir`` on the card equals ``_wta_subpixel`` of
+    ``aggregate_4dir`` bit for bit: every lane layout, H and W not a
+    multiple of the 8x8 tile, ties (the first index), the clamped
+    neighbours at d = 1 and d = D - 1, real costs with p1 = 1.  Each call
+    counts one launch set and one winner."""
+    for k, (cost, p1) in enumerate(_winner_cases(H, W, D, H * W + D)):
+        cost = torch.as_tensor(cost, device=cuda)
+        before = (sgm.launch_count, sgm.winner_count.launch_count)
+        got = sgm.disparity_4dir(cost, p1, 8.0)
+        torch.cuda.synchronize()
+        assert (sgm.launch_count, sgm.winner_count.launch_count) == (
+            before[0] + 1, before[1] + 1)
+        assert got.shape == (H, W) and got.dtype == torch.float32
+        want = stereo._wta_subpixel(sgm.aggregate_4dir(cost, p1, 8.0), D)
+        assert torch.equal(got, want), k
+        assert torch.equal(got, sgm.disparity_4dir_reference(cost, p1, 8.0)
+                           ), k
+        if k == 1:
+            assert bool((got == -1).all())
+
+
+@pytest.mark.gpu
+def test_matcher_replayed_equals_eager(stereo_codes):
+    """``TpuSGM.as_fn()`` at 376x1241, D = 128, through ``GraphCache.jit``:
+    the replayed disparity equals the eager call bit for bit, and a replay
+    advances the launch and winner counts by one each."""
+    from bpvo_tpu_torch.utils import graphs
+    _, _, L, R = stereo_codes
+    fn = stereo.TpuSGM(num_disparities=128).as_fn()
+    eager = fn(L, R)
+    cache = graphs.GraphCache(L.device)
+    for _ in range(2):       # warm-up and capture, then a replay
+        cache.jit("sgm", (L, R), lambda b: fn(*b))
+    before = (sgm.launch_count, sgm.winner_count.launch_count)
+    replayed = cache.jit("sgm", (L, R), lambda b: fn(*b))
+    assert (sgm.launch_count, sgm.winner_count.launch_count) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(replayed, eager)
+    swapped = cache.jit("sgm", (R, L), lambda b: fn(*b))
+    assert torch.equal(swapped, fn(R, L))
 
 
 @pytest.mark.gpu

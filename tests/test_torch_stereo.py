@@ -209,13 +209,56 @@ def test_wta_ties_take_the_first_index():
     assert float(stereo._wta_subpixel(_t(a), 16)[0, 0]) == 3.0
 
 
+def _winner_cases(H, W, D, seed):
+    """Cost volumes for the fused winner: integer costs with ties, a
+    constant volume (every winner d = 0, so -1), the minimum at d = D - 1
+    (the clamped c2) and at d = 1 (the clamped c0), each with p1 = 2; and
+    uniform real costs with p1 = 1."""
+    r = np.random.default_rng(seed)
+    last = r.integers(4, 9, (H, W, D)).astype(np.float32)
+    last[..., -1] = 0.0
+    one = r.integers(4, 9, (H, W, D)).astype(np.float32)
+    one[..., min(1, D - 1)] = 0.0
+    return [(_int_cost((H, W, D), seed), 2.0),
+            (np.full((H, W, D), 3.0, np.float32), 2.0),
+            (last, 2.0), (one, 2.0),
+            (r.uniform(0, 8, (H, W, D)).astype(np.float32), 1.0)]
+
+
+@pytest.mark.parametrize("H, W, D", [(9, 13, 32), (5, 7, 48), (16, 20, 128)])
+def test_disparity_4dir_on_cpu_is_the_plain_chain(H, W, D):
+    """The fused entry point's CPU route is the plain aggregation followed
+    by the plain winner, bit for bit, and counts no launch; on integer
+    costs it also equals JAX's chain."""
+    before = (sgm.launch_count, sgm.winner_count.launch_count)
+    for k, (cost, p1) in enumerate(_winner_cases(H, W, D, H + W + D)):
+        got = sgm.disparity_4dir(_t(cost), p1, 8.0)
+        assert got.shape == (H, W) and got.dtype == torch.float32
+        want = stereo._wta_subpixel(
+            sgm.aggregate_4dir_reference(_t(cost), p1, 8.0), D)
+        assert torch.equal(got, want), k
+        assert torch.equal(sgm.disparity_4dir_reference(_t(cost), p1, 8.0),
+                           got), k
+        if p1 == 2.0:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(
+                jstereo._wta_subpixel(jstereo._aggregate_4dir_scan(
+                    jnp.asarray(cost), 2.0, 8.0), D)))
+    assert (sgm.launch_count, sgm.winner_count.launch_count) == before
+    assert bool((sgm.disparity_4dir(
+        _t(np.full((3, 4, D), 3.0, np.float32)), 2.0, 8.0) == -1).all())
+    with pytest.raises(ValueError):
+        sgm.disparity_4dir(_t(cost).to("meta"), 1.0, 8.0)
+
+
 def test_sgm_disparity_matches_jax():
     L, R, gt = _stereo_pair()
     want = np.asarray(jstereo._sgm(jnp.asarray(L), jnp.asarray(R), 32, 2.0,
                                    8.0))
-    before = (census.launch_count, sgm.launch_count)
+    before = (census.launch_count, sgm.launch_count,
+              sgm.winner_count.launch_count)
     got = stereo.TpuSGM(num_disparities=32).run(L, R, device="cpu")
-    assert (census.launch_count, sgm.launch_count) == before
+    assert (census.launch_count, sgm.launch_count,
+            sgm.winner_count.launch_count) == before
     assert isinstance(got, np.ndarray)
     np.testing.assert_array_equal(got < 0, want < 0)
     np.testing.assert_allclose(got, want, atol=1e-6)

@@ -321,8 +321,7 @@ def test_online_frames_give_the_span_tree_reads_and_bytes(frames, graphed):
         kinds.append(kind)
         assert _tree(spans, s) == ("sgm.run", False, [
             _leaf("sgm.census"), _leaf("sgm.cost_volume"),
-            _leaf("sgm.aggregate"), _leaf("sgm.wta"),
-            _leaf("sgm.read", True)])
+            _leaf("sgm.aggregate"), _leaf("sgm.read", True)])
         assert _tree(spans, a) == _expected(kind, graphed), kind
         got = {k: a.counts1.get(k, 0) - s.counts0.get(k, 0)
                for k in ("device_reads", "h2d_bytes", "d2h_bytes")}
