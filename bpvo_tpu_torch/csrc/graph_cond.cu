@@ -24,6 +24,16 @@
 // segment a body cannot hold (a host node, an event record or wait node: a
 // collective may add them) and name its types before CUDA refuses it.
 //
+// A loop's clock (utils/graphs.py Timer): torch.profiler records a WHILE
+// body's kernels once a replay, not once an iteration, so a loop times
+// itself.  bpvo_clock_start and bpvo_clock_stop launch a one-thread kernel
+// each on a stream (captured, a kernel node at the start and one at the end
+// of the body): the first stores %globaltimer in clock[0], the second adds
+// %globaltimer - clock[0] to clock[1], one iteration to clock[2] and, given
+// `runs`, one run to a body's counter.  clock is a zeroed int64[3] in device
+// memory; the nanoseconds are the device's wall time from the start node to
+// the end node, the gaps between the body's nodes included.
+//
 // Plain C entry points bound by ctypes (ops/_build.py); each returns the
 // cudaError_t of the calls it made.  The graphs are created and joined
 // outside any stream capture.
@@ -36,7 +46,35 @@ __global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
 }
 
+__device__ __forceinline__ long long global_timer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+__global__ void clock_start_kernel(long long* clock) {
+  clock[0] = global_timer_ns();
+}
+
+__global__ void clock_stop_kernel(long long* clock, long long* runs) {
+  clock[1] += global_timer_ns() - clock[0];
+  clock[2] += 1;
+  if (runs != nullptr) *runs += 1;
+}
+
 }  // namespace
+
+extern "C" int bpvo_clock_start(void* clock, void* stream) {
+  clock_start_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(clock));
+  return cudaGetLastError();
+}
+
+extern "C" int bpvo_clock_stop(void* clock, void* runs, void* stream) {
+  clock_stop_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(clock), static_cast<long long*>(runs));
+  return cudaGetLastError();
+}
 
 extern "C" int bpvo_graph_create(void** graph) {
   return cudaGraphCreate(reinterpret_cast<cudaGraph_t*>(graph), 0);

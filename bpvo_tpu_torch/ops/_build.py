@@ -220,6 +220,9 @@ def _load_library() -> ctypes.CDLL:
             ("exec_destroy", [p])):
         fn = getattr(lib, "bpvo_graph_" + name)
         fn.argtypes, fn.restype = args, i
+    # and the loops' clocks (utils/graphs.py Timer)
+    lib.bpvo_clock_start.argtypes, lib.bpvo_clock_start.restype = [p, p], i
+    lib.bpvo_clock_stop.argtypes, lib.bpvo_clock_stop.restype = [p, p, p], i
     # peer_reduce.cu: the distributed layer's all-reduce (parallel/peer.py)
     ll = ctypes.c_longlong
     for name, args, res in (

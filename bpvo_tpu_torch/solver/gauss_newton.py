@@ -47,6 +47,7 @@ from bpvo_tpu_torch.solver import linear_system, mestimator
 from bpvo_tpu_torch.types import (InterpolationType, LossFunctionType,
                                   PoseEstimationStatus, VerbosityType)
 from bpvo_tpu_torch.utils import graphs as graphs_mod
+from bpvo_tpu_torch.utils import profiling
 from bpvo_tpu_torch.vo import template_data as td_mod
 from bpvo_tpu_torch.vo import warp as warp_mod
 
@@ -153,13 +154,16 @@ def run_level(tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
                    band_overflow=bo)
 
 
-def solve_level(tdata, channels, cam, T_init, opts: GNOptions) -> GNState:
+def solve_level(tdata, channels, cam, T_init, opts: GNOptions,
+                timer=None) -> GNState:
     """A level solve by the route JAX takes on the TPU: ``run_level`` where
-    ``level_kernel_supported``, ``run`` elsewhere."""
+    ``level_kernel_supported``, ``run`` elsewhere (timed by the
+    ``graphs.timer`` named ``timer``, if given)."""
     C, rows, cols = channels.shape
     if level_kernel_supported(opts, C, rows, cols, tdata.pixels.shape[1]):
         return run_level(tdata, channels, cam, T_init, opts)
-    return run(tdata, channels, cam, T_init, opts)
+    return run(tdata, channels, cam, T_init, opts,
+               timer=None if timer is None else graphs_mod.timer(timer))
 
 
 def _sigma_unstable(delta_scale, scale, opts: GNOptions):
@@ -426,7 +430,7 @@ def _default_linearize_fn(tdata, channels, cam, opts: GNOptions,
 
 
 def run(tdata, channels, cam, T_init, opts: GNOptions,
-        linearize_fn=None) -> GNState:
+        linearize_fn=None, timer=None) -> GNState:
     """GN from T_init until a convergence test fires, the solve fails or
     ``max_iterations`` are spent; falls back to the best evaluated pose
     when it ends unconverged at a higher cost.
@@ -444,8 +448,17 @@ def run(tdata, channels, cam, T_init, opts: GNOptions,
     COSINE sampling take the fused CUDA kernels, others the gather route
     (``irls_reduce_w`` at C > 1); on the CPU their plain versions.  The
     loop runs where it is called: a host loop, or a WHILE node of a graph
-    being captured.
+    being captured.  ``timer`` (a ``utils.graphs.Timer``) counts every
+    iteration and, in a graph on CUDA, times it: iteration 0 between its
+    own start and stop nodes, the loop's in the WHILE body.  The span
+    ``gn.run`` covers the solve.
     """
+    with profiling.annotate("gn.run"):
+        return _run(tdata, channels, cam, T_init, opts, linearize_fn, timer)
+
+
+def _run(tdata, channels, cam, T_init, opts: GNOptions, linearize_fn,
+         timer) -> GNState:
     C, K = tdata.pixels.shape
     s, c = tdata.norm_scale, tdata.norm_center
     if linearize_fn is None:
@@ -467,12 +480,14 @@ def run(tdata, channels, cam, T_init, opts: GNOptions,
 
     # iteration 0: sigma is due unless the tolerances exceed the initial
     # delta_scale (1e10) at the initial scale (1)
-    st = iteration(st, True,
-                   1e10 > max(opts.scale_tolerance, opts.scale_tolerance_rel))
+    with graphs_mod.timed(timer, channels.device):
+        st = iteration(st, True, 1e10 > max(opts.scale_tolerance,
+                                            opts.scale_tolerance_rel))
     return _result(graphs_mod.while_loop(
         lambda st: ~st.conv & st.ok & (st.num_iters < opts.max_iterations),
         lambda st, do_est: iteration(st, False, do_est), st,
-        flag_fn=lambda st: _sigma_unstable(st.delta_scale, st.scale, opts)))
+        flag_fn=lambda st: _sigma_unstable(st.delta_scale, st.scale, opts),
+        timer=timer))
 
 
 def fraction_of_good_points(weights, num_channels, num_valid, threshold,

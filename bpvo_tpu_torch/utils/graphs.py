@@ -84,6 +84,20 @@ only kernel, memcpy, memset, empty, child-graph and conditional nodes;
 raises, naming the type, on any other (a host node, an event record or
 wait node).
 
+A ``Timer`` is a loop's own clock, named by its site (``gauss_newton.run``
+times each level's solve as ``gn.run.L<level>``): torch.profiler records a
+WHILE body's kernels once a replay, not once an iteration.  In a capture on
+CUDA a timed WHILE body begins with a one-thread kernel that reads the
+device's ``%globaltimer`` and ends with one that adds the elapsed
+nanoseconds and one iteration to the timer's device counters (and one run
+to the body's counter, in place of its own add); ``timed`` brackets a
+block the same way (``run``'s first iteration, outside the loop).
+``settle()`` reads those counters with the bodies' and adds them to the
+timer's ``ns`` and ``launch_count`` (its iterations) and to the counters
+``<name>.ns`` and ``<name>.iterations`` of ``utils.profiling``, which move
+only there.  Run eagerly or on the CPU a timed loop counts its iterations
+on the host and no time.
+
 ``GraphCache.jit(key, inputs, fn)`` is ``jax.jit`` for a function of
 tensors: the inputs copied into static buffers of the key (those named by
 ``held`` only when another object arrives), ``fn`` of the buffers
@@ -172,6 +186,106 @@ def counted():
     live = [(r, r()) for r in _counters]
     _counters[:] = [r for r, o in live if o is not None]
     return op_modules() + tuple(o for _, o in live if o is not None)
+
+
+# the process's timers by name (``timer``)
+_timers = {}
+
+
+class Timer(Count):
+    """The iterations (``launch_count``) and device nanoseconds (``ns``)
+    of a loop site, counted as a ``Count`` is and settled with the bodies'
+    runs (see the module docstring).  ``_clocks``: a zeroed int64 (3,) per
+    CUDA device, ``csrc/graph_cond.cu``'s clock (start stamp, ns,
+    iterations), made outside any capture; ``_seen`` the clock's ns and
+    iterations already settled; ``_pushed`` the ns and iterations already
+    added to the profiling counters."""
+    __slots__ = ("name", "ns", "_clocks", "_seen", "_pushed")
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.name, self.ns = name, 0
+        self._clocks, self._seen, self._pushed = {}, {}, (0, 0)
+
+    def clock(self, device):
+        """The device's clock, made at first use (never in a capture)."""
+        clock = self._clocks.get(device)
+        if clock is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"graphs: timer {self.name} first used "
+                                   f"on {device} inside a capture")
+            clock = self._clocks[device] = torch.zeros(
+                3, dtype=torch.int64, device=device)
+            self._seen[device] = (0, 0)
+        return clock
+
+    def _launch(self, entry, device, *tensors):
+        lib = _build.library()
+        _build.launch(lib, "clock", getattr(lib, entry)(
+            *(ctypes.c_void_p(0 if t is None else t.data_ptr())
+              for t in (self.clock(device), *tensors)),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)))
+
+    def start(self, device):
+        """Launch the start stamp on the current stream of ``device``."""
+        self._launch("bpvo_clock_start", device)
+
+    def stop(self, device, runs=None):
+        """Launch the stop: the elapsed ns and an iteration onto the
+        clock, and a run onto ``runs`` (a one-element int64 view) if
+        given."""
+        self._launch("bpvo_clock_stop", device, runs)
+
+    def tick(self):
+        """One iteration counted on the host (an eager or warm-up run;
+        not inside ``uncounted``)."""
+        if not getattr(_running, "uncounted", 0):
+            with _build.count_lock:
+                self.launch_count += 1
+
+    def _settle(self, device, ns: int, iterations: int):
+        seen_ns, seen_it = self._seen[device]
+        self.ns += ns - seen_ns
+        self.launch_count += iterations - seen_it
+        self._seen[device] = (ns, iterations)
+
+    def _push(self):
+        ns, it = self._pushed
+        if self.ns != ns or self.launch_count != it:
+            profiling.count(self.name + ".ns", self.ns - ns)
+            profiling.count(self.name + ".iterations", self.launch_count - it)
+            self._pushed = (self.ns, self.launch_count)
+
+
+def timer(name: str) -> Timer:
+    """The process's ``Timer`` of the site ``name`` (made at first use)."""
+    t = _timers.get(name)
+    if t is None:
+        t = _timers[name] = Timer(name)
+    return t
+
+
+@contextlib.contextmanager
+def timed(t, device):
+    """The block as one iteration of the timer ``t`` (None: untimed):
+    in a capture on CUDA between a start and a stop node; in a capture
+    elsewhere (a CPU stand-in's) uncounted; otherwise counted on the
+    host after it ran."""
+    if t is None:
+        yield
+        return
+    device = torch.device(device)
+    capture = in_run() and _running.cache._phase == "capture"
+    if device.type == "cuda":
+        if capture:
+            t.start(device)
+            yield
+            t.stop(device)
+            return
+        t.clock(device)       # made before the key's capture
+    yield
+    if not capture:
+        t.tick()
 
 
 def in_run():
@@ -279,9 +393,11 @@ def uncounted(mods=None):
     with _build.count_lock:
         mods = counted() if mods is None else mods
         counts = [mod.launch_count for mod in mods]
+        _running.uncounted = getattr(_running, "uncounted", 0) + 1
         try:
             yield
         finally:
+            _running.uncounted -= 1
             for mod, n in zip(mods, counts):
                 mod.launch_count = n
 
@@ -348,12 +464,13 @@ def cond(pred, body, into):
     return cache._cond(pred, body, into)
 
 
-def while_loop(pred_fn, body, carry, flag_fn=None):
+def while_loop(pred_fn, body, carry, flag_fn=None, timer=None):
     """``jax.lax.while_loop``: ``carry = body(carry)`` while
     ``pred_fn(carry)`` (a 0-d bool tensor) is true; returns the last carry.
     ``body`` returns a structure shaped as ``carry``.  With ``flag_fn`` the
     body is ``body(carry, flag_fn(carry))``: ``flag_fn`` gives a 0-d bool
-    tensor the body branches on (``cond``).
+    tensor the body branches on (``cond``).  ``timer``: a ``Timer`` that
+    counts the iterations and, in a graph on CUDA, times them.
 
     Outside a ``GraphCache`` call: a host loop, one read of the predicate
     per iteration (and one at the end); the flag is read in the same copy
@@ -371,38 +488,51 @@ def while_loop(pred_fn, body, carry, flag_fn=None):
                 if not bool(go):
                     return carry
                 carry = body(carry)
-                continue
-            go, flag = torch.stack(
-                [go, _predicate(flag_fn(carry), "while_loop")]).tolist()
-            if not go:
-                return carry
-            carry = body(carry, flag)
+            else:
+                go, flag = torch.stack(
+                    [go, _predicate(flag_fn(carry), "while_loop")]).tolist()
+                if not go:
+                    return carry
+                carry = body(carry, flag)
+            if timer is not None:
+                timer.tick()
     if flag_fn is not None:
         inner = body
 
         def body(c):
             return inner(c, flag_fn(c))
-    return cache._while(pred_fn, body, carry)
+    return cache._while(pred_fn, body, carry, timer)
 
 
 def settle():
     """Add the launches of the conditional bodies run since the last
-    ``settle`` to the ``ops`` modules' counts: one device-to-host read of
-    every graph's counters.  Call it before reading ``launch_count``."""
+    ``settle`` to the ``ops`` modules' counts, and the timers' device
+    nanoseconds and iterations to theirs and to the profiling counters:
+    one device-to-host read of every graph's counters and every timer's
+    clock a device.  Call it before reading ``launch_count``."""
     with _build.count_lock:
         runs = {}
-        for dev in {c.device for c, _ in _bodies}:   # one read a device
+        clocks = [(t, dev, c) for t in _timers.values()
+                  for dev, c in t._clocks.items()]
+        devices = {c.device for c, _ in _bodies} | {d for _, d, _ in clocks}
+        for dev in devices:                # one read a device
             idx = [i for i, (c, _) in enumerate(_bodies) if c.device == dev]
+            mine = [(t, d, c) for t, d, c in clocks if c.device == dev]
             flat = torch.cat([_bodies[i][0][:len(_bodies[i][1])]
-                              for i in idx]).tolist()
+                              for i in idx]
+                             + [c[1:] for _, _, c in mine]).tolist()
             for i in idx:
                 n = len(_bodies[i][1])
                 runs[i], flat = flat[:n], flat[n:]
+            for k, (t, d, _) in enumerate(mine):
+                t._settle(d, *flat[2 * k:2 * k + 2])
         for i, (_, records) in enumerate(_bodies):
             for j, (launches, settled) in enumerate(records):
                 for mod, n in launches:
                     mod.launch_count += n * (runs[i][j] - settled)
                 records[j] = (launches, runs[i][j])
+        for t in _timers.values():
+            t._push()
 
 
 class _Joined:
@@ -670,16 +800,20 @@ class GraphCache:
             self._discard(body)
         return into
 
-    def _while(self, pred_fn, body, carry):
+    def _while(self, pred_fn, body, carry, timer=None):
         """``while_loop`` in a function this cache runs (see
         ``while_loop``)."""
         if self._phase == "capture":
-            return self._capture_while(pred_fn, body, carry)
+            return self._capture_while(pred_fn, body, carry, timer)
         ran = self._phase != "warm-up"
         if not ran:
             self._n_bodies += 1
+        if timer is not None and self.device.type == "cuda":
+            timer.clock(self.device)     # made before the capture
         while bool(_predicate(pred_fn(carry), "while_loop")):
             carry, ran = body(carry), True
+            if timer is not None:
+                timer.tick()
         if not ran:
             # warm the body the loop did not run
             self._discard(lambda: body(carry))
@@ -691,7 +825,7 @@ class GraphCache:
         with uncounted(self._mods()):
             fn()
 
-    def _capture_while(self, pred_fn, body, carry):
+    def _capture_while(self, pred_fn, body, carry, timer=None):
         seen = set()
         for t in _leaves(carry):    # a tensor held twice: one buffer each
             if id(t) in seen:
@@ -704,12 +838,14 @@ class GraphCache:
         def iteration():
             copy_into(carry, body(carry))
             pred.copy_(_predicate(pred_fn(carry), "while_loop"))
-        self._capture_body("while", pred, iteration)
+        self._capture_body("while", pred, iteration, timer)
         return carry
 
-    def _capture_body(self, kind, pred, fill):
+    def _capture_body(self, kind, pred, fill, timer=None):
         """Capture ``fill()`` as the body of an IF or WHILE node on
-        ``pred``, counting its launches per run of the body."""
+        ``pred``, counting its launches per run of the body; on CUDA
+        ``timer``'s start and stop nodes around it (the stop counts the
+        body's run)."""
         slot = len(self._records)
         if slot == len(self._taken):
             raise RuntimeError(f"graphs: the capture holds more conditional "
@@ -719,9 +855,15 @@ class GraphCache:
         self._records.append(None)
         self._stack.append(frame)
         node = self._if_node if kind == "if" else self._while_node
+        clocked = timer is not None and self.device.type == "cuda"
         with node(pred):
+            if clocked:
+                timer.start(self.device)
             fill()
-            self._taken[slot].add_(1)
+            if clocked:
+                timer.stop(self.device, self._taken[slot])
+            else:
+                self._taken[slot].add_(1)
         self._stack.pop()
         advanced = [mod.launch_count - n for mod, n in zip(mods, frame.before)]
         self._records[slot] = [(mod, a - nested) for mod, a, nested in

@@ -6,14 +6,14 @@ reference timer.h / WITH_PROFILER hooks), the port's one tracing module.
 - ``annotate(name, wait=False)`` is the program's span.  The program opens
   one at each layer boundary of the online path (``TpuSGM.run``,
   ``VisualOdometry.add_frame``, ``PoseEstimator.estimate``,
-  ``GraphCache.jit``).  While no profiler session is on and no
-  ``recording()`` block is open, it reads one flag and returns a shared
-  object that does nothing.  Otherwise it appends a ``Span`` to a bounded
-  list in memory (``spans()``) and enters a profiler record of the same
-  name, so the span lands in the session's trace, nested, on the clock of
-  the device's kernels; on the card also an NVTX range, which Nsight
-  Systems shows.  ``wait`` marks time the host spends blocked on the device
-  (a read of a result).
+  ``GraphCache.jit``, ``gauss_newton.run``'s ``gn.run``).  While no
+  profiler session is on and no ``recording()`` block is open, it reads
+  one flag and returns a shared object that does nothing.  Otherwise it
+  appends a ``Span`` to a bounded list in memory (``spans()``) and enters
+  a profiler record of the same name, so the span lands in the session's
+  trace, nested, on the clock of the device's kernels; on the card also
+  an NVTX range, which Nsight Systems shows.  ``wait`` marks time the host
+  spends blocked on the device (a read of a result).
 - ``count(name, n)`` adds to a counter, whether spans are recorded or not;
   ``counts()`` reads them.  The program counts ``device_reads`` (results
   brought to the host), ``d2h_bytes`` (their bytes) and ``h2d_bytes``
@@ -22,8 +22,12 @@ reference timer.h / WITH_PROFILER hooks), the port's one tracing module.
   page-locked host memory and ``h2d_pinned_bytes`` left it for the card.
   ``PoseEstimator.estimate`` adds its level kernel solves' shapes
   (``gn_solves``, ``gn_points``, ``gn_channel_points``, ``gn_iter_points``,
-  ``gn_iter_channel_points``), ``VisualOdometry.add_frame`` its keyframes
-  (``keyframes``, ``keyframes_own``).
+  ``gn_iter_channel_points``) and, where a level took ``gauss_newton.run``,
+  those solves and their iterations (``gn_run_solves``, ``gn_run_iters``);
+  ``VisualOdometry.add_frame`` its keyframes (``keyframes``,
+  ``keyframes_own``).  ``utils.graphs.settle`` adds each loop timer's
+  device nanoseconds and iterations (``<timer>.ns``,
+  ``<timer>.iterations``, e.g. ``gn.run.L0.ns``).
 - ``timed`` is a wall-clock harness that waits for the device after every
   call.
 

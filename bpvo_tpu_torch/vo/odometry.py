@@ -21,7 +21,7 @@ verbose level, the same functions run eagerly.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -304,7 +304,10 @@ class VisualOdometry:
         else:
             profiling.count("keyframes")
             with profiling.annotate("vo.keyframe"):
-                point_cloud = self._extract_point_cloud()
+                # the cloud is read now, from the old keyframe, and built on
+                # the host once the new template's build is queued: the
+                # card builds the template while the host builds the cloud
+                build_cloud = self._extract_point_cloud()
                 if self._prev.empty:
                     profiling.count("keyframes_own")
                     # no candidate: the current frame becomes the keyframe
@@ -336,6 +339,7 @@ class VisualOdometry:
                                                   alt_init=alt)
                     pose = T_est
                     self._T_kf = T_est
+                point_cloud = build_cloud()
 
         self._trajectory.push(pose)
         if point_cloud is not None:
@@ -372,19 +376,21 @@ class VisualOdometry:
             return KeyFramingReason.SMALL_FRAC_OF_GOOD_POINTS
         return KeyFramingReason.NO_KEYFRAMING
 
-    def _extract_point_cloud(self) -> Optional[PointCloud]:
+    def _extract_point_cloud(self) -> Callable[[], Optional[PointCloud]]:
         """(reference vo.cc:260-281): the keyframe's template points at
         maxTestLevel, grey-coloured from its image, weighted by the last IRLS
-        weights.  One device read (``_cloud_read``): the template's mask,
-        points and pixel positions, the weights and, for an image on the
-        device, its values there."""
+        weights.  One device read (``_cloud_read``): the template's mask and
+        points, the weights and, for an image on the device, its values at
+        the points, else the points' pixel positions.  Returns the function
+        that builds the cloud on the host from what was read; it holds what
+        it needs, so the keyframe's buffers may change before it runs."""
         with profiling.annotate("vo.cloud"):
             return self._point_cloud()
 
-    def _point_cloud(self) -> Optional[PointCloud]:
+    def _point_cloud(self) -> Callable[[], Optional[PointCloud]]:
         p = self._p
         if not self._ref.has_template:
-            return None
+            return lambda: None
         td = self._ref.templates[p.maxTestLevel]
         K = td.capacity
         scale = 1 << p.maxTestLevel
@@ -395,35 +401,54 @@ class VisualOdometry:
         image = self._ref.image
         on_device = (isinstance(image, torch.Tensor)
                      and image.device == td.valid.device)
-        parts = [td.valid, td.points, ys, xs] + ([w[0]] if has_w else []) \
-            + ([image[ys, xs]] if on_device else [])
+        parts = ([td.valid, td.points] + ([w[0]] if has_w else [])
+                 + ([image[ys, xs]] if on_device else [ys, xs]))
         host = self._cloud_read(parts)
+        cam = self._cams[p.maxTestLevel]
+        return lambda: self._cloud_from_host(host, K, cam, has_w, on_device,
+                                             image)
+
+    def _cloud_from_host(self, host, K, cam, has_w, on_device, image):
+        """The cloud from ``_cloud_read``'s array: the valid points, their
+        weights and grey colours."""
         valid = host[:K] != 0
-        pts = host[K:4 * K].reshape(K, 3)[valid].astype(np.float32)
-        ys = host[4 * K:5 * K][valid].astype(np.int64)
-        xs = host[5 * K:6 * K][valid].astype(np.int64)
-        rest = host[6 * K:]
-        if p.warpType == "DisparitySpace":
+        # the selection puts the valid points first (ops/selection.py): a
+        # slice of that prefix, not a mask over all K slots, and no more
+        # host passes than the cloud needs (at a dense level's K = 466616
+        # masks and conversions took ~20 ms of host time a keyframe)
+        n = int(np.count_nonzero(valid))
+        if valid[:n].all():
+            valid = slice(0, n)
+        pts = np.array(host[K:4 * K].reshape(K, 3)[valid], np.float32)
+        rest = host[4 * K:]
+        if self._p.warpType == "DisparitySpace":
             # the template holds (x-cx, y-cy, d): back-project for the cloud
-            cam = self._cams[p.maxTestLevel]
             xyd = torch.from_numpy(pts)
             pts = warp_mod.make_points(
                 cam, xyd[:, 0] + cam.cx, xyd[:, 1] + cam.cy,
                 torch.clamp(xyd[:, 2], min=1e-3)).numpy()
         if has_w:
-            weights, rest = rest[:K][valid], rest[K:]
+            weights, rest = np.array(rest[:K][valid], np.float32), rest[K:]
         else:
             weights = np.ones(len(pts), np.float32)
-        c = (rest[valid] if on_device else _numpy(image)[ys, xs]).astype(
-            np.uint8)
-        colors = np.stack([c, c, c, np.full_like(c, 255)], axis=1)
-        return PointCloud(points=pts.astype(np.float32), colors=colors,
-                          weights=weights.astype(np.float32))
+        if on_device:
+            c = rest[:K][valid].astype(np.uint8)
+        else:
+            ys = rest[:K][valid].astype(np.int64)
+            xs = rest[K:2 * K][valid].astype(np.int64)
+            c = _numpy(image)[ys, xs].astype(np.uint8)
+        # rgba (c, c, c, 255): one little-endian uint32 a point
+        colors = (c.astype("<u4") * np.uint32(0x010101)
+                  + np.uint32(0xFF000000)).astype("<u4", copy=False).view(
+            np.uint8).reshape(-1, 4)
+        return PointCloud(points=pts, colors=colors, weights=weights)
 
     @staticmethod
     def _cloud_read(parts) -> np.ndarray:
         """The point cloud's one device -> host copy: ``parts`` flattened
-        into float64, which holds each of their values exactly."""
+        into float32, which holds each of their values exactly (the mask,
+        the float32 points and weights, pixel indices below 2^24, a float32
+        image's grey values)."""
         return profiling.device_read(
             "vo.cloud_read",
-            torch.cat([t.reshape(-1).to(torch.float64) for t in parts]))
+            torch.cat([t.reshape(-1).to(torch.float32) for t in parts]))

@@ -15,9 +15,10 @@ thresholds, the solver, whether an alternative start is given and the
 multi-start offset.  Its inputs are copied into the key's static buffers:
 the templates only when another template object arrives (at keyframes),
 the channels and the starts on every call.  Every ``gauss_newton.run`` or
-LM level is a WHILE node of that graph.  Without a cache the chain runs
-eagerly.  Either way ``estimate`` reads its results back in one copy,
-then adds the level kernel's solves to the ``gn_*`` counters of
+LM level is a WHILE node of that graph, each ``run`` level's timed by the
+``utils.graphs.Timer`` ``gn.run.L<level>``.  Without a cache the chain
+runs eagerly.  Either way ``estimate`` reads its results back in one copy,
+then adds its level solves to the ``gn_*`` counters of
 ``utils.profiling`` (``PoseEstimator._count_solves``).
 """
 from __future__ import annotations
@@ -164,7 +165,8 @@ def _estimate_all(templates, channels, cams, T_init, opts_per_level,
                         opts_per_level[level])
         else:
             st = gn.solve_level(templates[level], channels[level],
-                                cams[level], T, opts_per_level[level])
+                                cams[level], T, opts_per_level[level],
+                                timer=f"gn.run.L{level}")
         enough = templates[level].num_valid >= min_points
         T = torch.where(enough, st.T, T)
         iters[level] = torch.where(enough, st.num_iters, 0).to(torch.int32)
@@ -282,27 +284,33 @@ class PoseEstimator:
         return T_np, stats
 
     def _count_solves(self, templates, channels_pyr, iters, start_level):
-        """Add the level solves of the estimate just read that the level
-        kernel ran (``gauss_newton.solve_level``'s route) to the counters
-        (``utils.profiling``): ``gn_solves`` one a solve, ``gn_points`` its
-        template capacity K, ``gn_channel_points`` C K, ``gn_iter_points``
-        it K and ``gn_iter_channel_points`` it C K, with ``it`` the level's
-        GN iterations from the read, at least 1 (a level with too few
-        valid points reads 0 and still ran)."""
+        """Add the level solves of the estimate just read to the counters
+        (``utils.profiling``).  Those the level kernel ran
+        (``gauss_newton.solve_level``'s route): ``gn_solves`` one a solve,
+        ``gn_points`` its template capacity K, ``gn_channel_points`` C K,
+        ``gn_iter_points`` it K and ``gn_iter_channel_points`` it C K, with
+        ``it`` the level's GN iterations from the read, at least 1 (a level
+        with too few valid points reads 0 and still ran).  Those
+        ``gauss_newton.run`` ran, where there are any: ``gn_run_solves``
+        one a solve and ``gn_run_iters`` its iterations from the read."""
         p = self._p
         if p.poseEstimator != "GaussNewton":
             return
         first = len(channels_pyr) - 1 if start_level < 0 else start_level
-        n = k = ck = itk = itck = 0
+        n = k = ck = itk = itck = n_run = it_run = 0
         for level in range(first, p.maxTestLevel - 1, -1):
             C, rows, cols = channels_pyr[level].shape
             K = templates[level].pixels.shape[1]
             if not gn.level_kernel_supported(self._opts[level], C, rows,
                                              cols, K):
+                n_run, it_run = n_run + 1, it_run + int(iters[level])
                 continue
             it = max(int(iters[level]), 1)
             n, k, ck = n + 1, k + K, ck + C * K
             itk, itck = itk + it * K, itck + it * C * K
+        if n_run:
+            profiling.count("gn_run_solves", n_run)
+            profiling.count("gn_run_iters", it_run)
         profiling.count("gn_solves", n)
         profiling.count("gn_points", k)
         profiling.count("gn_channel_points", ck)

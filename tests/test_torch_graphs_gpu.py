@@ -362,6 +362,49 @@ def test_run_graphed_equals_eager(dense_levels, C, level):
     assert len(cache) == 1 and iters > 6
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", ["C1", "C8"])
+def test_run_timer_counts_and_times_the_iterations(dense_levels, C):
+    """The L0 solve's ``graphs.Timer`` in a graph: after each replay,
+    settled, it counts the solve's iterations (the first between its own
+    start and stop nodes, the rest in the WHILE body), and its
+    nanoseconds fall within 5% of CUDA events around the same replay;
+    the eager solve counts its iterations on the host and no time."""
+    vo, ch = dense_levels[C]
+    td, cam, opts = vo.state.templates[0], vo._cams[0], vo._opts[0]
+    dev = ch[0].device
+    timer = graphs.timer(f"test.run_timer.{C}")
+    T0 = torch.eye(4, device=dev)
+    cache = graphs.GraphCache(dev)
+
+    def solve():
+        return gn.run(td, ch[0], cam, T0, opts, timer=timer)
+
+    graphs.settle()
+    it0, ns0 = timer.launch_count, timer.ns
+    want = solve()
+    graphs.settle()
+    n = int(want.num_iters)
+    assert n > 2 and timer.launch_count - it0 == n and timer.ns == ns0
+    cache("k", solve)               # warm-up (counted on the host), capture
+    graphs.settle()
+    for T in (torch.eye(4, device=dev), torch.tensor(
+            [[1.0, -2e-3, 1e-3, 5e-3], [2e-3, 1.0, -1e-3, -2e-3],
+             [-1e-3, 1e-3, 1.0, 1e-2], [0.0, 0.0, 0.0, 1.0]], device=dev)):
+        T0.copy_(T)
+        it0, ns0 = timer.launch_count, timer.ns
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        got = cache("k", solve)
+        end.record()
+        torch.cuda.synchronize()
+        graphs.settle()
+        ms = start.elapsed_time(end)
+        assert timer.launch_count - it0 == int(got.num_iters) > 2
+        timed_ms = (timer.ns - ns0) * 1e-6
+        assert abs(timed_ms - ms) <= 0.05 * ms, (timed_ms, ms)
+
+
 def _no_read_solve(cache, solve, tdata, channels, cam, T0, opts):
     """``solve`` of a level through ``cache.jit`` (the template copied in
     only when another template object arrives): the first call captures;

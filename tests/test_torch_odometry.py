@@ -234,6 +234,39 @@ def test_point_cloud_ply_round_trip(frames, tmp_path):
                                vo.trajectory.back()[:3], atol=1e-8)
 
 
+def test_point_cloud_is_built_after_the_template_is_queued(frames,
+                                                          monkeypatch):
+    """On a keyframe ``add_frame`` reads the old keyframe's cloud, queues
+    the new template's build and only then builds the cloud on the host
+    (so the two overlap on a card); the cloud still holds the old
+    keyframe's points, with and without a candidate."""
+    cam = make_cam()
+    vo = VisualOdometry(np.asarray(cam.K()), float(cam.baseline),
+                        (H_IMG, W_IMG), AlgorithmParameters(**KW),
+                        device="cpu")
+    calls = []
+    set_template, build = vo._set_template, vo._cloud_from_host
+    monkeypatch.setattr(vo, "_set_template", lambda f: (
+        calls.append("template"), set_template(f))[1])
+    monkeypatch.setattr(vo, "_cloud_from_host", lambda *a: (
+        calls.append("cloud"), build(*a))[1])
+    clouds = 0
+    for I, D in frames:
+        old = None
+        if vo._ref.has_template:
+            td = vo._ref.templates[0]
+            old = td.points[td.valid != 0].numpy().copy()
+        calls.clear()
+        r = vo.add_frame(I, D)
+        if r.point_cloud is None:
+            assert "cloud" not in calls
+            continue
+        clouds += 1
+        assert calls == ["template", "cloud"]
+        np.testing.assert_array_equal(r.point_cloud.points, old)
+    assert clouds >= 2
+
+
 def test_dense_reference():
     """The committed dense-VO reference (scripts/make_torch_port_ref.py
     dense) is sane, and the port's VisualOdometry on the CPU follows its

@@ -291,7 +291,7 @@ def test_online_frames_give_the_span_tree_reads_and_bytes(frames, graphed):
     ``vo.add_frame`` root's end give 2 reads on other frames, 3 on a
     keyframe without a candidate and 4 with one, and the bytes of what
     the code copies: the images in and the disparity out, the estimate's
-    starts and packed result, the point cloud's float64 parts."""
+    starts and packed result, the point cloud's float32 parts."""
     cam = make_cam()
     p = AlgorithmParameters(**KW)
     vo = VisualOdometry(np.asarray(cam.K()), float(cam.baseline),
@@ -311,7 +311,7 @@ def test_online_frames_give_the_span_tree_reads_and_bytes(frames, graphed):
     assert [r.name for r in roots] == ["sgm.run", "vo.add_frame"] * N_FRAMES
     pixels = H_IMG * W_IMG
     packed = 4 * (53 + 9 * p.numPyramidLevels)
-    cloud = 8 * 7 * vo._capacities[p.maxTestLevel]
+    cloud = 4 * 7 * vo._capacities[p.maxTestLevel]
     kinds = []
     for i, (s, a) in enumerate(zip(roots[::2], roots[1::2])):
         r = results[i]
@@ -691,6 +691,87 @@ def test_cost_volume_reader_needs_a_trace():
     ctx, _ = _cost_ctx()
     ctx.trace = None
     assert bench.metric_reader("cost_volume_roofline_pct.online")(ctx) is None
+
+
+# the run timers over three traced frames of the dense cell: (level,
+# iterations, ns) settled after the slice, on top of what the window left
+RUN_TIMED = [(0, 12, 10_800_000), (1, 10, 7_000_000), (2, 8, 4_500_000)]
+RUN_BEFORE = {"gn.run.L0.iterations": 500, "gn.run.L0.ns": 450_000_000,
+              "gn.run.L1.iterations": 400, "gn.run.L1.ns": 300_000_000,
+              "gn.run.L2.iterations": 300, "gn.run.L2.ns": 180_000_000}
+
+
+def _run_ctx(monkeypatch, frame_iters=(10, 12, 8), timed=RUN_TIMED,
+             before=RUN_BEFORE):
+    """Three traced frames whose estimates count ``frame_iters``
+    ``gn_run_iters``, the timers' counters at the first frame's start
+    (``before``) and, settled after the slice, ``timed`` more."""
+    rec = _Recorder()
+    rec.add(**before)
+    for it in frame_iters:
+        rec.frame(True, {"gn_run_solves": 3, "gn_run_iters": it})
+    now = dict(rec.counts)
+    for level, its, ns in timed:
+        for key, n in ((".iterations", its), (".ns", ns)):
+            name = f"gn.run.L{level}{key}"
+            now[name] = now.get(name, 0) + n
+    monkeypatch.setattr(profiling, "_spans", rec.spans)
+    monkeypatch.setattr(profiling, "_counts", now)
+    ctx = _ctx(len(frame_iters))
+    ctx.cell = bench.Cell("kitti00_dense.online_stereo")
+    return ctx
+
+
+def test_run_readers_read_the_timers_over_the_traced_frames(monkeypatch):
+    """L0's nanoseconds over its iterations, the iterations a frame, and
+    the summed bound of ``run_timer.run_iteration`` at each level's (C, K)
+    over the timers' time: the slice's share of each counter, the value
+    after the slice less the first traced frame's."""
+    from vobench import roofline, run_timer
+    ctx = _run_ctx(monkeypatch)
+    read = {n: bench.metric_reader(f"{n}.online")(ctx) for n in (
+        "run_iter_us", "run_iters_per_frame", "run_roofline_pct")}
+    assert read["run_iter_us"] == pytest.approx(10_800_000 / 12 / 1e3)
+    assert read["run_iters_per_frame"] == 30 / 3
+    shapes = [run_timer.level_shape(ctx.cell.config, lv) for lv in range(3)]
+    assert shapes == [(8, 466616, 466616), (8, 116748, 116748),
+                      (8, 29234, 29234)]
+    bound = sum(its * roofline.bound_s(*run_timer.run_iteration(
+        *shapes[lv]))[0] for lv, its, _ in RUN_TIMED)
+    ns = sum(n for _, _, n in RUN_TIMED)
+    assert read["run_roofline_pct"] == pytest.approx(
+        100 * bound / (ns * 1e-9), rel=1e-12)
+    assert 0 < read["run_roofline_pct"] < 100
+
+
+@pytest.mark.parametrize("fault", ["iterations", "no_timers", "no_run"])
+def test_run_readers_are_silent_unless_the_timers_match(monkeypatch, fault):
+    """None, logged, where the timers' iterations over the slice differ
+    from the estimates' ``gn_run_iters`` (a settle missed or a frame more),
+    where the program has no timers (the parent commit's), and where no
+    level took ``run``."""
+    kw = {"iterations": dict(frame_iters=(10, 12, 9)),
+          "no_timers": dict(timed=(), before={}),
+          "no_run": dict(frame_iters=(0, 0, 0), timed=())}[fault]
+    ctx = _run_ctx(monkeypatch, **kw)
+    for name in ("run_iter_us", "run_iters_per_frame", "run_roofline_pct"):
+        assert bench.metric_reader(f"{name}.online")(ctx) is None
+        assert "not reported" in ctx.logs[-1]
+
+
+def test_run_iteration_bound_by_hand():
+    """One L0 iteration of the dense cell: u, v 8K + mask K + pixels 32K
+    + Jacobians 192K + sigma 4 + taps at most the image once a channel
+    (32 x 466616 B); written r0 4K + weights 32K + 172; the reduction
+    236 B; operations K (20 + 8 x 71)."""
+    from vobench import roofline, run_timer
+    K = 466616
+    nbytes, ops = run_timer.run_iteration(8, K, K)
+    assert nbytes == K * (8 + 1 + 32 + 192 + 32 + 4 + 32) + 4 + 172 + 236
+    assert ops == K * (20 + 8 * 71)
+    assert run_timer.run_iteration(1, 100, 10_000)[0] == (
+        100 * (8 + 1 + 4 + 24 + 16 + 4 + 4) + 4 + 172 + 236)
+    assert roofline.bound_s(nbytes, ops)[1] == "bytes"
 
 
 @pytest.mark.parametrize("counted", [True, False])

@@ -41,7 +41,7 @@ from bpvo_tpu_torch.ops import fused_linearize as fused_mod
 from bpvo_tpu_torch.ops import irls as irls_mod
 from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.solver import levenberg_marquardt as lm
-from bpvo_tpu_torch.utils import graphs
+from bpvo_tpu_torch.utils import graphs, profiling
 from bpvo_tpu_torch.utils.convert import (camera_from_numpy,
                                           gn_options_from_jax,
                                           template_from_numpy)
@@ -142,13 +142,15 @@ class RecordingWhile(graphs.GraphCache):
                 graphs.copy_into(into, body())
         return into
 
-    def _while(self, pred_fn, body, carry):
+    def _while(self, pred_fn, body, carry, timer=None):
         if self._phase != "rerun":
-            return super()._while(pred_fn, body, carry)
+            return super()._while(pred_fn, body, carry, timer)
         site = self._site()
         while bool(pred_fn(carry)):
             with self._inside(site):
                 carry = body(carry)
+            if timer is not None:
+                timer.tick()
         return carry
 
 
@@ -319,6 +321,51 @@ def test_while_bodies_count_per_run(case):
         assert n_graph == n_eager, m
     graphs.settle()
     assert _counted([mod], lambda: None)[1] == [0]
+
+
+def _timed_loop_fn(timer, n):
+    """A first iteration under ``graphs.timed``, then ``while i < n: i +=
+    1`` timed by ``timer``: ``max(n, 1)`` iterations."""
+    def fn():
+        with graphs.timed(timer, "cpu"):
+            i = torch.ones((), dtype=torch.int32)
+        return graphs.while_loop(lambda i: i < n, lambda i: i + 1, i,
+                                 timer=timer)
+    return fn
+
+
+@pytest.mark.parametrize("cache", ["eager", "rerun", "recording"])
+def test_timer_counts_the_iterations_that_ran(cache):
+    """A timed loop counts each iteration that runs, the first one too:
+    eagerly, through a stand-in whose replays rerun the function and
+    through ``RecordingWhile`` (a warm-up whose loop runs no iteration
+    discards its body uncounted; the capture counts none); on the CPU it
+    counts no time, and the profiling counters ``<name>.iterations`` and
+    ``<name>.ns`` move only at ``settle``."""
+    name = f"test.timer.{cache}"
+    timer = graphs.timer(name)
+    n = torch.tensor(1, dtype=torch.int32)
+    fn = _timed_loop_fn(timer, n)
+    run = {"eager": fn, "rerun": functools.partial(
+        graphs.RerunCache("cpu"), "k", fn), "recording": functools.partial(
+        RecordingWhile("cpu", modules=()), "k", fn)}[cache]
+    total = 0
+    for m in (1, 4, 0, 6, 2):
+        n.fill_(m)
+        before = timer.launch_count
+        i = int(run())
+        graphs.settle()
+        assert i == max(m, 1) == timer.launch_count - before, m
+        total += i
+    assert timer.ns == 0
+    pushed = profiling.counts()[name + ".iterations"]
+    n.fill_(3)
+    run()
+    assert profiling.counts()[name + ".iterations"] == pushed
+    graphs.settle()
+    assert profiling.counts()[name + ".iterations"] == pushed + 3
+    assert profiling.counts()[name + ".ns"] == 0
+    assert graphs.timer(name) is timer
 
 
 def test_while_inside_an_if_body_counts_per_take():
