@@ -207,6 +207,9 @@ def _load_library() -> ctypes.CDLL:
     lib.bpvo_census_cost.restype = i
     bind_sgm(lib)
     bind_gn(lib)
+    # gn_step.cu: gauss_newton.run's step after the linearization
+    lib.bpvo_gn_step.argtypes = [p] * 25 + [i] * 2 + [f] * 5 + [p]
+    lib.bpvo_gn_step.restype = i
     # graph_cond.cu: the IF and WHILE nodes of utils/graphs.py
     pp, u64 = ctypes.POINTER(p), ctypes.c_ulonglong
     for name, args in (

@@ -11,6 +11,9 @@ Flow per iteration (inverse compositional, template Jacobians fixed):
   dp       = solve(H, g)
   T       <- T * Tn^-1 exp(-dp) Tn
 
+(the tests, the solve and the update are ``ops.gn_step``: one CUDA kernel
+launch an iteration on the card, its plain version on the CPU).
+
 ``run_level`` runs a level's whole loop in the CUDA kernel ``ops.level_gn``
 (16-step bisection median).  ``run`` runs the loop as
 ``utils.graphs.while_loop`` (JAX's ``lax.while_loop``), with the
@@ -35,6 +38,7 @@ import torch
 
 from bpvo_tpu_torch.config import AlgorithmParameters
 from bpvo_tpu_torch.ops import fused_linearize as fused_mod
+from bpvo_tpu_torch.ops import gn_step as gn_step_mod
 from bpvo_tpu_torch.ops import interp as interp_mod
 from bpvo_tpu_torch.ops import irls as irls_mod
 from bpvo_tpu_torch.ops import level_gn as level_gn_mod
@@ -50,8 +54,6 @@ from bpvo_tpu_torch.utils import graphs as graphs_mod
 from bpvo_tpu_torch.utils import profiling
 from bpvo_tpu_torch.vo import template_data as td_mod
 from bpvo_tpu_torch.vo import warp as warp_mod
-
-_SQRT_EPS = 3.452669831e-4
 
 STATUS_ENUMS = {
     STATUS_MAX_ITERATIONS: PoseEstimationStatus.MAX_ITERATIONS,
@@ -166,13 +168,6 @@ def solve_level(tdata, channels, cam, T_init, opts: GNOptions,
                timer=None if timer is None else graphs_mod.timer(timer))
 
 
-def _sigma_unstable(delta_scale, scale, opts: GNOptions):
-    """Sigma is re-estimated while its last step exceeds the absolute
-    (reference mestimator.cc:467-490) or the relative tolerance."""
-    return delta_scale > torch.clamp(opts.scale_tolerance_rel * scale,
-                                     min=opts.scale_tolerance)
-
-
 def _no_reduce(H, g, f_sq):
     return H, g, f_sq
 
@@ -284,56 +279,18 @@ def _fused_linearize_fn(tdata, channels, cam, opts: GNOptions, sigma_fn=None,
     return linearize
 
 
-def _test_convergence(dp_norm, dp_norm_prev, g_norm, f_norm, f_norm_prev,
-                      g_tol, opts: GNOptions):
-    """The three convergence tests (reference pose_estimator_base.h:258-282),
-    with JAX's added relative decrease test.  Returns (converged, status)."""
-    p_tol = (dp_norm < opts.parameter_tolerance) | (
-        dp_norm < opts.parameter_tolerance * (_SQRT_EPS + dp_norm_prev))
-    df = torch.abs(f_norm - f_norm_prev)
-    f_tol = ((f_norm < opts.function_tolerance)
-             | (f_norm < opts.function_tolerance * (_SQRT_EPS + f_norm_prev))
-             | (df < opts.function_tolerance)
-             | (df < opts.function_tolerance
-                * torch.clamp(f_norm_prev, min=1.0)))
-    g_ok = g_norm < g_tol
-    status = torch.where(
-        p_tol, STATUS_PARAMETER_TOL,
-        torch.where(f_tol, STATUS_FUNCTION_TOL,
-                    torch.where(g_ok, STATUS_GRADIENT_TOL,
-                                STATUS_MAX_ITERATIONS)))
-    return p_tol | f_tol | g_ok, status.to(torch.int32)
-
-
-class _LoopState(NamedTuple):
-    """``run``'s loop carry (device tensors)."""
-    T: torch.Tensor             # (4, 4) pose the next iteration linearizes at
-    T_best: torch.Tensor        # (4, 4) lowest-cost pose evaluated so far
-    f_best: torch.Tensor        # its cost
-    dp: torch.Tensor            # (6,) last step taken
-    f_norm: torch.Tensor        # cost at the last linearization
-    dp_norm_prev: torch.Tensor  # |dp| before the last iteration
-    g_tol: torch.Tensor         # gradient threshold, fixed at iteration 0
-    scale: torch.Tensor         # robust sigma
-    delta_scale: torch.Tensor   # its last change
-    H: torch.Tensor             # (6, 6) last Hessian
-    g: torch.Tensor             # (6,) last gradient
-    w: torch.Tensor             # (C, K) last IRLS weights
-    status: torch.Tensor        # int32 STATUS_* code
-    conv: torch.Tensor          # bool, a convergence test fired
-    ok: torch.Tensor            # bool, the last solve succeeded
-    num_iters: torch.Tensor     # int32 iterations run
-
-
-def _initial_state(T_init, C: int, K: int, dev) -> _LoopState:
+def _initial_state(T_init, C: int, K: int, dev) -> gn_step_mod.LoopState:
+    """The carry before iteration 0: tensors of its own, none the caller's
+    (``ops.gn_step`` overwrites them on the card)."""
     f32 = torch.float32
 
     def scalar(x, dtype=f32):   # filled on the device: no host copy
         return torch.full((), x, dtype=dtype, device=dev)
 
-    T = T_init.to(device=dev, dtype=f32)
-    return _LoopState(
-        T=T, T_best=T, f_best=scalar(float("inf")),
+    T = T_init.to(device=dev, dtype=f32).clone(
+        memory_format=torch.contiguous_format)
+    return gn_step_mod.LoopState(
+        T=T, T_best=T.clone(), f_best=scalar(float("inf")),
         dp=torch.zeros(6, dtype=f32, device=dev), f_norm=scalar(0.0),
         dp_norm_prev=scalar(0.0), g_tol=scalar(0.0), scale=scalar(1.0),
         delta_scale=scalar(1e10), H=torch.eye(6, dtype=f32, device=dev),
@@ -341,50 +298,28 @@ def _initial_state(T_init, C: int, K: int, dev) -> _LoopState:
         w=torch.zeros(C, K, dtype=f32, device=dev),
         status=scalar(STATUS_MAX_ITERATIONS, torch.int32),
         conv=scalar(False, torch.bool), ok=scalar(True, torch.bool),
-        num_iters=scalar(0, torch.int32))
+        num_iters=scalar(0, torch.int32), pred=scalar(True, torch.bool),
+        flag=scalar(True, torch.bool))
 
 
-def _iteration(st: _LoopState, linearize_fn, s, c, opts: GNOptions,
-               first: bool, do_est):
+def _iteration(st: gn_step_mod.LoopState, linearize_fn, s, c,
+               opts: GNOptions, first: bool, do_est):
     """One GN iteration from ``st`` (the body of ``gn.run``'s
-    ``lax.while_loop``, gauss_newton.py:457-487): linearize at T, test
-    convergence against the previous iteration's values (only the gradient
-    test on the first iteration), solve and update.  ``first`` is
+    ``lax.while_loop``, gauss_newton.py:457-487): linearize at T, then
+    ``ops.gn_step``: test convergence against the previous iteration's
+    values (only the gradient test on the first iteration), solve and
+    update, and set the loop's exit test and sigma flag.  ``first`` is
     host-static (``run`` peels iteration 0, the only one that takes it);
     ``do_est`` (sigma still moving) is a host bool or a 0-d bool tensor
-    (``_sigma_branch``).  Returns (new state, dp_new, g_norm)."""
+    (``_sigma_branch``).  On the card the new state is ``st``'s own
+    tensors, overwritten.  Returns (new state, dp_new, g_norm)."""
     H, g, f_new, sigma, delta_scale, w = linearize_fn(st.T, st.scale,
                                                       st.delta_scale, do_est)
-    g_norm = torch.max(torch.abs(g))
-    dp_norm = torch.linalg.norm(st.dp)
-    if first:
-        # first-order-optimality threshold fixed from the first gradient
-        # (pose_estimator_base.h:341-343); only that test applies now
-        g_tol = opts.gradient_tolerance * torch.clamp(g_norm, min=_SQRT_EPS)
-        conv = g_norm < g_tol
-        status = torch.where(conv, STATUS_GRADIENT_TOL,
-                             STATUS_MAX_ITERATIONS).to(torch.int32)
-    else:
-        g_tol = st.g_tol
-        conv, status = _test_convergence(dp_norm, st.dp_norm_prev, g_norm,
-                                         f_new, st.f_norm, g_tol, opts)
-    dp_new, ok = linear_system.solve(H, g)
-    do_update = ~conv & ok
-    better = f_new < st.f_best
-    T_best = torch.where(better, st.T, st.T_best)
-    f_best = torch.where(better, f_new, st.f_best)
-    T = torch.where(do_update, st.T @ warp_mod.params_to_pose(-dp_new, s, c),
-                    st.T)
-    dp = torch.where(do_update, dp_new, st.dp)
-    status = torch.where(ok, status, STATUS_SOLVER_ERROR).to(torch.int32)
-    return _LoopState(
-        T=T, T_best=T_best, f_best=f_best, dp=dp, f_norm=f_new,
-        dp_norm_prev=dp_norm, g_tol=g_tol, scale=sigma,
-        delta_scale=delta_scale, H=H, g=g, w=w, status=status, conv=conv,
-        ok=ok, num_iters=st.num_iters + 1), dp_new, g_norm
+    return gn_step_mod.gn_step(st, H, g, f_new, sigma, delta_scale, w, s, c,
+                               opts, first)
 
 
-def _result(st: _LoopState) -> GNState:
+def _result(st: gn_step_mod.LoopState) -> GNState:
     """The level's GNState: the best evaluated pose when the loop ended
     unconverged at a higher cost (JAX gauss_newton.py:489-492)."""
     use_best = ~st.conv & (st.f_best < st.f_norm)
@@ -483,11 +418,11 @@ def _run(tdata, channels, cam, T_init, opts: GNOptions, linearize_fn,
     with graphs_mod.timed(timer, channels.device):
         st = iteration(st, True, 1e10 > max(opts.scale_tolerance,
                                             opts.scale_tolerance_rel))
+    # the step set the exit test ~conv & ok & (num_iters < max_iterations)
+    # and the sigma flag
     return _result(graphs_mod.while_loop(
-        lambda st: ~st.conv & st.ok & (st.num_iters < opts.max_iterations),
-        lambda st, do_est: iteration(st, False, do_est), st,
-        flag_fn=lambda st: _sigma_unstable(st.delta_scale, st.scale, opts),
-        timer=timer))
+        lambda st: st.pred, lambda st, do_est: iteration(st, False, do_est),
+        st, flag_fn=lambda st: st.flag, timer=timer))
 
 
 def fraction_of_good_points(weights, num_channels, num_valid, threshold,

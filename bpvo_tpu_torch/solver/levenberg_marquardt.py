@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from bpvo_tpu_torch.ops import gn_step
 from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.solver import linear_system, mestimator
 from bpvo_tpu_torch.utils import graphs as graphs_mod
@@ -73,7 +74,8 @@ def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
     dscale = torch.abs(sigma - 1.0)
     H, g, f_sq, w = gn.reduce_w(tdata.jacobians, r, valid, sigma, opts.loss)
     g_max = torch.max(torch.abs(g))
-    g_tol = opts.gradient_tolerance * torch.clamp(g_max, min=gn._SQRT_EPS)
+    g_tol = opts.gradient_tolerance * torch.clamp(g_max,
+                                                  min=gn_step.SQRT_EPS)
     init = LMState(T=T0, f_norm=torch.sqrt(f_sq), g=g, H=H,
                    mu=tau * torch.max(torch.diag(H)), nu=scalar(2.0),
                    scale=sigma, delta_scale=dscale, weights=w,
@@ -104,11 +106,11 @@ def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
         accept = rho > 0.0
         factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
         g_max = torch.max(torch.abs(st.g))
-        conv, status = gn._test_convergence(
+        conv, status = gn_step.convergence(
             torch.linalg.norm(dp), scalar(0.0), g_max,
             torch.where(accept, f_new, st.f_norm), st.f_norm,
-            opts.gradient_tolerance * torch.clamp(g_max, min=gn._SQRT_EPS),
-            opts)
+            opts.gradient_tolerance * torch.clamp(g_max,
+                                                  min=gn_step.SQRT_EPS), opts)
         conv = conv & accept
         return LMState(
             T=torch.where(accept, T_new, st.T),
@@ -126,4 +128,5 @@ def run(tdata, channels, cam: warp_mod.CameraModel, T_init,
     return graphs_mod.while_loop(
         lambda st: ~st.converged & (st.num_iters < opts.max_iterations),
         body, init,
-        flag_fn=lambda st: gn._sigma_unstable(st.delta_scale, st.scale, opts))
+        flag_fn=lambda st: gn_step.sigma_unstable(st.delta_scale, st.scale,
+                                                  opts))

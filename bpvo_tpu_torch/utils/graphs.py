@@ -38,13 +38,14 @@ cache it is a host loop that reads ``pred_fn(carry)`` once per iteration
 In a function the cache captures, it is a WHILE node: the body is captured
 once, copies its results over ``carry`` (whose tensors it then owns) and
 recomputes the predicate into a fixed bool that re-arms the node, so a
-replay runs every iteration on the device with no host read.  The warm-up
-runs the body at least once, even when the loop would run none, and warms
-every ``cond`` body in it.  The body is captured into a memory pool of its
-own: a block the body frees (a tensor from before the loop whose last
-reference the body drops) could otherwise be handed to a temporary later
-in the same body, which the next iteration would then read for that
-tensor.
+replay runs every iteration on the device with no host read.  A body may
+return ``carry``'s own tensors, overwritten (no copy is then made).  The
+warm-up runs the body at least once, even when the loop would run none (on
+a copy of the carry, then), and warms every ``cond`` body in it.  The body
+is captured into a memory pool of its own: a block the body frees (a
+tensor from before the loop whose last reference the body drops) could
+otherwise be handed to a temporary later in the same body, which the next
+iteration would then read for that tensor.
 
 The card's torch has no API for conditional nodes, so the code around a
 branch or a loop is captured as separate torch graphs (segments, kept
@@ -164,9 +165,10 @@ def op_modules():
     """The modules whose wrappers count kernel launches: the ``ops``
     modules and ``parallel.peer``."""
     from bpvo_tpu_torch.ops import (census, census_cost, fused_linearize,
-                                    irls, level_gn, sgm)
+                                    gn_step, irls, level_gn, sgm)
     from bpvo_tpu_torch.parallel import peer
-    return (census, census_cost, fused_linearize, irls, level_gn, sgm, peer)
+    return (census, census_cost, fused_linearize, gn_step, irls, level_gn,
+            sgm, peer)
 
 
 class Count:
@@ -815,8 +817,9 @@ class GraphCache:
             if timer is not None:
                 timer.tick()
         if not ran:
-            # warm the body the loop did not run
-            self._discard(lambda: body(carry))
+            # warm the body the loop did not run, on a copy of the carry (a
+            # body may overwrite its carry: ``ops.gn_step``)
+            self._discard(lambda: body(clone(carry)))
         return carry
 
     def _discard(self, fn):

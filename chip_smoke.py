@@ -75,7 +75,14 @@
    (``irls_reduce``'s sums bit for bit those of ``irls_reduce_w``; each
    timed on its own, with its own bound); one wrapper call of each must run
    exactly one device kernel (the kernel nodes of a CUDA graph of the
-   call, ``probes.timing.device_kernels``).
+   call, ``probes.timing.device_kernels``).  At L0 also ``gn_step`` (the
+   step of a ``gauss_newton.run`` iteration after its linearization)
+   against its plain version on the inputs of the level solve's first two
+   iterations: every field of the new state bit for bit but |dp| (within
+   ``ops.gn_step.DP_NORM_RTOL``) and the pose (within ``T_ATOL``); both
+   timed on
+   the second iteration's inputs with the tolerances at 0 (every call
+   solves and updates), one device kernel per call.
    Phases 2 and 5 add one line each: ``gauss_newton.run`` against
    ``level_gn`` at the bench L0 (K = 16384): both times and the pose
    difference.
@@ -88,8 +95,9 @@
    plus the margin, within T_ATOL_JAX_DENSE of the JAX reference
    (tests/data/torch_port_dense_ref.npz) with the same keyframe frames;
    launches: fused_linearize = gauss_newton.run iterations (+ one sigma pass
-   per sigma re-estimate at C=8), irls_reduce = sigma re-estimates at C=1,
-   level_gn = the L2 and L3 solves, each > 0.
+   per sigma re-estimate at C=8), gn_step = gauss_newton.run iterations,
+   irls_reduce = sigma re-estimates at C=1, level_gn = the L2 and L3
+   solves, each > 0.
    ``VisualOdometry.add_frame`` replays its frame, template and estimate
    graphs (each ``gauss_newton.run`` level a WHILE node of the
    estimate's); the run is first made eager (``_graphs = None``),
@@ -278,8 +286,8 @@ through the wrapper; SGM also ``ms_by_pass``, ``structure_bound_ms`` (the
 two-pass structure's bytes over 3.35 TB/s) and the matcher's ms, whole
 and ``matcher_ms_by_stage``; for census, whose wrapper costs more host
 time than the kernel device time, back-to-back launches of its C entry
-point; for fused_linearize and irls_reduce also the device time of the call
-replayed from a CUDA graph of 10 calls, per shape (``replayed_ms_by_shape``:
+point; for fused_linearize, irls_reduce and gn_step also the device time
+of the call replayed from a CUDA graph of 10 calls, per shape (``replayed_ms_by_shape``:
 per call of a 10-call graph; earlier versions of this script replayed one
 call per graph, which also timed the host's graph launches, so their
 readings do not compare), the device kernels one
@@ -430,6 +438,9 @@ PEAK_F32_PER_S = 67e12
 OPS_LEVEL_POINT, OPS_LEVEL_CHANNEL, OPS_MEDIAN_POINT = 20, 71, 32
 OPS_LIN_POINT, OPS_LIN_CHANNEL = 20, 71
 OPS_IRLS_TERM, OPS_CENSUS_PIXEL, OPS_SGM_COST = 64, 8, 32
+# gn_step: the jittered 6x6 Cholesky and its two substitutions (~180),
+# the residual check (~80), exp and the three 4x4 products (~450)
+OPS_GN_STEP = 710
 
 
 def _nbytes(*tensors):
@@ -583,11 +594,11 @@ def _rel(a, b):
 
 def _reset_counts():
     from bpvo_tpu_torch.ops import (census, census_cost, fused_linearize,
-                                    irls, level_gn, sgm)
+                                    gn_step, irls, level_gn, sgm)
     from bpvo_tpu_torch.utils import graphs
     graphs.settle()     # launches of IF bodies taken so far count before 0
-    for mod in (census, census_cost, fused_linearize, irls, level_gn, sgm,
-                sgm.winner_count):
+    for mod in (census, census_cost, fused_linearize, gn_step, irls,
+                level_gn, sgm, sgm.winner_count):
         mod.launch_count = 0
 
 
@@ -595,7 +606,7 @@ def _counts():
     """The kernels' launch counts, with the taken IF bodies' settled, and
     the SGM calls whose tile pass took the winner."""
     from bpvo_tpu_torch.ops import (census, census_cost, fused_linearize,
-                                    irls, level_gn, sgm)
+                                    gn_step, irls, level_gn, sgm)
     from bpvo_tpu_torch.utils import graphs
     graphs.settle()
     return {"level_gn": level_gn.launch_count,
@@ -604,6 +615,7 @@ def _counts():
             "sgm_aggregate": sgm.launch_count,
             "sgm_winner": sgm.winner_count.launch_count,
             "fused_linearize": fused_linearize.launch_count,
+            "gn_step": gn_step.launch_count,
             "irls_reduce": irls.launch_count}
 
 
@@ -865,11 +877,12 @@ def _gn_check(label, got, want):
 
 def gn_kernel_phase(K, baseline, frames, dev):
     """fused_linearize and irls_reduce(_w) against their plain versions
-    at the dense L0 and L1 shapes, C=1 and C=8.  Returns {kernel: (max
-    error, {shape: (ms, plain ms, replayed ms, plain replayed ms)},
-    {shape: (bound ms, bound by)}, {shape: device kernels per call})};
-    irls_reduce's tuples also carry the call without weights: (ms,
-    replayed ms) and (bound ms, bound by) after the others."""
+    at the dense L0 and L1 shapes, C=1 and C=8, and gn_step at L0
+    (``_gn_step_check``).  Returns {kernel: (max error, {shape: (ms, plain
+    ms, replayed ms, plain replayed ms)}, {shape: (bound ms, bound by)},
+    {shape: device kernels per call})}; irls_reduce's tuples also carry
+    the call without weights: (ms, replayed ms) and (bound ms, bound by)
+    after the others; gn_step's error is the largest |T - T plain|."""
     import torch
     from bpvo_tpu_torch import DescriptorType
     from bpvo_tpu_torch.ops import fused_linearize as fl
@@ -877,10 +890,10 @@ def gn_kernel_phase(K, baseline, frames, dev):
     from bpvo_tpu_torch.probes import timing
     from bpvo_tpu_torch.solver import mestimator
     from bpvo_tpu_torch.vo import device_vo, template_data, warp
-    err = {"fused_linearize": 0.0, "irls_reduce": 0.0}
-    ms = {"fused_linearize": {}, "irls_reduce": {}}
-    bounds = {"fused_linearize": {}, "irls_reduce": {}}
-    per_call = {"fused_linearize": {}, "irls_reduce": {}}
+    err = {"fused_linearize": 0.0, "irls_reduce": 0.0, "gn_step": 0.0}
+    ms = {"fused_linearize": {}, "irls_reduce": {}, "gn_step": {}}
+    bounds = {"fused_linearize": {}, "irls_reduce": {}, "gn_step": {}}
+    per_call = {"fused_linearize": {}, "irls_reduce": {}, "gn_step": {}}
     for name, desc in (("intensity", DescriptorType.INTENSITY),
                        ("bitplanes", DescriptorType.BITPLANES)):
         vo = device_vo.DeviceVO(K, baseline, (frames[0][0].shape),
@@ -982,8 +995,91 @@ def gn_kernel_phase(K, baseline, frames, dev):
                         _bound(_nbytes(*b[:4], *got), ops)
                         + _bound(_nbytes(*b[:4], *got3), ops))
                     per_call["irls_reduce"][shape] = n_k
+            if level == 0:
+                shape = f"{name} L0 C={C}"
+                dT, t, bnd, n_k = _gn_step_check(f"gn_step {shape}", td, ch,
+                                                 cam, opts)
+                err["gn_step"] = max(err["gn_step"], dT)
+                ms["gn_step"][shape], bounds["gn_step"][shape] = t, bnd
+                per_call["gn_step"][shape] = n_k
         del vo, pyr
     return {k: (err[k], ms[k], bounds[k], per_call[k]) for k in err}
+
+
+def _gn_step_check(label, td, ch, cam, opts):
+    """``ops.gn_step`` against ``gn_step_reference`` on the inputs of the
+    first two iterations of the level solve of ``td`` on ``ch`` from the
+    identity (the second at the plain version's new state): every field bit
+    for bit but dp_norm_prev, within ``gn_step.DP_NORM_RTOL``, and T,
+    within ``gn_step.T_ATOL``.  Then kernel and plain version timed on the second
+    iteration's inputs with every tolerance at 0 (each call solves and
+    updates), through the wrapper and replayed GN_PER_GRAPH calls a graph.
+    Returns (max |T - T plain|, (ms, plain ms, replayed ms, plain replayed
+    ms), (bound ms, bound by), device kernels per call)."""
+    import dataclasses
+    import torch
+    from bpvo_tpu_torch.ops import gn_step as gs
+    from bpvo_tpu_torch.probes import timing
+    from bpvo_tpu_torch.solver import gauss_newton as gn
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    C, Kl = td.pixels.shape
+    dev = ch.device
+    s, c = td.norm_scale, td.norm_center
+    lin = gn._default_linearize_fn(td, ch, cam, opts)
+    st = gn._initial_state(torch.eye(4, device=dev), C, Kl, dev)
+    dT = 0.0
+    for first in (True, False):
+        a = (*lin(st.T, st.scale, st.delta_scale, True), s, c, opts, first)
+        want = gs.gn_step_reference(st, *a)
+        got = gs.gn_step(gs.LoopState(*(x.clone() for x in st)), *a)
+        torch.cuda.synchronize()
+        for f in gs.LoopState._fields:
+            x, y = getattr(got[0], f), getattr(want[0], f)
+            if f == "T":
+                dT = max(dT, float((x - y).abs().max()))
+            elif f == "dp_norm_prev":
+                _require(abs(float(x) - float(y))
+                         <= gs.DP_NORM_RTOL * float(y),
+                         f"{label}: |dp| {float(x)!r} vs plain {float(y)!r}")
+            else:
+                _require(torch.equal(bits(x), bits(y)),
+                         f"{label}: {f} differs from the plain version")
+        _require(all(torch.equal(bits(x), bits(y))
+                     for x, y in zip(got[1:], want[1:])),
+                 f"{label}: dp_new or g_norm differs from the plain version")
+        st = want[0]
+    _require(dT <= gs.T_ATOL, f"{label}: |T - T plain| {dT} > {gs.T_ATOL}")
+    free = dataclasses.replace(opts, function_tolerance=0.0,
+                               parameter_tolerance=0.0, gradient_tolerance=0.0,
+                               max_iterations=2 ** 30)
+    st.g_tol.zero_()
+    ks, ps = (gs.LoopState(*(x.clone() for x in st)) for _ in "kp")
+    a = a[:-2] + (free, False)
+
+    def kernel():
+        gs.gn_step(ks, *a)
+
+    def plain():
+        gs.gn_step_reference(ps, *a)
+    t_k, t_p = _cuda_ms(kernel, KERNEL_REPS), _cuda_ms(plain, PLAIN_REPS)
+    d_k = timing.graph_ms(kernel, KERNEL_REPS, GN_PER_GRAPH)
+    d_p = timing.graph_ms(plain, KERNEL_REPS, GN_PER_GRAPH)
+    n_k = len(timing.device_kernels(kernel))
+    torch.cuda.synchronize()
+    _require(bool(ks.ok) and not bool(ks.conv),
+             f"{label}: the timed calls did not solve and update")
+    _require(n_k == 1, f"{label}: {n_k} device kernels per call")
+    state = [x for f, x in zip(gs.LoopState._fields, st) if f != "w"]
+    bound = _bound(_nbytes(*a[:5], *a[6:8], *state) + _nbytes(*state)
+                   + 7 * 4, OPS_GN_STEP)
+    print(f"  {label}: every field bit for bit but |dp| (within "
+          f"{gs.DP_NORM_RTOL:.3g}, relative) and T (|dT| {dT:.3e}, T_ATOL {gs.T_ATOL}); kernel {t_k:.4f} ms "
+          f"through the wrapper, {d_k:.4f} ms replayed, {n_k} device "
+          f"kernel(s) per call; plain {t_p:.4f} ms, {d_p:.4f} ms replayed")
+    return dT, (t_k, t_p, d_k, d_p), bound, n_k
 
 
 def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
@@ -1072,6 +1168,7 @@ def dense_vo_phase(K, baseline, frames, dev, ref, name, descriptor):
     bound = float(ref[f"{name}_gt_err"].max()) + GT_MARGIN_DENSE[name]
     C = vo._ref.templates[0].pixels.shape[0]
     want = {"fused_linearize": iters_run + (n_est[0] if C > 1 else 0),
+            "gn_step": iters_run,
             "irls_reduce": n_est[0] if C == 1 else 0,
             "level_gn": 2 * len(res)}      # L3 and L2 of each first estimate
     label = f"VO dense {name}"
@@ -1667,8 +1764,9 @@ TRACED_KERNELS = {"level_gn": "level_gn_kernel",
                   "fused_linearize": "fused_linearize_kernel",
                   "irls_reduce": "irls_reduce_kernel",
                   "census_planes": "census_kernel",
-                  "census_cost": "census_cost_kernel"}
-LOOP_KERNELS = ("fused_linearize", "irls_reduce")
+                  "census_cost": "census_cost_kernel",
+                  "gn_step": "gn_step_kernel"}
+LOOP_KERNELS = ("fused_linearize", "irls_reduce", "gn_step")
 
 
 def trace_chunk(name, vo, chunk, reset, smi):
@@ -4217,7 +4315,11 @@ def main() -> int:
                  "intensity L0 C=1"),
         gn_entry("irls_reduce", "bpvo_tpu_torch/csrc/irls_reduce.cu",
                  "bpvo_tpu/ops/pallas/irls_kernel.py:119 and :163",
-                 "intensity L0 M=1K")] + probe_entries + [peer_entry]}))
+                 "intensity L0 M=1K"),
+        gn_entry("gn_step", "bpvo_tpu_torch/csrc/gn_step.cu",
+                 "none: plain torch in JAX's lax.while_loop body "
+                 "(bpvo_tpu/solver/gauss_newton.py:457-487)",
+                 "intensity L0 C=1")] + probe_entries + [peer_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

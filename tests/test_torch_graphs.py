@@ -19,6 +19,7 @@ from bpvo_tpu import AlgorithmParameters as JParams
 from bpvo_tpu.vo.device_vo import DeviceVO as JDeviceVO
 from bpvo_tpu_torch import AlgorithmParameters, DescriptorType, VisualOdometry
 from bpvo_tpu_torch.data import synthetic
+from bpvo_tpu_torch.ops import gn_step
 from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.solver import linear_system
 from bpvo_tpu_torch.types import InterpolationType, LossFunctionType
@@ -234,14 +235,14 @@ def _parent_run(tdata, channels, cam, T_init, opts, linearize_fn=None):
         if it == 0:
             # first-order-optimality threshold fixed from the first gradient
             # (pose_estimator_base.h:341-343); only that test applies now
-            g_tol = opts.gradient_tolerance * torch.clamp(g_norm,
-                                                          min=gn._SQRT_EPS)
+            g_tol = opts.gradient_tolerance * torch.clamp(
+                g_norm, min=gn_step.SQRT_EPS)
             conv = g_norm < g_tol
             status = torch.where(conv, gn.STATUS_GRADIENT_TOL,
                                  gn.STATUS_MAX_ITERATIONS).to(torch.int32)
         else:
-            conv, status = gn._test_convergence(dp_norm, dp_norm_prev, g_norm,
-                                             f_new, f_norm, g_tol, opts)
+            conv, status = gn_step.convergence(dp_norm, dp_norm_prev, g_norm,
+                                               f_new, f_norm, g_tol, opts)
         dp_new, ok = linear_system.solve(H, g)
         do_update = ~conv & ok
         better = f_new < f_best
@@ -253,8 +254,8 @@ def _parent_run(tdata, channels, cam, T_init, opts, linearize_fn=None):
         status = torch.where(ok, status, gn.STATUS_SOLVER_ERROR).to(torch.int32)
         f_norm, dp_norm_prev, scale = f_new, dp_norm, sigma
         # the loop's one read of the device per iteration
-        flags = torch.stack([conv, ok, gn._sigma_unstable(delta_scale, scale,
-                                                       opts)]).tolist()
+        flags = torch.stack([conv, ok, gn_step.sigma_unstable(
+            delta_scale, scale, opts)]).tolist()
         converged, solver_ok, do_est = flags
         if opts.verbose:
             f_, g_, dp_, s_ = torch.stack([

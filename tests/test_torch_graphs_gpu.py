@@ -26,7 +26,7 @@ import torch
 from bpvo_tpu_torch import (AlgorithmParameters, ConfigFile, DescriptorType,
                             VisualOdometry)
 from bpvo_tpu_torch.data import stereo, synthetic
-from bpvo_tpu_torch.ops import sgm
+from bpvo_tpu_torch.ops import gn_step, sgm
 from bpvo_tpu_torch.solver import gauss_newton as gn
 from bpvo_tpu_torch.utils import graphs
 from bpvo_tpu_torch.vo import device_vo
@@ -334,8 +334,9 @@ def test_run_graphed_equals_eager(dense_levels, C, level):
     """A level solve through ``GraphCache.jit`` (each one replay of one
     graph, with no device read once the graph exists) against the eager
     ``gauss_newton.run`` at the dense L0/L1 shapes: every GNState field
-    bit for bit, the same launches, from two starts and on a second
-    template (copied into the graph's buffers)."""
+    bit for bit, the same launches (one ``gn_step`` an iteration), from
+    two starts and on a second template (copied into the graph's
+    buffers)."""
     vo, ch = dense_levels[C]
     td, cam, opts = vo.state.templates[level], vo._cams[level], vo._opts[level]
     assert not gn.level_kernel_supported(opts, 1, 1, 1, td.pixels.shape[1])
@@ -357,6 +358,7 @@ def test_run_graphed_equals_eager(dense_levels, C, level):
             got = _no_read_solve(cache, gn.run, tdata, ch[level], cam, T0,
                                  opts)
             assert _delta(before) == n_eager and n_eager["fused_linearize"]
+            assert n_eager["gn_step"] == int(want.num_iters)
             _equal(got, want, gn.GNState._fields)
             iters += int(want.num_iters)
     assert len(cache) == 1 and iters > 6
@@ -367,42 +369,89 @@ def test_run_graphed_equals_eager(dense_levels, C, level):
 def test_run_timer_counts_and_times_the_iterations(dense_levels, C):
     """The L0 solve's ``graphs.Timer`` in a graph: after each replay,
     settled, it counts the solve's iterations (the first between its own
-    start and stop nodes, the rest in the WHILE body), and its
-    nanoseconds fall within 5% of CUDA events around the same replay;
-    the eager solve counts its iterations on the host and no time."""
+    start and stop nodes, the rest in the WHILE body), as many as the
+    settled ``gn_step`` launches, and its nanoseconds fall within 5% of
+    CUDA events around the same replay once both lose their reading of a
+    replay of the same solve cut to its first iteration
+    (``max_iterations`` 1): the nodes outside the iterations (the initial
+    state, the predicate, the result; ~40 us on an H100, as much as a few
+    iterations now that the step after the linearization is one kernel)
+    are measured so, not bounded.  The WHILE node's relaunch of its body
+    (6-8 us an iteration on an H100) stays in the events' part.  The
+    events are queued behind a busy kernel, so they hold the graph's
+    device time and not the host's launch.  The eager solve counts its
+    iterations on the host and no time."""
+    import dataclasses
     vo, ch = dense_levels[C]
     td, cam, opts = vo.state.templates[0], vo._cams[0], vo._opts[0]
+    one = dataclasses.replace(opts, max_iterations=1)
     dev = ch[0].device
     timer = graphs.timer(f"test.run_timer.{C}")
     T0 = torch.eye(4, device=dev)
     cache = graphs.GraphCache(dev)
 
-    def solve():
-        return gn.run(td, ch[0], cam, T0, opts, timer=timer)
+    def solve(o):
+        return gn.run(td, ch[0], cam, T0, o, timer=timer)
 
     graphs.settle()
     it0, ns0 = timer.launch_count, timer.ns
-    want = solve()
+    want = solve(opts)
     graphs.settle()
     n = int(want.num_iters)
     assert n > 2 and timer.launch_count - it0 == n and timer.ns == ns0
-    cache("k", solve)               # warm-up (counted on the host), capture
+    for key, o in (("k", opts), ("k1", one)):
+        # warm-up (counted on the host), capture
+        cache(key, lambda: solve(o))
     graphs.settle()
+
+    def replay(key, o):
+        """(iterations, timer ms, events ms) of one replay."""
+        it0, ns0, steps = timer.launch_count, timer.ns, gn_step.launch_count
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        # the card busy while the host launches the replay: the events
+        # then hold the graph's device time, not the host's launch
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        got = cache(key, lambda: solve(o))
+        end.record()
+        torch.cuda.synchronize()
+        graphs.settle()
+        n = timer.launch_count - it0
+        assert n == int(got.num_iters) == gn_step.launch_count - steps
+        return n, (timer.ns - ns0) * 1e-6, start.elapsed_time(end)
+
     for T in (torch.eye(4, device=dev), torch.tensor(
             [[1.0, -2e-3, 1e-3, 5e-3], [2e-3, 1.0, -1e-3, -2e-3],
              [-1e-3, 1e-3, 1.0, 1e-2], [0.0, 0.0, 0.0, 1.0]], device=dev)):
         T0.copy_(T)
-        it0, ns0 = timer.launch_count, timer.ns
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
-        start.record()
-        got = cache("k", solve)
-        end.record()
-        torch.cuda.synchronize()
-        graphs.settle()
-        ms = start.elapsed_time(end)
-        assert timer.launch_count - it0 == int(got.num_iters) > 2
-        timed_ms = (timer.ns - ns0) * 1e-6
+        n1, timed1_ms, ms1 = replay("k1", one)
+        n, timed_ms, ms = replay("k", opts)
+        assert n1 == 1 and n > 2
+        timed_ms, ms = timed_ms - timed1_ms, ms - ms1
         assert abs(timed_ms - ms) <= 0.05 * ms, (timed_ms, ms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", ["C1", "C8"])
+def test_run_converged_at_its_first_iteration_graphed(dense_levels, C):
+    """A level solve whose first iteration converges (the gradient test
+    at a huge tolerance): the WHILE loop runs no iteration, so a key's
+    first call warms its body on a copy of the carry, which ``gn_step``
+    overwrites; the first call (the warm-up's result) and the replays
+    equal the eager solve bit for bit, one iteration each."""
+    import dataclasses
+    vo, ch = dense_levels[C]
+    td, cam = vo.state.templates[0], vo._cams[0]
+    opts = dataclasses.replace(vo._opts[0], gradient_tolerance=1e10)
+    dev = ch[0].device
+    T0 = torch.eye(4, device=dev)
+    want = gn.run(td, ch[0], cam, T0, opts)
+    assert int(want.num_iters) == 1 and bool(want.converged)
+    cache = graphs.GraphCache(dev)
+    for _ in range(3):
+        _equal(graphs.clone(_no_read_solve(cache, gn.run, td, ch[0], cam, T0,
+                                           opts)), want, gn.GNState._fields)
+    assert torch.equal(T0, torch.eye(4, device=dev))
 
 
 def _no_read_solve(cache, solve, tdata, channels, cam, T0, opts):
